@@ -7,15 +7,22 @@ path replaced by a CUDA C++ kernel written for ``sm_90a``
 host modules it shares with ``ccmh`` are kept as copies.
 
 Ported so far: the serving path (ViT-B/32 DCHMT encode -> Hamming top-k ->
-HTTP).  Layers, from the entry point down:
+HTTP) and DCHMT training (CLI -> Trainer -> train step -> BertAdam, with
+validation by mAP).  Layers, from the entry points down:
 
+  ccmh_torch.cli        — training CLI (``python -m ccmh_torch.cli``)
   ccmh_torch.serve      — HTTP daemon (``python -m ccmh_torch.serve``)
   ccmh_torch.retrieval  — Retriever (per-tower encode) + HashIndex (top-k)
-  ccmh_torch.train      — Method protocol, DCHMT encode, ``.npz`` restore
+  ccmh_torch.train      — Trainer, train state and step, BertAdam, Method
+                          protocol (DCHMT), ``.npz`` checkpoints
+  ccmh_torch.data       — splits, dataset and batching, synthetic data
+  ccmh_torch.losses     — the DCHMT loss
   ccmh_torch.models     — hash heads
   ccmh_torch.clip       — CLIP towers, ``.npz`` weight files
-  ccmh_torch.ops        — kernel wrappers: fused attention, packed Hamming
+  ccmh_torch.ops        — kernel wrappers (attention forward and backward,
+                          packed Hamming), similarity, mAP
   ccmh_torch.tokenizer  — byte-level BPE (pure Python, no ``regex``)
+  ccmh_torch.utils      — logger and metrics writer
 
 Entry points take ``device="cuda"`` by default and raise when CUDA is
 absent; the CPU runs only when a caller asks for it (the tests do).

@@ -7,7 +7,9 @@ trees (``img_head`` / ``txt_head``).  The port keeps exactly that layout
 with ``torch.Tensor`` leaves, so the bridge is a leaf-wise conversion that
 preserves dtypes and shapes: numpy in, tensors out, and back.  Neither
 direction imports ``ccmh`` or JAX; callers hand over numpy arrays
-(``jax.tree.map(np.asarray, tree)`` on the JAX side).
+(``jax.tree.map(np.asarray, tree)`` on the JAX side).  ``ccmh``'s BertAdam
+state (the ``m`` and ``v`` trees and ``step``, as numpy) goes into the
+port's optimizer with ``BertAdam.load_tree_state`` (train/optim.py).
 """
 
 from __future__ import annotations

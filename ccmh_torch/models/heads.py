@@ -2,8 +2,9 @@
 ``ccmh/models/heads.py``).
 
 Each head is an init function plus an apply function over a plain dict of
-tensors in ``ccmh``'s layout (weights [in, out]).  This slice serves, so
-only the eval forms are ported: LinearHash without dropout.
+tensors in ``ccmh``'s layout (weights [in, out]).  LinearHash's training
+dropout draws its mask from an explicit ``torch.Generator`` (``ccmh`` draws
+it from a ``jax.random`` key: the same distribution, not the same bits).
 
 Reference anchors:
   LinearHash — model/modelbase.py:25-35 (Linear + Dropout(0.2) + tanh)
@@ -14,7 +15,7 @@ Reference anchors:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,9 +40,21 @@ def init_linear_hash(gen: torch.Generator, in_dim: int, out_dim: int) -> Params:
             "b": torch.zeros((out_dim,), device=gen.device)}
 
 
-def linear_hash(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """tanh(x @ w + b): the eval form (dropout is a training-time op)."""
-    return torch.tanh(x @ p["w"] + p["b"])
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             train: bool) -> torch.Tensor:
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def linear_hash(p: Params, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop_rate: float = 0.2) -> torch.Tensor:
+    """tanh(dropout(x @ w + b)); dropout precedes tanh as in the reference
+    and runs only with ``train=True`` and a generator."""
+    return torch.tanh(_dropout(x @ p["w"] + p["b"], drop_rate, generator, train))
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,21 @@
-"""Fused multi-head self-attention forward for short sequences (kernel A).
+"""Fused multi-head self-attention for short sequences: forward (kernel A)
+and backward (kernel C), tied together as a ``torch.autograd.Function``.
 
-Port of the forward of ``ccmh/ops/attention.py`` (the Pallas kernel
-``_pallas_forward`` / ``_kernel``) as a CUDA C++ kernel for Hopper,
-``ccmh_torch/csrc/attention.cu``: one block per (batch element, head)
-keeps the head's q, k and v in shared memory and runs the fp32 softmax
-without writing the [L, L] logits to device memory.  The only device
-memory traffic is the packed [B, L, 3D] qkv read and the [B, L, D]
-context write.
+Port of ``ccmh/ops/attention.py``: the Pallas forward ``_pallas_forward`` /
+``_kernel`` as ``ccmh_torch/csrc/attention.cu`` and the Pallas backward
+``_pallas_backward`` / ``_bwd_kernel`` as ``ccmh_torch/csrc/attention_bwd.cu``,
+CUDA C++ for Hopper.  One block per (batch element, head) keeps the head on
+chip: the forward runs the fp32 softmax without writing the [L, L] logits to
+device memory; the backward recomputes them, likewise on chip, and writes
+dq, dk and dv into one packed [B, L, 3D] gradient.
 
-:func:`attention_reference` beside it is the plain PyTorch version (the
-math of ``ccmh``'s ``_xla_attention`` with the projection-bias fold of
-``_kernel``).  :func:`fused_attention` takes it for CPU tensors only; a
-CUDA tensor launches the kernel or raises.  The backward kernel comes
-with the training slice, so the wrapper refuses a CUDA input that
-requires grad.
+:class:`FusedAttention` is ``ccmh``'s ``jax.custom_vjp``: it saves only the
+raw ``qkv``, the mask and ``qkv_b`` (``_fwd``), and its backward is kernel C
+plus the (B, L) sum for ``d qkv_b`` (``_bwd``); the mask gets no gradient.
+:func:`attention_reference` and :func:`attention_backward_reference` beside
+them are the plain PyTorch versions.  A CPU tensor takes the plain versions
+(so the CPU tests exercise the Function's wiring); a CUDA tensor launches
+the kernels or raises.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import torch
 
 from ccmh_torch.ops import build
 
-# launches of the CUDA kernel since the count was last set to 0
-launches = 0
+# launches of the CUDA kernels since the counts were last set to 0
+launches = 0            # the forward, kernel A
+backward_launches = 0   # the backward, kernel C
 
 MAX_SEQ = 128        # the kernel keeps up to 4 keys per lane in registers
 MAX_HEAD_DIM = 128   # ... and up to 4 head dims per lane
@@ -81,11 +84,6 @@ def _check_kernel_inputs(qkv, bias, n_head, qkv_b) -> None:
         raise ValueError(f"the attention kernel takes 1 <= L <= {MAX_SEQ} and "
                          f"1 <= head_dim <= {MAX_HEAD_DIM} (got B={B}, L={L}, "
                          f"head_dim={head_dim})")
-    if torch.is_grad_enabled() and (qkv.requires_grad or (
-            qkv_b is not None and qkv_b.requires_grad)):
-        raise RuntimeError("fused_attention on CUDA is forward only (its "
-                           "backward kernel is not ported yet); run under "
-                           "torch.inference_mode() or torch.no_grad()")
     if qkv_b is not None and qkv_b.dtype != qkv.dtype:
         raise TypeError(f"qkv_b must be {qkv.dtype}, got {qkv_b.dtype}")
     if bias is not None and bias.dtype != torch.float32:
@@ -95,42 +93,150 @@ def _check_kernel_inputs(qkv, bias, n_head, qkv_b) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel_fn():
-    lib = build.load("attention")
-    fn = lib.ccmh_attention_fwd
+def attention_backward_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                                 qkv_b: Optional[torch.Tensor], g: torch.Tensor,
+                                 n_head: int) -> torch.Tensor:
+    """Plain PyTorch backward of :func:`attention_reference` with respect to
+    the raw ``qkv`` -> packed [B, L, 3D] ``dqkv``, step by step after
+    ``ccmh``'s ``_bwd_kernel``: ``g`` and ``qkv + qkv_b`` in the input type,
+    the softmax recomputed in fp32, ``dprobs = g . v`` and
+    ``dlogits = probs * (dprobs - sum(dprobs * probs))`` in fp32, then
+    ``probs`` and ``dlogits * scale`` rounded to the input type before the
+    three output products, which accumulate in fp32."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    head_dim = D // n_head
+    scale = 1.0 / math.sqrt(head_dim)
+    dtype = qkv.dtype
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.to(dtype)
+    q, k, v = (t.float() for t in qkv.reshape(B, L, 3, n_head, head_dim).unbind(2))
+    g = g.to(dtype).reshape(B, L, n_head, head_dim).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    dprobs = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    dlogits = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
+    probs_c = probs.to(dtype).float()
+    dlogits_c = (dlogits * scale).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlogits_c, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlogits_c, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs_c, g)
+    return torch.stack([dq, dk, dv], dim=2).to(dtype).reshape(B, L, D3)
+
+
+def _entry(name: str):
+    """(library, C entry) of kernel ``name`` with its argument types."""
+    if name == "fwd":
+        lib = build.load("attention")
+        fn = lib.ccmh_attention_fwd
+        n_ptrs = 4      # qkv, qkv_b, mask, out
+    else:
+        lib = build.load("attention_bwd")
+        fn = lib.ccmh_attention_bwd
+        n_ptrs = 5      # qkv, qkv_b, mask, g, dqkv
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return lib, fn
 
 
-def fused_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
-                    n_head: int,
-                    qkv_b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused attention over packed ``qkv`` [B, L, 3D] -> [B, L, D].
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
-    ``bias`` is an additive fp32 [L, L] mask (causal for text) or None;
-    ``qkv_b`` the [3D] projection bias, folded into the kernel's load (pass
-    the RAW ``x @ qkv_w`` product as ``qkv`` then).  A CPU tensor takes
-    :func:`attention_reference`; a CUDA tensor launches the kernel on
-    PyTorch's current stream, or raises."""
+
+def _device_of(qkv: torch.Tensor, what: str) -> str:
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {qkv.device}")
+    return qkv.device.type
+
+
+def _forward(qkv, bias, n_head, qkv_b):
     global launches
-    _check(qkv, bias, n_head, qkv_b)
-    if qkv.device.type == "cpu":
+    if _device_of(qkv, "fused_attention") == "cpu":
         return attention_reference(qkv, bias, n_head, qkv_b)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cuda or cpu, got {qkv.device}")
     _check_kernel_inputs(qkv, bias, n_head, qkv_b)
     B, L, D3 = qkv.shape
-    D = D3 // 3
-    head_dim = D // n_head
-    out = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
-    lib, fn = _kernel_fn()
+    head_dim = D3 // 3 // n_head
+    out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib, fn = _entry("fwd")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = fn(qkv.device.index, qkv.data_ptr(), None if qkv_b is None else qkv_b.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(),
+    err = fn(qkv.device.index, _ptr(qkv), _ptr(qkv_b), _ptr(bias), _ptr(out),
              B, L, n_head, head_dim, 1.0 / math.sqrt(head_dim),
              _DTYPE_CODES[qkv.dtype], stream)
     build.raise_on_error(lib, "ccmh_attention_fwd", err)
     launches += 1
     return out
+
+
+def attention_backward(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                       qkv_b: Optional[torch.Tensor], g: torch.Tensor,
+                       n_head: int) -> torch.Tensor:
+    """Gradient of :func:`fused_attention` with respect to the raw ``qkv``
+    for the output cotangent ``g`` [B, L, D] -> packed [B, L, 3D] in the
+    input type.  A CPU tensor takes :func:`attention_backward_reference`; a
+    CUDA tensor launches kernel C on PyTorch's current stream, or raises."""
+    global backward_launches
+    _check(qkv, bias, n_head, qkv_b)
+    B, L, D3 = qkv.shape
+    if tuple(g.shape) != (B, L, D3 // 3):
+        raise ValueError(f"g must be [{B}, {L}, {D3 // 3}], got {list(g.shape)}")
+    if g.device != qkv.device:
+        raise ValueError(f"g is on {g.device}, qkv on {qkv.device}")
+    if _device_of(qkv, "attention_backward") == "cpu":
+        return attention_backward_reference(qkv, bias, qkv_b, g, n_head)
+    _check_kernel_inputs(qkv, bias, n_head, qkv_b)
+    g = g.to(qkv.dtype)          # ccmh casts the cotangent to the input type
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    head_dim = D3 // 3 // n_head
+    dqkv = torch.empty_like(qkv)
+    lib, fn = _entry("bwd")
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = fn(qkv.device.index, _ptr(qkv), _ptr(qkv_b), _ptr(bias), _ptr(g), _ptr(dqkv),
+             B, L, n_head, head_dim, 1.0 / math.sqrt(head_dim),
+             _DTYPE_CODES[qkv.dtype], stream)
+    build.raise_on_error(lib, "ccmh_attention_bwd", err)
+    backward_launches += 1
+    return dqkv
+
+
+class FusedAttention(torch.autograd.Function):
+    """Kernel A forward, kernel C backward (``ccmh``'s ``custom_vjp``).
+
+    Saves only the raw ``qkv``, the mask and ``qkv_b``; the backward
+    recomputes the softmax.  ``d qkv_b`` is the (B, L) sum of ``dqkv``
+    (``qkv_b`` enters as ``qkv + b``); the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, qkv_b, n_head):
+        ctx.n_head = n_head
+        ctx.save_for_backward(qkv, bias, qkv_b)
+        return _forward(qkv, bias, n_head, qkv_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, qkv_b = ctx.saved_tensors
+        dqkv = attention_backward(qkv, bias, qkv_b, g.contiguous(), ctx.n_head)
+        d_qkv_b = None
+        if qkv_b is not None and ctx.needs_input_grad[2]:
+            d_qkv_b = dqkv.sum((0, 1)).to(qkv_b.dtype)
+        return (dqkv if ctx.needs_input_grad[0] else None), None, d_qkv_b, None
+
+
+def fused_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                    n_head: int,
+                    qkv_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused attention over packed ``qkv`` [B, L, 3D] -> [B, L, D],
+    differentiable through :class:`FusedAttention`.
+
+    ``bias`` is an additive fp32 [L, L] mask (causal for text) or None, and
+    gets no gradient; ``qkv_b`` the [3D] projection bias, folded into the
+    kernels' loads (pass the RAW ``x @ qkv_w`` product as ``qkv`` then).  A
+    CPU tensor takes the plain versions; a CUDA tensor launches the kernels
+    on PyTorch's current stream, or raises."""
+    _check(qkv, bias, n_head, qkv_b)
+    if bias is not None:
+        bias = bias.detach()
+    return FusedAttention.apply(qkv, bias, qkv_b, n_head)

@@ -1,16 +1,19 @@
-"""Method protocol, encode side (port of ``ccmh/train/methods/base.py``).
+"""Method protocol (port of ``ccmh/train/methods/base.py``).
 
-A Method bundles what serving needs from one of the hashing methods:
+A Method bundles what the Trainer and serving need from one of the hashing
+methods:
 
 * ``init``          — build head/extra/aux parameter trees;
+* ``loss``          — CLIP forward + heads + method loss, the body of the
+                      train step (``make_loss_fn`` binds the config);
 * ``encode_image``  — images -> ±1 image codes;
 * ``encode_text``   — token ids -> ±1 text codes.
 
 ``ccmh`` encodes one modality by returning one output of its joint
 ``encode`` under ``jit`` and letting XLA drop the other tower.  PyTorch
 runs eagerly, so the port's methods carry one encode function per tower,
-and the joint :meth:`Method.encode` is their composition.  Losses and the
-optimizer side come with the training slice.
+and the joint :meth:`Method.encode` is their composition.  ``jax.random``
+keys become an explicit ``torch.Generator`` (dropout of the linear heads).
 """
 
 from __future__ import annotations
@@ -35,8 +38,23 @@ class Method:
     encode_image: Callable[..., torch.Tensor]
     # (params, aux, ids [B, L], cfg, clip_cfg) -> ±1 int8 [B, K]
     encode_text: Callable[..., torch.Tensor]
+    # (params, extra, aux, batch, generator, cfg, clip_cfg)
+    #   -> (loss, (new_aux, metrics)); batch {"image", "text", "label"}
+    loss: Optional[Callable[..., Tuple[torch.Tensor, Tuple[Params, Dict[str, torch.Tensor]]]]] = None
     # optional: cfg -> (q, r) -> int32 distances replacing plain Hamming
     dist_fn: Optional[Callable[[Config], Callable]] = None
+    # optional: cfg -> optimizer factory for the loss-side ``extra``
+    # parameters (ccmh's extra_tx); no ported method has one yet
+    extra_optimizer: Optional[Callable[[Config], Any]] = None
+
+    def make_loss_fn(self, cfg: Config, clip_cfg: ClipConfig):
+        """``(params, extra, aux, batch, generator) -> (loss, (aux, metrics))``."""
+        if self.loss is None:
+            raise NotImplementedError(f"{self.name} has no loss in ccmh_torch yet")
+
+        def loss_fn(params, extra, aux, batch, generator):
+            return self.loss(params, extra, aux, batch, generator, cfg, clip_cfg)
+        return loss_fn
 
     def encode(self, params: Params, aux: Params, batch: Dict[str, torch.Tensor],
                cfg: Config, clip_cfg: ClipConfig) -> Tuple[torch.Tensor, torch.Tensor]:

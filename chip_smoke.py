@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ccmh_torch serving path on one NVIDIA card and check it.
+"""Drive the ccmh_torch serving and training paths on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -8,12 +9,17 @@ checkout.  It exits non-zero, printing no result, when there is no card or
 the ``ccmh_torch`` package is not beside it.  Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA kernel of the path from the sources in the checkout;
+   CUDA kernel from the sources in the checkout, one ``nvcc`` per source;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes: fused attention (vision B=256 L=50 D=768 H=12,
-   text B=256 L=32 D=512 H=8 causal, both with the projection bias, fp32
-   within 1e-4 and bf16 within 2e-2) and packed Hamming (Q=512, N=2^20,
-   K=64, exactly equal), each with ms per call beside its bound;
+   paths' shapes: the attention forward and backward (vision B=256 L=50
+   D=768 H=12, text B=256 L=32 D=512 H=8 causal, both with the projection
+   bias; fp32 within 1e-4 and bf16 within 2e-2, the backward's relative to
+   its output scale) and packed Hamming (Q=512, N=2^20, K=64, exactly
+   equal), each with ms per call beside its bound, the plain version's ms
+   and a PyTorch library call's ms where one computes the same function;
+   edge shapes (L=77, L=Dh=128, Dh=30, L=1), a gradient through
+   ``fused_attention`` against autograd through the plain version, and
+   the refusals of inputs the kernels do not take;
 3. the serving path at full width through its entry points, with the
    kernels' launch counters set to 0 just before and read just after:
    a seeded random ViT-B/32 DCHMT K=64 model saved as a ccmh-format
@@ -23,9 +29,23 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    --gallery`` loads it; ``RetrievalService`` on an HTTP port answering
    /healthz, /v1/encode (texts, images_b64), eight concurrent /v1/search
    and one /v1/add, each held against the direct calls;
-4. checks and rates beside the path: packed and int8 indexes agree; the
-   kernel path's codes against the plain path's on the card; encode items/s
-   in fp32 and bf16 and search ms per 512 queries.
+4. checks and rates beside it: packed and int8 indexes agree; the kernel
+   path's codes against the plain path's; encode items/s in fp32 and bf16
+   and search ms per 512 queries;
+5. the training path through ``ccmh_torch.cli.main`` in-process, counters
+   set to 0 just before and read just after: ViT-B/32 DCHMT K=64 fp32 from
+   a seeded ``--pretrained`` init on a seeded synthetic 224x224 npy dataset
+   (1,024 items: query 256, train 512), batch 128, 2 epochs with ``valid``
+   and ``--save-model``.  It checks that both attention kernels launched,
+   every step's loss is finite, every parameter moved, ``train.log`` has
+   both epochs' mAP lines, and the saved ``.npz`` serves: restored by
+   ``Retriever.from_pretrained`` it encodes the query split to the
+   trainer's own codes (bits may differ only at pair margins < 1e-3);
+6. beside it: one full-width loss and gradient with the fused attention
+   against the plain one at the same parameters and batch (losses within
+   1e-5, gradients within a relative norm of 1e-3), and the train step's
+   ms at batch 128 in fp32 and bf16 (and fp32 with the plain attention),
+   split into forward, backward and optimizer device time by CUDA events.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -61,6 +81,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12}
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# fused vs plain attention, full-width DCHMT gradient: ||g_f - g_p|| / ||g_p||
+# over all leaves (fp32; the two sum each attention product in other orders,
+# ~1e-6 relative per call, carried through 12 + 12 layers)
+GRAD_REL_TOL = 1e-3
 MARGIN = 1e-3          # code pairs closer than this may flip between paths
 N_IMAGES = 2048
 GALLERY = 2 ** 20
@@ -77,6 +101,23 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from ccmh_torch.ops import attention as attn
+    from ccmh_torch.ops import hamming as ham
+
+    attn.launches = attn.backward_launches = ham.launches = 0
+
+
+def read_counts() -> dict:
+    from ccmh_torch.ops import attention as attn
+    from ccmh_torch.ops import hamming as ham
+
+    return {"fused_attention_fwd": attn.launches,
+            "fused_attention_bwd": attn.backward_launches,
+            "hamming_distance_packed": ham.launches}
 
 
 def say(phase: str, **fields) -> None:
@@ -180,6 +221,62 @@ def attention_case(name, B, L, H, causal, dtype):
     return case
 
 
+def attention_bwd_case(name, B, L, H, causal, dtype):
+    """Kernel C against its plain version at the training path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from ccmh_torch.clip.model import causal_mask
+    from ccmh_torch.ops import attention as attn
+
+    dev = torch.device("cuda")
+    D, Dh = H * 64, 64
+    gen = torch.Generator(device=dev).manual_seed(L * 1000 + H + 1)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+    qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+    mask = causal_mask(L, device=dev) if causal else None
+    tname = "float32" if dtype == torch.float32 else "bfloat16"
+    with torch.no_grad():
+        got = attn.attention_backward(qkv, mask, qkv_b, g, H)
+        want = attn.attention_backward_reference(qkv, mask, qkv_b, g, H)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        del got, want
+        check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
+              f"attention backward {name} {tname}: max abs err {err} > "
+              f"{ATTN_TOL[tname]} x output scale {scale}")
+        ms = cuda_ms(lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
+        plain_ms = cuda_ms(lambda: attn.attention_backward_reference(qkv, mask, qkv_b, g, H),
+                           iters=5)
+    # the library yardstick: SDPA forward + backward through autograd on the
+    # q, k, v views of the biased qkv, minus SDPA's forward alone
+    x = (qkv + qkv_b).detach().requires_grad_()
+    g_heads = g.view(B, L, H, Dh).transpose(1, 2)
+
+    def sdpa_fwd():
+        q, k, v = x.view(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = sdpa_fwd()
+        torch.autograd.grad(out, x, g_heads)
+
+    lib_ms = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+    item = qkv.element_size()
+    n_bytes = (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item + (L * L * 4 if causal else 0)
+    n_ops = 10.0 * B * H * L * L * Dh
+    bound_ms, bound_by = bound(n_bytes, n_ops, tname)
+    case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
+            "causal": causal, "max_abs_err": err, "output_scale": scale,
+            "tol": ATTN_TOL[tname], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "SDPA fwd+bwd minus SDPA fwd", "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    say("kernel", kernel="fused_attention_bwd", **case)
+    return case
+
+
 def hamming_case():
     import torch
 
@@ -211,8 +308,10 @@ def hamming_case():
 
 
 def edge_checks():
-    """Ragged and large-shared-memory shapes, and the refusals: a CUDA
-    tensor the kernel does not take raises, it never takes the plain path."""
+    """Ragged and large-shared-memory shapes for both attention kernels and
+    the popcount kernel; a gradient through ``fused_attention`` on the card
+    against autograd through the plain version; and the refusals: a CUDA
+    tensor the kernels do not take raises, it never takes the plain path."""
     import torch
 
     from ccmh_torch.clip.model import causal_mask
@@ -221,34 +320,56 @@ def edge_checks():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    shapes = (  # (B, L, H, Dh, causal): the longest text context (63 KB of
-        #         shared memory), the L = Dh = 128 limit, an odd head dim, L = 1
+    shapes = (  # (B, L, H, Dh, causal): the longest text context, the
+        #         L = Dh = 128 limit (203 KB of shared memory forward, 170 KB
+        #         backward), an odd head dim, L = 1
         (3, 77, 8, 64, True), (2, 128, 2, 128, True), (2, 13, 3, 30, False),
         (5, 1, 2, 64, False))
-    errs = []
-    with torch.inference_mode():
+    errs, bwd_errs = [], []
+    with torch.no_grad():
         for B, L, H, Dh, causal in shapes:
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
                 qkv = torch.randn((B, L, 3 * H * Dh), generator=gen, device=dev).to(dtype)
                 b = torch.randn((3 * H * Dh,), generator=gen, device=dev).to(dtype)
+                g = torch.randn((B, L, H * Dh), generator=gen, device=dev).to(dtype)
                 m = causal_mask(L, device=dev) if causal else None
                 err = (attn.fused_attention(qkv, m, H, qkv_b=b).float()
                        - attn.attention_reference(qkv, m, H, qkv_b=b).float()
                        ).abs().max().item()
                 check(err <= tol, f"attention {(B, L, H, Dh, causal)} {dtype}: err {err}")
                 errs.append(err)
+                want = attn.attention_backward_reference(qkv, m, b, g, H).float()
+                scale = max(1.0, want.abs().max().item())
+                err = (attn.attention_backward(qkv, m, b, g, H).float() - want
+                       ).abs().max().item()
+                check(err <= tol * scale,
+                      f"attention backward {(B, L, H, Dh, causal)} {dtype}: err {err}")
+                bwd_errs.append(err)
         q = torch.randint(-2 ** 31, 2 ** 31, (37, 3), generator=gen, device=dev, dtype=torch.int32)
         r = torch.randint(-2 ** 31, 2 ** 31, (1001, 3), generator=gen, device=dev, dtype=torch.int32)
         check(torch.equal(ham.hamming_distance_packed(q, r),
                           ham.hamming_distance_packed_reference(q, r)),
               "packed hamming differs on ragged shapes")
+
+    # autograd on the card: kernel A forward + kernel C backward against
+    # autograd through the plain formulation (d qkv and d qkv_b)
+    grads = {}
+    for name in ("kernel", "plain"):
+        x = torch.randn((4, 50, 3 * 768), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev).requires_grad_()
+        b = (0.1 * torch.ones(3 * 768, device=dev)).requires_grad_()
+        out = (attn.fused_attention(x, None, 12, qkv_b=b) if name == "kernel"
+               else attn.attention_reference(x, None, 12, qkv_b=b))
+        grads[name] = torch.autograd.grad((out * out).sum(), (x, b))
+    grad_err = max((a - c).abs().max().item() / max(1.0, c.abs().max().item())
+                   for a, c in zip(grads["kernel"], grads["plain"]))
+    check(grad_err <= 1e-4, f"gradient through fused_attention differs: {grad_err}")
+
     refusals = 0
     for call in (
         lambda: attn.fused_attention(torch.zeros((1, 129, 192), device=dev), None, 3),
         lambda: attn.fused_attention(torch.zeros((1, 5, 192), device=dev,
                                                  dtype=torch.float16), None, 3),
-        lambda: attn.fused_attention(torch.zeros((1, 5, 192), device=dev,
-                                                 requires_grad=True), None, 3),
         lambda: ham.hamming_distance_packed(torch.zeros((2, 9), device=dev, dtype=torch.int32),
                                             torch.zeros((2, 9), device=dev, dtype=torch.int32)),
     ):
@@ -256,9 +377,10 @@ def edge_checks():
             call()
         except (ValueError, TypeError, RuntimeError):
             refusals += 1
-    check(refusals == 4, f"only {refusals} of 4 unsupported CUDA inputs raised")
+    check(refusals == 3, f"only {refusals} of 3 unsupported CUDA inputs raised")
     say("edges", attention_shapes=[list(x) for x in shapes],
-        attention_max_abs_err_fp32_bf16=errs, hamming_ragged="ok", refusals=refusals)
+        attention_max_abs_err_fp32_bf16=errs, attention_bwd_max_abs_err_fp32_bf16=bwd_errs,
+        gradient_rel_err_vs_plain=grad_err, hamming_ragged="ok", refusals=refusals)
 
 
 # --------------------------------------------------------------------- phase 3
@@ -495,6 +617,185 @@ def beside_the_path(state):
     return rates
 
 
+# --------------------------------------------------------------------- phase 5
+
+TRAIN_ITEMS, TRAIN_QUERY, TRAIN_SPLIT, TRAIN_BATCH = 1024, 256, 512, 128
+
+
+def training_path(state):
+    """``python -m ccmh_torch.cli`` in-process: ViT-B/32 DCHMT K=64 fp32,
+    2 epochs of batch 128 over a seeded synthetic 224x224 npy dataset,
+    ``valid`` each epoch, ``--save-model`` (counted launches around it)."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.config import Config
+    from ccmh_torch.data.synthetic import write_synthetic_mat_dataset
+    from ccmh_torch.train.checkpoint import save_checkpoint
+    from ccmh_torch.train.methods import get_method
+
+    data = os.path.join(WORK, "train_data")
+    t0 = time.perf_counter()
+    write_synthetic_mat_dataset(data, n=TRAIN_ITEMS, n_class=24, resolution=224, seed=5)
+    data_s = time.perf_counter() - t0
+    # a seeded random init as --pretrained, so the moved weights can be seen
+    init = os.path.join(WORK, "train_init.npz")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    heads, _, aux = get_method("DCHMT").init(gen, Config(output_dim=K_BITS), ClipConfig())
+    params0 = {"clip": init_clip_params(gen, ClipConfig()), **heads}
+    save_checkpoint(init, params0, aux=aux)
+    out = os.path.join(WORK, "train_out")
+    argv = ["--method", "DCHMT", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--save-dir", out, "--epochs", "2",
+            "--batch-size", str(TRAIN_BATCH), "--query-num", str(TRAIN_QUERY),
+            "--train-num", str(TRAIN_SPLIT), "--eval-batch", "256", "--pretrained", init,
+            "--display-step", "1", "--save-model", "--num-workers", "4", "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    say("train", model="ViT-B/32 DCHMT K=64 fp32", items=TRAIN_ITEMS, train=TRAIN_SPLIT,
+        query=TRAIN_QUERY, batch=TRAIN_BATCH, epochs=2, dataset_write_s=round(data_s, 2),
+        cli_s=round(seconds, 2), **launches)
+    state.update(trainer=trainer, params0=params0, train_launches=launches)
+
+
+def check_training(state):
+    import torch
+
+    from ccmh_torch.config import Config
+    from ccmh_torch.models.heads import select_hash
+    from ccmh_torch.retrieval import Retriever
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    trainer, launches = state["trainer"], state["train_launches"]
+    check(launches["fused_attention_fwd"] > 0, "training never launched the forward kernel")
+    check(launches["fused_attention_bwd"] > 0, "training never launched the backward kernel")
+    save_dir = trainer.cfg.save_dir
+    with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    losses = [r["loss"] for r in records if r["event"] == "train"]
+    steps = 2 * (TRAIN_SPLIT // TRAIN_BATCH)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"step losses {losses}")
+    valid = [r for r in records if r["event"] == "valid"]
+    with open(os.path.join(save_dir, "train.log")) as fh:
+        log = fh.read()
+    for epoch in (0, 1):
+        check(f"[{epoch}/2], MAP(i->t): " in log and "MAP(t->i): " in log,
+              f"no MAP lines of epoch {epoch} in train.log")
+    start = dict(tree_leaves_with_path(state.pop("params0")))
+    moved = sum(not torch.equal(leaf.detach(), start[path])
+                for path, leaf in tree_leaves_with_path(trainer.state.params))
+    check(moved == len(start), f"only {moved} of {len(start)} parameter leaves moved")
+    say("train", step_losses=losses, map_i2t=[r["i2t"] for r in valid],
+        map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(start))
+
+    # the saved weights serve: Retriever.from_pretrained encodes the query
+    # split to the trainer's own codes
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    batches = list(trainer.query_loader)
+    images = np.concatenate([b["image"] for b in batches])
+    ids = np.concatenate([b["text"] for b in batches])
+    cfg = Config(method="DCHMT", output_dim=K_BITS, max_words=trainer.cfg.max_words,
+                 pretrained=os.path.join(save_dir, "model-1.npz"))
+    retriever = Retriever.from_pretrained(cfg, device="cuda")
+    differ, near = 0, 0
+    for kind, codes, want in (("image", retriever.encode_images(images), q_img),
+                              ("text", retriever.encode_texts(ids), q_txt)):
+        with torch.inference_mode():
+            x = torch.from_numpy(images if kind == "image" else ids).cuda()
+            emb = (image_embeds(retriever.params, retriever.clip_cfg, x, cfg) if kind == "image"
+                   else text_embeds(retriever.params, retriever.clip_cfg, x, cfg))
+            pairs = select_hash(retriever.params["img_head" if kind == "image" else "txt_head"], emb)
+            margin = (pairs[..., 1] - pairs[..., 0]).abs().cpu().numpy()
+        bad = codes != want
+        differ += int(bad.sum())
+        near += int((margin < MARGIN).sum())
+        check(np.all(margin[bad] < MARGIN),
+              f"served {kind} codes differ from the trainer's at margin >= {MARGIN}")
+    say("train", served_codes_vs_trainer="agree", bits=2 * TRAIN_QUERY * K_BITS,
+        differing_bits=differ, bits_with_margin_below_1e_3=near)
+
+
+def beside_training(state):
+    """The fused path's full-width gradient against the plain path's, and
+    the train step's time (fp32, bf16) split into forward, backward and
+    optimizer by CUDA events."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    trainer = state["trainer"]
+    cfg, clip_cfg, method = trainer.cfg, trainer.clip_cfg, trainer.method
+    batch = trainer._put(next(iter(trainer.train_loader)))
+    paths, leaves = zip(*tree_leaves_with_path(trainer.state.params))
+    out = {}
+    for impl in ("fused", "plain"):
+        cm.set_attn_impl(impl)
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            loss, _ = method.make_loss_fn(cfg, clip_cfg)(trainer.state.params, None, {},
+                                                        batch, gen)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            cm.set_attn_impl("fused")
+        out[impl] = (loss.item(), [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)])
+    (lf, gf), (lp, gp) = out["fused"], out["plain"]
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(gf, gp)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in gp))
+    rel = num / den
+    worst = max(range(len(gp)), key=lambda i: ((gf[i] - gp[i]).norm() / gp[i].norm().clamp(min=1e-30)).item())
+    check(abs(lf - lp) <= 1e-5 * max(1.0, abs(lp)), f"fused loss {lf} vs plain {lp}")
+    check(rel <= GRAD_REL_TOL, f"fused vs plain gradient: relative norm {rel} > {GRAD_REL_TOL}")
+    say("check", fused_vs_plain_loss=[lf, lp], gradient_rel_norm=rel, tol=GRAD_REL_TOL,
+        worst_leaf="/".join(paths[worst]))
+    del out, gf, gp
+
+    # train step time at batch 128, split by CUDA events
+    from ccmh_torch.train.state import TrainState
+
+    opt = trainer.optimizer
+    timings = {}
+    for name, dtype, impl in (("fp32", "float32", "fused"), ("bf16", "bfloat16", "fused"),
+                              ("fp32_plain_attention", "float32", "plain")):
+        loss_fn = method.make_loss_fn(cfg.replace(compute_dtype=dtype), clip_cfg)
+        st: TrainState = trainer.state
+        cm.set_attn_impl(impl)
+        try:
+            parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+            steps, warm = 5, 2
+            t_host = 0.0
+            for i in range(warm + steps):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                ev[0].record()
+                opt.zero_grad(set_to_none=True)
+                loss, _ = loss_fn(st.params, None, st.aux, batch, st.generator)
+                ev[1].record()
+                loss.backward()
+                ev[2].record()
+                opt.step()
+                ev[3].record()
+                torch.cuda.synchronize()
+                if i >= warm:
+                    t_host += time.perf_counter() - h0
+                    for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+                        parts[k] += ev[a].elapsed_time(ev[b]) / steps
+        finally:
+            cm.set_attn_impl("fused")
+        timings[name] = {"step_ms": 1e3 * t_host / steps, **{f"{k}_ms": v for k, v in parts.items()}}
+    say("rates", train_step_batch=TRAIN_BATCH, **timings)
+    return timings
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -521,43 +822,54 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
     phase_build()
 
-    from ccmh_torch.ops import attention as attn
-    from ccmh_torch.ops import hamming as ham
-
+    path_shapes = (("vision", 50, 12, False), ("text", 32, 8, True))
     attn_cases = [attention_case(n, 256, L, H, causal, dt)
-                  for dt in (torch.float32, torch.bfloat16)
-                  for n, L, H, causal in (("vision", 50, 12, False), ("text", 32, 8, True))]
+                  for dt in (torch.float32, torch.bfloat16) for n, L, H, causal in path_shapes]
+    bwd_cases = [attention_bwd_case(n, 256, L, H, causal, dt)
+                 for dt in (torch.float32, torch.bfloat16) for n, L, H, causal in path_shapes]
     ham_case = hamming_case()
     edge_checks()
     torch.cuda.empty_cache()
 
+    # the serving path (slice 1), its counts set to 0 just before it
     state = {}
-    attn.launches = 0
-    ham.launches = 0
+    reset_counts()
     serving_path(state)
-    launches = {"attention": attn.launches, "hamming": ham.launches}
-    say("launches", **launches)
-    check(launches["attention"] > 0, "the serving path never launched the attention kernel")
-    check(launches["hamming"] > 0, "the serving path never launched the hamming kernel")
-
+    serving = read_counts()
+    say("launches", path="serving", **serving)
+    check(serving["fused_attention_fwd"] > 0, "the serving path never launched the attention kernel")
+    check(serving["hamming_distance_packed"] > 0, "the serving path never launched the hamming kernel")
     beside_the_path(state)
+    for key in ("retriever", "index", "gallery", "images"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
 
-    top = attn_cases[0]   # vision fp32: the serving default's dominant call
+    # the training path (slice 2): training_path resets the counts just
+    # before it calls the CLI and reads them just after
+    training_path(state)
+    training = state["train_launches"]
+    say("launches", path="training", **training)
+    check_training(state)
+    beside_training(state)
+
+    by_path = {k: {"serving": serving[k], "training": training[k]} for k in serving}
+
+    def entry(name, source, replaces, launches, cases):
+        top = cases[0]   # vision fp32 (the default's dominant call) or the search
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": by_path[name],
+                "max_abs_err": top["max_abs_err"], "ms": top["ms"],
+                "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+                "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+                "cases": cases}
+
     kernels = [
-        {"name": "fused_attention_fwd", "route": "cuda",
-         "source": "ccmh_torch/csrc/attention.cu",
-         "replaces": "ccmh/ops/attention.py:123",
-         "launches": launches["attention"], "max_abs_err": top["max_abs_err"],
-         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-         "cases": attn_cases},
-        {"name": "hamming_distance_packed", "route": "cuda",
-         "source": "ccmh_torch/csrc/hamming.cu",
-         "replaces": "ccmh/ops/hamming.py:56",
-         "launches": launches["hamming"], "max_abs_err": ham_case["max_abs_err"],
-         "ms": ham_case["ms"], "plain_ms": ham_case["plain_ms"],
-         "bound_ms": ham_case["bound_ms"], "bound_by": ham_case["bound_by"],
-         "library_ms": None, "cases": [ham_case]},
+        entry("fused_attention_fwd", "ccmh_torch/csrc/attention.cu",
+              "ccmh/ops/attention.py:123", training["fused_attention_fwd"], attn_cases),
+        entry("fused_attention_bwd", "ccmh_torch/csrc/attention_bwd.cu",
+              "ccmh/ops/attention.py:235", training["fused_attention_bwd"], bwd_cases),
+        entry("hamming_distance_packed", "ccmh_torch/csrc/hamming.cu",
+              "ccmh/ops/hamming.py:56", serving["hamming_distance_packed"], [ham_case]),
     ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     shutil.rmtree(WORK, ignore_errors=True)

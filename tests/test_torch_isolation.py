@@ -29,8 +29,13 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch, ccmh_torch.serve, ccmh_torch.retrieval\n"
         "import ccmh_torch.train.methods.dchmt, ccmh_torch.train.checkpoint\n"
         "import ccmh_torch.clip.convert, ccmh_torch.tokenizer.bpe\n"
+        "import ccmh_torch.cli, ccmh_torch.train.trainer, ccmh_torch.train.optim\n"
+        "import ccmh_torch.train.state, ccmh_torch.ops.map_metric\n"
+        "import ccmh_torch.ops.similarity, ccmh_torch.losses.dchmt\n"
+        "import ccmh_torch.data.dataset, ccmh_torch.data.split, ccmh_torch.data.synthetic\n"
+        "import ccmh_torch.utils.logger\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ccmh', 'optax', 'orbax'))\n"
+        "('jax', 'jaxlib', 'ccmh', 'optax', 'orbax', 'PIL'))\n"
         "print(','.join(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -32,6 +32,8 @@ def _classify(name: str) -> str:
     n = name.lower()
     if "attention_fwd_kernel" in n:
         return "fused_attention_kernel"
+    if "attention_bwd_kernel" in n:
+        return "fused_attention_bwd_kernel"
     if "hamming_packed_kernel" in n:
         return "popcount_kernel"
     if "memcpy htod" in n or "memcpy h2d" in n:
@@ -60,8 +62,10 @@ def profile_step(name: str, fn, top: int = 6):
     by_class, by_name = {}, {}
     for evt in prof.events():
         # device-side records only (kernels, copies, memsets); the CPU ops
-        # that launched them carry the same time again
-        if evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer"):
+        # that launched them carry the same time again, and so do the device
+        # spans of record_function ranges (e.g. "Optimizer.step#...")
+        if (evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer")
+                or getattr(evt, "is_user_annotation", False)):
             continue
         ms = (evt.time_range.end - evt.time_range.start) / 1e3
         cls = _classify(evt.name)
