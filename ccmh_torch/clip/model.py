@@ -13,7 +13,10 @@ packages unchanged (``ccmh_torch/bridge.py``):
   whatever the compute dtype.
 
 Attention dispatch follows ``ccmh``: the fused kernel
-(ccmh_torch/ops/attention.py) whenever the mask is None or [L, L].  This
+(ccmh_torch/ops/attention.py) whenever the mask is None or [L, L].  The
+blocks' LayerNorms take the fused kernels (ccmh_torch/ops/layernorm.py)
+under ``set_ln_impl("fused")``; ``ln_pre``, ``ln_post`` and ``ln_final``
+stay plain, as in ``ccmh``.  This
 slice ports the ``pooled`` features; the ``tokens``/``mith`` modes,
 ``need_weights``, per-example key-padding masks and the head-major
 (tensor-parallel) layout come later.
@@ -28,6 +31,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from ccmh_torch.ops.attention import attention_reference, fused_attention
+from ccmh_torch.ops.layernorm import (
+    fused_add_layer_norm, fused_layer_norm, layer_norm_reference,
+)
 
 Params = Dict[str, Any]
 
@@ -73,15 +79,8 @@ class ClipConfig:
 # primitive layers
 # ---------------------------------------------------------------------------
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """fp32-stable LayerNorm (biased variance); casts back to the input dtype."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * scale.float() + bias.float()
-    return y.to(x.dtype)
+# fp32-stable LayerNorm (biased variance); casts back to the input dtype
+layer_norm = layer_norm_reference
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -93,12 +92,26 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 # baseline the kernel path is held against).
 ATTN_IMPL = "fused"
 
+# LayerNorm of the transformer blocks: "fused" = kernel #4 for ln_1 and
+# kernel #5 for the residual add + ln_2 (ccmh_torch/ops/layernorm.py, their
+# plain versions on CPU tensors), "plain" = the plain formulation.  The
+# default is "plain", as ccmh's is "xla": ccmh measured its fused LN as a
+# net loss on a TPU's encode path, and the H100 A/B is in PERF.md.
+LN_IMPL = "plain"
+
 
 def set_attn_impl(impl: str) -> None:
     global ATTN_IMPL
     if impl not in ("fused", "plain"):
         raise ValueError(f"attention impl must be 'fused' or 'plain', got {impl!r}")
     ATTN_IMPL = impl
+
+
+def set_ln_impl(impl: str) -> None:
+    global LN_IMPL
+    if impl not in ("fused", "plain"):
+        raise ValueError(f"LayerNorm impl must be 'fused' or 'plain', got {impl!r}")
+    LN_IMPL = impl
 
 
 def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
@@ -118,9 +131,16 @@ def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
 def _block(x: torch.Tensor, p: Params, n_head: int,
            attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Pre-LN residual attention block (attention + QuickGELU MLP)."""
-    h = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    x = x + multi_head_attention(h, p["attn"], n_head, attn_bias)
-    h = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"])
+    fused = LN_IMPL == "fused"
+    ln = fused_layer_norm if fused else layer_norm
+    h = ln(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
+    attn_out = multi_head_attention(h, p["attn"], n_head, attn_bias)
+    if fused:
+        # the residual add + pre-MLP LN in one pass (kernel #5)
+        h, x = fused_add_layer_norm(x, attn_out, p["ln_2"]["scale"], p["ln_2"]["bias"])
+    else:
+        x = x + attn_out
+        h = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"])
     mlp = p["mlp"]
     return x + (quick_gelu(h @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"] + mlp["proj_b"])
 

@@ -334,9 +334,12 @@ class Retriever:
             raise ValueError(
                 f"checkpoint {cfg.pretrained} holds a {found} tower but "
                 f"{clip_cfg} was asked for")
-        heads, _, _ = method.init(torch.Generator(), cfg, found)
-        for name, head in heads.items():
-            want = {k: tuple(v.shape) for k, v in head.items()}
+        # the hash heads' shapes; the trees beside them (a label net, loss
+        # heads) depend on the class count, which serving does not know
+        heads, _, _ = method.init(torch.Generator(), cfg.replace(nclass=max(cfg.nclass, 1)),
+                                  found)
+        for name in ("img_head", "txt_head"):
+            want = {k: tuple(v.shape) for k, v in heads[name].items()}
             got = {k: tuple(np.shape(v)) for k, v in tree.get(name, {}).items()}
             if want != got:
                 raise ValueError(f"checkpoint head {name!r} has shapes {got}, "

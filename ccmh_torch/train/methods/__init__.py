@@ -32,7 +32,7 @@ EXPECTED_METHODS: Dict[str, str] = {
 }
 
 # modules of ccmh_torch.train.methods ported so far; each defines METHOD
-PORTED = ("dchmt",)
+PORTED = ("dchmt", "dsph", "dnph_tmm", "dmsh_ln", "dscph", "ddwsh", "ddbh")
 
 
 def available_methods() -> List[str]:

@@ -25,6 +25,8 @@ import torch
 
 from ccmh_torch.clip.model import ClipConfig, text_forward, vision_forward
 from ccmh_torch.config import Config
+from ccmh_torch.models.heads import init_linear_hash, linear_hash
+from ccmh_torch.ops.packing import sign_codes
 
 Params = Dict[str, Any]
 
@@ -43,9 +45,9 @@ class Method:
     loss: Optional[Callable[..., Tuple[torch.Tensor, Tuple[Params, Dict[str, torch.Tensor]]]]] = None
     # optional: cfg -> (q, r) -> int32 distances replacing plain Hamming
     dist_fn: Optional[Callable[[Config], Callable]] = None
-    # optional: cfg -> optimizer factory for the loss-side ``extra``
-    # parameters (ccmh's extra_tx); no ported method has one yet
-    extra_optimizer: Optional[Callable[[Config], Any]] = None
+    # optional: (cfg, extra) -> the optimizer of the loss-side ``extra``
+    # parameters (ccmh's extra_tx), stepped after BertAdam
+    extra_optimizer: Optional[Callable[[Config, Params], torch.optim.Optimizer]] = None
 
     def make_loss_fn(self, cfg: Config, clip_cfg: ClipConfig):
         """``(params, extra, aux, batch, generator) -> (loss, (aux, metrics))``."""
@@ -61,6 +63,57 @@ class Method:
         """batch {"image", "text"} -> (image codes, text codes)."""
         return (self.encode_image(params, aux, batch["image"], cfg, clip_cfg),
                 self.encode_text(params, aux, batch["text"], cfg, clip_cfg))
+
+
+def make_linear_hash_method(
+    name: str,
+    loss_body: Callable[..., Tuple[torch.Tensor, Any]],
+    *,
+    init_heads: Optional[Callable[[torch.Generator, Config, ClipConfig], Params]] = None,
+    init_extra: Optional[Callable[[torch.Generator, Config, ClipConfig], Params]] = None,
+    extra_optimizer: Optional[Callable[[Config, Params], torch.optim.Optimizer]] = None,
+) -> Method:
+    """Factory of the plain-LinearHash methods (``ccmh``'s
+    ``make_linear_hash_method``): LinearHash heads with dropout, sign
+    codes per tower; only the loss and the trees beside the heads differ.
+
+    ``loss_body(hash_img, hash_txt, batch, params, extra, aux, generator,
+    cfg) -> (loss, metrics)``; it draws any randomness of its own from
+    ``generator`` after the heads' dropout.  No ported LinearHash method
+    keeps ``aux`` state, so the factory has no ``init_aux`` (``ccmh``'s
+    has one).
+    ``init_heads`` adds trees to the head trees (they train under BertAdam
+    at the head lr, as DMsH_LN's label net does); ``init_extra`` builds the
+    loss-side ``extra`` tree that ``extra_optimizer`` steps.  ``ccmh``
+    writes DSPH, DMsH_LN, DScPH and DDWSH out by hand with the same heads
+    and encode; the port builds all of them here."""
+    def _init(gen: torch.Generator, cfg: Config, clip_cfg: ClipConfig):
+        heads = {
+            "img_head": init_linear_hash(gen, clip_cfg.embed_dim, cfg.output_dim),
+            "txt_head": init_linear_hash(gen, clip_cfg.embed_dim, cfg.output_dim),
+        }
+        if init_heads is not None:
+            heads.update(init_heads(gen, cfg, clip_cfg))
+        extra = init_extra(gen, cfg, clip_cfg) if init_extra else None
+        return heads, extra, {}
+
+    def _loss(params, extra, aux, batch, generator, cfg: Config, clip_cfg: ClipConfig):
+        img, txt = clip_embeds(params, clip_cfg, batch, cfg)
+        hi = linear_hash(params["img_head"], img, train=True, generator=generator)
+        ht = linear_hash(params["txt_head"], txt, train=True, generator=generator)
+        loss, metrics = loss_body(hi, ht, batch, params, extra, aux, generator, cfg)
+        return loss, (aux, metrics)
+
+    def _encode_image(params, aux, images, cfg: Config, clip_cfg: ClipConfig):
+        return sign_codes(linear_hash(params["img_head"],
+                                      image_embeds(params, clip_cfg, images, cfg)))
+
+    def _encode_text(params, aux, ids, cfg: Config, clip_cfg: ClipConfig):
+        return sign_codes(linear_hash(params["txt_head"],
+                                      text_embeds(params, clip_cfg, ids, cfg)))
+
+    return Method(name=name, init=_init, encode_image=_encode_image,
+                  encode_text=_encode_text, loss=_loss, extra_optimizer=extra_optimizer)
 
 
 def resolve_compute_dtype(cfg: Optional[Config]) -> torch.dtype:

@@ -5,8 +5,9 @@ step.  PyTorch runs eagerly: the state holds the parameter tree (leaf
 tensors with ``requires_grad``), the method's ``extra`` and ``aux`` trees,
 the step counter and the ``torch.Generator`` of the step's randomness, and
 the step is forward, loss, backward and one BertAdam step, updating the
-parameters in place.  The second optimizer ``ccmh`` runs for a method's
-loss-side ``extra`` parameters is not ported (no ported method has one).
+parameters in place.  A method's loss-side ``extra`` parameters (DSPH's
+proxies) take the same backward and their own optimizer (``ccmh``'s
+``extra_tx``), stepped after BertAdam.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass
 class TrainState:
     params: Params                  # {"clip": ..., "img_head": ..., "txt_head": ...}
-    extra: Optional[Params]         # loss-side trainables (none ported yet)
+    extra: Optional[Params]         # loss-side trainables (DSPH's proxies)
     aux: Params                     # non-trainable method state
     step: int
     generator: torch.Generator      # the steps' randomness (dropout)
@@ -64,24 +65,26 @@ LossFn = Callable[..., Tuple[torch.Tensor, Tuple[Params, Dict[str, torch.Tensor]
 
 
 def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
-                    extra_optimizer: Optional[Any] = None):
+                    extra_optimizer: Optional[torch.optim.Optimizer] = None):
     """``(state, batch) -> (state, metrics)``: one eager step.
 
     ``loss_fn(params, extra, aux, batch, generator) -> (loss, (new_aux,
-    metrics))``; the gradients of the parameters go to ``optimizer``.
-    ``metrics`` holds detached device scalars, ``loss`` among them (reading
-    them synchronises with the card, so the caller decides when)."""
-    if extra_optimizer is not None:
-        raise NotImplementedError(
-            "a second optimizer for a method's extra parameters is not "
-            "ported to ccmh_torch yet")
+    metrics))``; one backward differentiates the parameters and ``extra``
+    together, then ``optimizer`` steps the parameters and
+    ``extra_optimizer`` the ``extra`` leaves (``ccmh``'s two updates of
+    one step).  ``metrics`` holds detached device scalars, ``loss`` among
+    them (reading them synchronises with the card, so the caller decides
+    when)."""
+    optimizers = [optimizer] + ([extra_optimizer] if extra_optimizer is not None else [])
 
     def step_fn(state: TrainState, batch: Dict[str, Any]):
-        optimizer.zero_grad(set_to_none=True)
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
         loss, (new_aux, metrics) = loss_fn(state.params, state.extra, state.aux, batch,
                                            state.generator)
         loss.backward()
-        optimizer.step()
+        for opt in optimizers:
+            opt.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         state.aux = new_aux

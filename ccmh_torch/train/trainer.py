@@ -4,7 +4,9 @@
 One device (``cuda`` unless the caller asks for ``cpu``).  Per epoch: the
 train split streams from :class:`BatchIterator` (host assembly on threads,
 pinned host buffers on the card), each batch runs one eager train step
-(CLIP forward x2, heads, loss, backward, BertAdam); then ``valid`` extracts
+(CLIP forward x2, heads, loss, backward, BertAdam, and the method's own
+optimizer for its loss-side ``extra`` parameters where it has one, as
+DSPH's proxy SGD); the epoch rides in every batch.  Then ``valid`` extracts
 ±1 codes for the query and retrieval splits, ranks with the histogram mAP
 and rechecks candidates for a best epoch with the exact stable-sort mAP
 (``ccmh``'s ``_needs_exact``), keeps the best-epoch trackers, and writes
@@ -153,35 +155,44 @@ class Trainer:
             clip_params = init_clip_params(gen, clip_cfg)
         self.clip_cfg = clip_cfg
         heads, extra, aux = self.method.init(gen, cfg, clip_cfg)
-        if extra is not None or self.method.extra_optimizer is not None:
-            raise NotImplementedError(
-                f"{cfg.method} trains loss-side extra parameters; their optimizer "
-                "is not ported to ccmh_torch yet")
         params = {"clip": clip_params, **heads}
         step = 0
         if cfg.pretrained:
             if not os.path.exists(cfg.pretrained):
                 raise FileNotFoundError(f"--pretrained {cfg.pretrained!r} does not exist")
-            params, aux, step = self._restore(cfg.pretrained, params)
+            params, extra, aux, step = self._restore(cfg.pretrained, params, extra)
         params = trainable(params)
         self.optimizer = make_main_optimizer(cfg, params, len(self.train_loader))
-        self.state = TrainState(params, None, aux, step,
+        # the loss-side extra parameters train only under the method's own
+        # optimizer (ccmh's extra_tx)
+        self.extra_optimizer = None
+        if extra is not None and self.method.extra_optimizer is not None:
+            extra = trainable(extra)
+            self.extra_optimizer = self.method.extra_optimizer(cfg, extra)
+        self.state = TrainState(params, extra, aux, step,
                                 torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
         self.train_step = make_train_step(self.method.make_loss_fn(cfg, clip_cfg),
-                                          self.optimizer)
+                                          self.optimizer, self.extra_optimizer)
 
-    def _restore(self, path: str, params):
+    def _restore(self, path: str, params, extra):
         """Weights of a ccmh-format ``.npz`` (``restore_state``'s npz branch):
-        the params tree replaces the fresh one; aux and step come along."""
+        the params tree replaces the fresh one, and its ``extra`` tree the
+        fresh extra where it holds one; aux and step come along."""
         ckpt = load_checkpoint(path)
-        want = {k: tuple(v.shape) for k, v in tree_leaves_with_path(params)}
-        got = {k: tuple(np.shape(v)) for k, v in tree_leaves_with_path(ckpt["params"])}
-        if want != got:
-            diff = sorted(set(want.items()) ^ set(got.items()))[:6]
-            raise ValueError(f"{path} does not fit this {self.cfg.method} run "
-                             f"(K={self.cfg.output_dim}, {self.clip_cfg}): {diff}")
+        trees = [("params", params, ckpt["params"])]
+        if ckpt["extra"] is not None:
+            trees.append(("extra", extra or {}, ckpt["extra"]))
+        for name, fresh, saved in trees:
+            want = {k: tuple(v.shape) for k, v in tree_leaves_with_path(fresh)}
+            got = {k: tuple(np.shape(v)) for k, v in tree_leaves_with_path(saved)}
+            if want != got:
+                diff = sorted(set(want.items()) ^ set(got.items()))[:6]
+                raise ValueError(f"{path} does not fit this {self.cfg.method} run "
+                                 f"(K={self.cfg.output_dim}, {self.clip_cfg}): {name} {diff}")
+        if ckpt["extra"] is not None:
+            extra = params_from_jax(ckpt["extra"], device=self.device)
         self.logger.info(f"loaded checkpoint {path}")
-        return (params_from_jax(ckpt["params"], device=self.device),
+        return (params_from_jax(ckpt["params"], device=self.device), extra,
                 params_from_jax(ckpt["aux"], device=self.device), ckpt["step"])
 
     # ------------------------------------------------------------------ train
@@ -217,8 +228,13 @@ class Trainer:
         self.train_loader.set_epoch(epoch)
         losses = []
         start = time.time()
+        # the epoch rides in every train batch as a device scalar (DMsH_LN's
+        # label net anneals with it), as in ccmh
+        epoch_scalar = torch.tensor(epoch, dtype=torch.int32, device=self.device)
         for batch in self.train_loader:
-            self.state, metrics = self.train_step(self.state, self._put(batch))
+            batch = self._put(batch)
+            batch["epoch"] = epoch_scalar
+            self.state, metrics = self.train_step(self.state, batch)
             self.global_step += 1
             losses.append(metrics["loss"])
             if self.global_step % cfg.display_step == 0:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ccmh_torch serving and training paths on one NVIDIA card and
-check them.
+check them: DCHMT serving, DCHMT training, and LinearHash training with
+the LayerNorm kernels.
 
     python3 chip_smoke.py
 
@@ -15,11 +16,15 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    D=768 H=12, text B=256 L=32 D=512 H=8 causal, both with the projection
    bias; fp32 within 1e-4 and bf16 within 2e-2, the backward's relative to
    its output scale) and packed Hamming (Q=512, N=2^20, K=64, exactly
-   equal), each with ms per call beside its bound, the plain version's ms
-   and a PyTorch library call's ms where one computes the same function;
-   edge shapes (L=77, L=Dh=128, Dh=30, L=1), a gradient through
-   ``fused_attention`` against autograd through the plain version, and
-   the refusals of inputs the kernels do not take;
+   equal), the LayerNorm and residual add + LayerNorm (vision rows
+   256x50 W=768, text rows 256x32 W=512; fp32 within 1e-5, bf16 within
+   2e-2, the sum exactly equal), each with ms per call beside its bound,
+   the plain version's ms and a PyTorch library call's ms where one
+   computes the same function; edge shapes (L=77, L=Dh=128, Dh=30, L=1;
+   one row, ragged row counts, W from 1 to 1024), gradients through
+   ``fused_attention`` and the LayerNorm Functions against autograd
+   through the plain versions, and the refusals of inputs the kernels do
+   not take;
 3. the serving path at full width through its entry points, with the
    kernels' launch counters set to 0 just before and read just after:
    a seeded random ViT-B/32 DCHMT K=64 model saved as a ccmh-format
@@ -31,7 +36,8 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    and one /v1/add, each held against the direct calls;
 4. checks and rates beside it: packed and int8 indexes agree; the kernel
    path's codes against the plain path's; encode items/s in fp32 and bf16
-   and search ms per 512 queries;
+   and search ms per 512 queries; the codes with the LayerNorm kernels
+   against the plain LayerNorm's, and encode items/s with each;
 5. the training path through ``ccmh_torch.cli.main`` in-process, counters
    set to 0 just before and read just after: ViT-B/32 DCHMT K=64 fp32 from
    a seeded ``--pretrained`` init on a seeded synthetic 224x224 npy dataset
@@ -45,7 +51,19 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    against the plain one at the same parameters and batch (losses within
    1e-5, gradients within a relative norm of 1e-3), and the train step's
    ms at batch 128 in fp32 and bf16 (and fp32 with the plain attention),
-   split into forward, backward and optimizer device time by CUDA events.
+   split into forward, backward and optimizer device time by CUDA events;
+7. the LinearHash path with ``set_ln_impl("fused")``: ``ccmh_torch.cli.main``
+   with ``--method DSPH`` as in phase 5 (a seeded ``--pretrained`` init
+   with its proxies), counters set to 0 just before and read just after;
+   it checks that the attention and LayerNorm kernels launched, the losses
+   are finite, every parameter and proxy moved, the mAP lines, and that
+   the saved ``.npz`` serves the trainer's codes.  Then DNpH, DDBH,
+   DMsH_LN, DScPH and DDWSH, 2 steps each through ``Trainer`` with the
+   same checks;
+8. beside it: the full-width DSPH loss and gradient with the LayerNorm
+   kernels against the plain LayerNorm (losses within 1e-5, relative
+   gradient norm within 1e-3), and the DSPH step's ms at batch 128, fp32
+   and bf16, LayerNorm fused and plain in turns.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -81,6 +99,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12}
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# LayerNorm kernels vs their plain versions on unit-variance rows: fp32
+# (rsqrtf and the reduction order differ), bf16 one ulp at the output scale
+LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # fused vs plain attention, full-width DCHMT gradient: ||g_f - g_p|| / ||g_p||
 # over all leaves (fp32; the two sum each attention product in other orders,
 # ~1e-6 relative per call, carried through 12 + 12 layers)
@@ -107,17 +128,22 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from ccmh_torch.ops import attention as attn
     from ccmh_torch.ops import hamming as ham
+    from ccmh_torch.ops import layernorm as ln
 
     attn.launches = attn.backward_launches = ham.launches = 0
+    ln.launches = ln.add_launches = 0
 
 
 def read_counts() -> dict:
     from ccmh_torch.ops import attention as attn
     from ccmh_torch.ops import hamming as ham
+    from ccmh_torch.ops import layernorm as ln
 
     return {"fused_attention_fwd": attn.launches,
             "fused_attention_bwd": attn.backward_launches,
-            "hamming_distance_packed": ham.launches}
+            "hamming_distance_packed": ham.launches,
+            "fused_layer_norm": ln.launches,
+            "fused_add_layer_norm": ln.add_launches}
 
 
 def say(phase: str, **fields) -> None:
@@ -305,6 +331,137 @@ def hamming_case():
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     say("kernel", kernel="hamming_distance_packed", **case)
     return case
+
+
+def layernorm_case(name, rows, W, dtype, add):
+    """Kernel #4 (``add`` False) or #5 against its plain version at a
+    tower's shape, [rows = B * L, W] with the weights in the input type (as
+    the towers cast them).  The timed calls cycle over enough input sets
+    that each call reads inputs the L2 cache no longer holds: in the towers
+    they come from a matmul's output, not from a warm cache."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from ccmh_torch.ops import layernorm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(rows + W + add)
+    tname = "float32" if dtype == torch.float32 else "bfloat16"
+    kernel = "fused_add_layer_norm" if add else "fused_layer_norm"
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bytes = ((4 if add else 2) * rows * W + 2 * W) * item
+    n_sets = max(2, math.ceil(2 * 50e6 / n_bytes) + 1)
+    sets = [tuple(torch.randn((rows, W), generator=gen, device=dev).to(dtype)
+                  for _ in range(2 if add else 1)) for _ in range(n_sets)]
+    scale = (1.0 + 0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
+    bias = (0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
+    if add:
+        fns = {"kernel": lambda x, d: ln.add_ln_forward(x, d, scale, bias),
+               "plain": lambda x, d: ln.add_layer_norm_reference(x, d, scale, bias),
+               # no single PyTorch call fuses the add: x + d then
+               # F.layer_norm, timed for context only
+               "context": lambda x, d: F.layer_norm(x + d, (W,), scale, bias, 1e-5)}
+    else:
+        fns = {"kernel": lambda x: ln.ln_forward(x, scale, bias),
+               "plain": lambda x: ln.layer_norm_reference(x, scale, bias),
+               "context": lambda x: F.layer_norm(x, (W,), scale, bias, 1e-5)}
+    with torch.inference_mode():
+        got, want = fns["kernel"](*sets[0]), fns["plain"](*sets[0])
+        torch.cuda.synchronize()
+        if add:
+            check(torch.equal(got[1], want[1]), f"{kernel} {name} {tname}: s is not x + d")
+            got, want = got[0], want[0]
+        err = (got.float() - want.float()).abs().max().item()
+        check(math.isfinite(err) and err <= LN_TOL[tname],
+              f"{kernel} {name} {tname}: max abs err {err} > {LN_TOL[tname]}")
+        times = {}
+        for key, fn in fns.items():
+            cycle = itertools.cycle(sets)
+            times[key] = cuda_ms(lambda: fn(*next(cycle)), iters=8 * n_sets, warmup=n_sets)
+    n_ops = 8.0 * rows * W + (rows * W if add else 0)   # fp32 arithmetic per element
+    bound_ms, bound_by = bound(n_bytes, n_ops, "float32")
+    case = {"case": f"{name} {tname}", "shape": [rows, W], "max_abs_err": err,
+            "tol": LN_TOL[tname], "ms": times["kernel"], "plain_ms": times["plain"],
+            "library_ms": None if add else times["context"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "input_sets": n_sets}
+    if add:
+        case.update(s_equal=True, add_then_layer_norm_ms=times["context"])
+    say("kernel", kernel=kernel, **case)
+    return case
+
+
+def layernorm_edges():
+    """Kernels #4 and #5 at edge shapes (one row, a ragged row count, W = 1,
+    100, 128, 1000 and 1024), a gradient through the autograd Functions
+    against autograd through the plain versions, and the refusals: an
+    unsupported type or width raises, it never takes the plain path."""
+    import torch
+
+    from ccmh_torch.ops import layernorm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shapes = ((1, 768), (1001, 512), (37, 1), (9, 100), (300, 128), (65, 1000), (1003, 1024))
+    errs = []
+    with torch.no_grad():
+        for rows, W in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                tname = "float32" if dtype == torch.float32 else "bfloat16"
+                x, d = (torch.randn((rows, W), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+                sc = (1.0 + 0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
+                bi = (0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
+                err = (ln.ln_forward(x, sc, bi).float()
+                       - ln.layer_norm_reference(x, sc, bi).float()).abs().max().item()
+                y, s = ln.add_ln_forward(x, d, sc, bi)
+                want_y, want_s = ln.add_layer_norm_reference(x, d, sc, bi)
+                err = max(err, (y.float() - want_y.float()).abs().max().item())
+                check(torch.equal(s, want_s), f"layer norm {(rows, W)} {tname}: s != x + d")
+                check(err <= LN_TOL[tname], f"layer norm {(rows, W)} {tname}: err {err}")
+                errs.append(err)
+
+    # autograd on the card: the kernels' forwards + the closed-form VJP
+    # against autograd through the plain versions
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = [torch.randn(shape, generator=g, device=dev) for shape in
+              ((4, 50, 768), (4, 50, 768), (768,), (768,), (4, 50, 768), (4, 50, 768))]
+    grads = {}
+    for name in ("kernel", "plain"):
+        x, d, sc, bi = (t.clone().requires_grad_() for t in inputs[:4])
+        if name == "kernel":
+            h = ln.fused_layer_norm(x, sc, bi)
+            y, s = ln.fused_add_layer_norm(x, d, sc, bi)
+        else:
+            h = ln.layer_norm_reference(x, sc, bi)
+            y, s = ln.add_layer_norm_reference(x, d, sc, bi)
+        loss = (h * inputs[4]).sum() + (y * inputs[5]).sum() + (s * s).sum()
+        grads[name] = torch.autograd.grad(loss, (x, d, sc, bi))
+    grad_err = max((a - c).abs().max().item() / max(1.0, c.abs().max().item())
+                   for a, c in zip(grads["kernel"], grads["plain"]))
+    check(grad_err <= 1e-4, f"gradient through the LayerNorm kernels differs: {grad_err}")
+
+    x = torch.zeros((4, 64), device=dev)
+    w = torch.ones(64, device=dev)
+    refusals = 0
+    for call in (
+        lambda: ln.fused_layer_norm(x.half(), w.half(), w.half()),
+        lambda: ln.fused_layer_norm(torch.zeros((4, 1025), device=dev),
+                                    torch.ones(1025, device=dev), torch.ones(1025, device=dev)),
+        lambda: ln.fused_add_layer_norm(x, x.bfloat16(), w, w),
+        lambda: ln.fused_layer_norm(x, w, w.bfloat16()),
+    ):
+        before = ln.launches + ln.add_launches
+        try:
+            call()
+        except (ValueError, TypeError, RuntimeError):
+            refusals += 1
+        check(ln.launches + ln.add_launches == before, "a refused LayerNorm input launched")
+    check(refusals == 4, f"only {refusals} of 4 unsupported LayerNorm inputs raised")
+    say("edges", layernorm_shapes=[list(x) for x in shapes],
+        layernorm_max_abs_err_fp32_bf16=errs, layernorm_gradient_rel_err_vs_plain=grad_err,
+        layernorm_refusals=refusals)
 
 
 def edge_checks():
@@ -617,6 +774,64 @@ def beside_the_path(state):
     return rates
 
 
+def layernorm_beside_serving(state):
+    """The serving model's codes with the LayerNorm kernels against the
+    plain LayerNorm's (bits may differ only at pair margins < MARGIN), and
+    encode items/s with LN fused and plain, in turns (plain, fused, fused,
+    plain; the best of each)."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.models.heads import select_hash
+    from ccmh_torch.retrieval import Retriever
+    from ccmh_torch.tokenizer import tokenize_batch
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+
+    retriever, images, texts = state["retriever"], state["images"], state["texts"]
+    params, cfg, ccfg = retriever.params, retriever.cfg, retriever.clip_cfg
+    ids = tokenize_batch(texts, cfg.max_words)
+    mismatches, near = 0, 0
+    cm.set_ln_impl("fused")
+    try:
+        with torch.inference_mode():
+            for kind, data, codes in (("image", images, state["img_codes"]),
+                                      ("text", ids, state["txt_codes"])):
+                embed = image_embeds if kind == "image" else text_embeds
+                emb = torch.cat([embed(params, ccfg, torch.from_numpy(data[s:s + BATCH]).cuda(), cfg)
+                                 for s in range(0, N_IMAGES, BATCH)])
+                pairs = select_hash(params["img_head" if kind == "image" else "txt_head"], emb)
+                fused = (2 * pairs.argmax(-1) - 1).to(torch.int8).cpu().numpy()
+                margin = (pairs[..., 1] - pairs[..., 0]).abs().cpu().numpy()
+                differ = fused != codes
+                near += int((margin < MARGIN).sum())
+                mismatches += int(differ.sum())
+                check(np.all(margin[differ] < MARGIN),
+                      f"{kind} codes differ between fused and plain LayerNorm at margin >= {MARGIN}")
+    finally:
+        cm.set_ln_impl("plain")
+    say("check", fused_vs_plain_layernorm_codes="agree", bits=2 * N_IMAGES * K_BITS,
+        differing_bits=mismatches, bits_with_margin_below_1e_3=near)
+
+    bf16 = Retriever(retriever.method, params, retriever.aux,
+                     cfg.replace(compute_dtype="bfloat16"), ccfg, device="cuda")
+    rates = {}
+    try:
+        for name, r in (("fp32", retriever), ("bf16", bf16)):
+            for kind, fn, data in (("image", r.encode_images, images), ("text", r.encode_texts, ids)):
+                best = {"plain": 0.0, "fused": 0.0}
+                for impl in ("plain", "fused", "fused", "plain"):
+                    cm.set_ln_impl(impl)
+                    fn(data[:BATCH], batch_size=BATCH)
+                    rate = N_IMAGES / host_s(lambda: fn(data, batch_size=BATCH), reps=1)
+                    best[impl] = max(best[impl], rate)
+                for impl, rate in best.items():
+                    rates[f"{kind}_encode_items_per_s_{name}_ln_{impl}"] = rate
+    finally:
+        cm.set_ln_impl("plain")
+    say("rates", **{k: round(v, 4) for k, v in rates.items()})
+    return rates
+
+
 # --------------------------------------------------------------------- phase 5
 
 TRAIN_ITEMS, TRAIN_QUERY, TRAIN_SPLIT, TRAIN_BATCH = 1024, 256, 512, 128
@@ -689,8 +904,7 @@ def check_training(state):
         check(f"[{epoch}/2], MAP(i->t): " in log and "MAP(t->i): " in log,
               f"no MAP lines of epoch {epoch} in train.log")
     start = dict(tree_leaves_with_path(state.pop("params0")))
-    moved = sum(not torch.equal(leaf.detach(), start[path])
-                for path, leaf in tree_leaves_with_path(trainer.state.params))
+    moved = _moved(start, trainer.state.params)
     check(moved == len(start), f"only {moved} of {len(start)} parameter leaves moved")
     say("train", step_losses=losses, map_i2t=[r["i2t"] for r in valid],
         map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(start))
@@ -796,6 +1010,261 @@ def beside_training(state):
     return timings
 
 
+# --------------------------------------------------------------------- phase 7
+
+LH_OTHERS = ("DNpH", "DDBH", "DMsH_LN", "DScPH", "DDWSH")
+LH_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "fused_layer_norm",
+              "fused_add_layer_norm")
+
+
+def _snapshot(tree):
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    return {path: leaf.detach().clone() for path, leaf in tree_leaves_with_path(tree)}
+
+
+def _moved(start, tree) -> int:
+    import torch
+
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    return sum(not torch.equal(leaf.detach(), start[path])
+               for path, leaf in tree_leaves_with_path(tree))
+
+
+def linear_hash_path(state):
+    """``python -m ccmh_torch.cli`` in-process with ``--method DSPH``, the
+    LayerNorm kernels on (the caller sets ``set_ln_impl("fused")``):
+    ViT-B/32 K=64 fp32 from a seeded ``--pretrained`` init (proxies
+    included) on phase 5's dataset, batch 128, 2 epochs with ``valid`` and
+    ``--save-model`` (counted launches around it)."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.config import Config
+    from ccmh_torch.train.checkpoint import save_checkpoint
+    from ccmh_torch.train.methods import get_method
+
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    init = os.path.join(WORK, "dsph_init.npz")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    heads, extra, aux = get_method("DSPH").init(
+        gen, Config(method="DSPH", output_dim=K_BITS, nclass=24), ClipConfig())
+    params0 = {"clip": init_clip_params(gen, ClipConfig()), **heads}
+    save_checkpoint(init, params0, extra=extra, aux=aux)
+    out = os.path.join(WORK, "dsph_out")
+    argv = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--save-dir", out, "--epochs", "2",
+            "--batch-size", str(TRAIN_BATCH), "--query-num", str(TRAIN_QUERY),
+            "--train-num", str(TRAIN_SPLIT), "--eval-batch", "256", "--pretrained", init,
+            "--display-step", "1", "--save-model", "--num-workers", "4", "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    say("linear_hash", model="ViT-B/32 DSPH K=64 fp32, LayerNorm kernels on", items=TRAIN_ITEMS,
+        train=TRAIN_SPLIT, query=TRAIN_QUERY, batch=TRAIN_BATCH, epochs=2,
+        cli_s=round(seconds, 2), **launches)
+    state.update(dsph=trainer, dsph_params0=_snapshot(params0), dsph_extra0=_snapshot(extra),
+                 lh_launches=launches)
+    del params0, extra
+
+
+def check_linear_hash(state):
+    import torch
+
+    from ccmh_torch.config import Config
+    from ccmh_torch.models.heads import linear_hash
+    from ccmh_torch.retrieval import Retriever
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+
+    trainer, launches = state["dsph"], state["lh_launches"]
+    for name in LH_KERNELS:
+        check(launches[name] > 0, f"the DSPH CLI run never launched {name}")
+    save_dir = trainer.cfg.save_dir
+    with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    losses = [r["loss"] for r in records if r["event"] == "train"]
+    steps = 2 * (TRAIN_SPLIT // TRAIN_BATCH)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"DSPH step losses {losses}")
+    valid = [r for r in records if r["event"] == "valid"]
+    with open(os.path.join(save_dir, "train.log")) as fh:
+        log = fh.read()
+    for epoch in (0, 1):
+        check(f"[{epoch}/2], MAP(i->t): " in log and "MAP(t->i): " in log,
+              f"no MAP lines of epoch {epoch} in the DSPH train.log")
+    params0, extra0 = state.pop("dsph_params0"), state.pop("dsph_extra0")
+    moved, moved_extra = _moved(params0, trainer.state.params), _moved(extra0, trainer.state.extra)
+    check(moved == len(params0), f"DSPH: only {moved} of {len(params0)} parameter leaves moved")
+    check(moved_extra == len(extra0), f"DSPH: only {moved_extra} of {len(extra0)} extra leaves moved")
+    say("linear_hash", step_losses=losses, map_i2t=[r["i2t"] for r in valid],
+        map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(params0),
+        extra_leaves_moved=moved_extra, extra_leaves=len(extra0))
+
+    # the saved weights serve: Retriever.from_pretrained encodes the query
+    # split to the trainer's own codes (a bit may differ only where the
+    # relaxed code is within MARGIN of 0)
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    batches = list(trainer.query_loader)
+    images = np.concatenate([b["image"] for b in batches])
+    ids = np.concatenate([b["text"] for b in batches])
+    cfg = Config(method="DSPH", output_dim=K_BITS, max_words=trainer.cfg.max_words,
+                 pretrained=os.path.join(save_dir, "model-1.npz"))
+    retriever = Retriever.from_pretrained(cfg, device="cuda")
+    differ, near = 0, 0
+    for kind, codes, want in (("image", retriever.encode_images(images), q_img),
+                              ("text", retriever.encode_texts(ids), q_txt)):
+        with torch.inference_mode():
+            x = torch.from_numpy(images if kind == "image" else ids).cuda()
+            emb = (image_embeds(retriever.params, retriever.clip_cfg, x, cfg) if kind == "image"
+                   else text_embeds(retriever.params, retriever.clip_cfg, x, cfg))
+            h = linear_hash(retriever.params["img_head" if kind == "image" else "txt_head"], emb)
+            margin = h.abs().cpu().numpy()
+        bad = codes != want
+        differ += int(bad.sum())
+        near += int((margin < MARGIN).sum())
+        check(np.all(margin[bad] < MARGIN),
+              f"served DSPH {kind} codes differ from the trainer's at margin >= {MARGIN}")
+    say("linear_hash", served_codes_vs_trainer="agree", bits=2 * TRAIN_QUERY * K_BITS,
+        differing_bits=differ, bits_with_margin_below_1e_3=near)
+
+
+def other_linear_hash_methods(state):
+    """DNpH, DDBH, DMsH_LN, DScPH and DDWSH, each for 2 train steps at full
+    width through ``Trainer.train_epoch`` (ViT-B/32 K=64 fp32, random
+    init, batch 128 over a 256-item train split of phase 5's dataset),
+    counted launches around each."""
+    import torch
+
+    from ccmh_torch.cli import config_from_args
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.train.trainer import Trainer
+
+    data = os.path.join(WORK, "train_data")
+    results = {}
+    for name in LH_OTHERS:
+        argv = ["--method", name, "--dataset", "synthetic", "--output-dim", str(K_BITS),
+                "--data-dir", data, "--save-dir", os.path.join(WORK, "lh_out"),
+                "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+                "--query-num", str(TRAIN_QUERY), "--train-num", str(2 * TRAIN_BATCH),
+                "--display-step", "1", "--num-workers", "4"]
+        trainer = Trainer(config_from_args(argv), clip_cfg=ClipConfig(), device="cuda")
+        if name == "DMsH_LN":
+            # at the label net's init every label pair of this data is
+            # positive and the loss is exactly 0 (in ccmh too); unit-normal
+            # weights and small biases make it mine pairs.  The label net
+            # only shapes the masks, so it gets no gradient and moves by
+            # weight decay alone, which needs non-zero values
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            with torch.no_grad():
+                for layer in trainer.state.params["label_net"].values():
+                    for key, std in (("w", 1.0), ("b", 0.01)):
+                        layer[key].copy_(std * torch.randn(layer[key].shape, generator=gen,
+                                                           device="cuda"))
+        start = _snapshot(trainer.state.params)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(trainer.cfg.save_dir, "metrics.jsonl")) as fh:
+            losses = [r["loss"] for r in map(json.loads, fh) if r["event"] == "train"]
+        moved = _moved(start, trainer.state.params)
+        for kernel in LH_KERNELS:
+            check(launches[kernel] > 0, f"{name} never launched {kernel}")
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"{name} step losses {losses}")
+        check(trainer.state.step == 2 and moved == len(start),
+              f"{name}: {trainer.state.step} steps, {moved} of {len(start)} leaves moved")
+        results[name] = {"step_losses": losses, "leaves_moved": moved, "leaves": len(start),
+                         "seconds": round(seconds, 2), **launches}
+        say("linear_hash", method=name, **results[name])
+        del trainer, start
+        torch.cuda.empty_cache()
+    return results
+
+
+def beside_linear_hash(state):
+    """The full-width DSPH loss and gradient (parameters and proxies) with
+    the LayerNorm kernels against the plain LayerNorm at the same
+    parameters and batch, and the DSPH train step's time at batch 128,
+    fp32 and bf16, LN fused and plain in turns (plain, fused, fused,
+    plain), split into forward, backward and optimizers by CUDA events."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    trainer = state["dsph"]
+    cfg, clip_cfg, method, st = trainer.cfg, trainer.clip_cfg, trainer.method, trainer.state
+    batch = trainer._put(next(iter(trainer.train_loader)))
+    batch["epoch"] = torch.tensor(0, dtype=torch.int32, device="cuda")
+    trees = list(tree_leaves_with_path(st.params)) + [
+        (("extra",) + p, leaf) for p, leaf in tree_leaves_with_path(st.extra)]
+    paths, leaves = zip(*trees)
+    out = {}
+    try:
+        for impl in ("fused", "plain"):
+            cm.set_ln_impl(impl)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            loss, _ = method.make_loss_fn(cfg, clip_cfg)(st.params, st.extra, st.aux, batch, gen)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            out[impl] = (loss.item(), [torch.zeros_like(p) if g is None else g
+                                       for p, g in zip(leaves, grads)])
+    finally:
+        cm.set_ln_impl("plain")
+    (lf, gf), (lp, gp) = out["fused"], out["plain"]
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(gf, gp)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in gp))
+    rel = num / den
+    worst = max(range(len(gp)), key=lambda i: ((gf[i] - gp[i]).norm() / gp[i].norm().clamp(min=1e-30)).item())
+    check(abs(lf - lp) <= 1e-5 * max(1.0, abs(lp)), f"DSPH fused-LN loss {lf} vs plain {lp}")
+    check(rel <= GRAD_REL_TOL, f"DSPH fused vs plain LN gradient: relative norm {rel} > {GRAD_REL_TOL}")
+    say("check", dsph_fused_vs_plain_ln_loss=[lf, lp], gradient_rel_norm=rel, tol=GRAD_REL_TOL,
+        worst_leaf="/".join(paths[worst]))
+    del out, gf, gp
+
+    opts = [trainer.optimizer] + ([trainer.extra_optimizer] if trainer.extra_optimizer else [])
+    runs = []
+    try:
+        for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+            loss_fn = method.make_loss_fn(cfg.replace(compute_dtype=dtype), clip_cfg)
+            for impl in ("plain", "fused", "fused", "plain"):
+                cm.set_ln_impl(impl)
+                parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+                steps, warm, t_host = 8, 2, 0.0
+                for i in range(warm + steps):
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                    torch.cuda.synchronize()
+                    h0 = time.perf_counter()
+                    ev[0].record()
+                    for opt in opts:
+                        opt.zero_grad(set_to_none=True)
+                    loss, _ = loss_fn(st.params, st.extra, st.aux, batch, st.generator)
+                    ev[1].record()
+                    loss.backward()
+                    ev[2].record()
+                    for opt in opts:
+                        opt.step()
+                    ev[3].record()
+                    torch.cuda.synchronize()
+                    if i >= warm:
+                        t_host += time.perf_counter() - h0
+                        for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+                            parts[k] += ev[a].elapsed_time(ev[b]) / steps
+                runs.append({"dtype": name, "ln": impl, "step_ms": 1e3 * t_host / steps,
+                             **{f"{k}_ms": v for k, v in parts.items()}})
+    finally:
+        cm.set_ln_impl("plain")
+    say("rates", dsph_train_step_batch=TRAIN_BATCH, runs=runs)
+    return runs
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -828,7 +1297,13 @@ def main() -> int:
     bwd_cases = [attention_bwd_case(n, 256, L, H, causal, dt)
                  for dt in (torch.float32, torch.bfloat16) for n, L, H, causal in path_shapes]
     ham_case = hamming_case()
+    ln_shapes = (("vision", 256 * 50, 768), ("text", 256 * 32, 512))
+    ln_cases = [layernorm_case(n, rows, W, dt, add=False)
+                for dt in (torch.float32, torch.bfloat16) for n, rows, W in ln_shapes]
+    add_ln_cases = [layernorm_case(n, rows, W, dt, add=True)
+                    for dt in (torch.float32, torch.bfloat16) for n, rows, W in ln_shapes]
     edge_checks()
+    layernorm_edges()
     torch.cuda.empty_cache()
 
     # the serving path (slice 1), its counts set to 0 just before it
@@ -840,6 +1315,7 @@ def main() -> int:
     check(serving["fused_attention_fwd"] > 0, "the serving path never launched the attention kernel")
     check(serving["hamming_distance_packed"] > 0, "the serving path never launched the hamming kernel")
     beside_the_path(state)
+    layernorm_beside_serving(state)
     for key in ("retriever", "index", "gallery", "images"):
         state.pop(key, None)
     torch.cuda.empty_cache()
@@ -851,8 +1327,27 @@ def main() -> int:
     say("launches", path="training", **training)
     check_training(state)
     beside_training(state)
+    state.pop("trainer")
+    torch.cuda.empty_cache()
 
-    by_path = {k: {"serving": serving[k], "training": training[k]} for k in serving}
+    # the LinearHash path (slice 3) with the LayerNorm kernels on:
+    # linear_hash_path resets the counts just before it calls the CLI and
+    # reads them just after; each other method counts its own two steps
+    from ccmh_torch.clip import model as cm
+
+    cm.set_ln_impl("fused")
+    try:
+        linear_hash_path(state)
+        linear_hash = state["lh_launches"]
+        say("launches", path="linear_hash", **linear_hash)
+        check_linear_hash(state)
+        other_linear_hash_methods(state)
+    finally:
+        cm.set_ln_impl("plain")
+    beside_linear_hash(state)
+
+    by_path = {k: {"serving": serving[k], "training": training[k],
+                   "linear_hash": linear_hash[k]} for k in serving}
 
     def entry(name, source, replaces, launches, cases):
         top = cases[0]   # vision fp32 (the default's dominant call) or the search
@@ -870,6 +1365,10 @@ def main() -> int:
               "ccmh/ops/attention.py:235", training["fused_attention_bwd"], bwd_cases),
         entry("hamming_distance_packed", "ccmh_torch/csrc/hamming.cu",
               "ccmh/ops/hamming.py:56", serving["hamming_distance_packed"], [ham_case]),
+        entry("fused_layer_norm", "ccmh_torch/csrc/layernorm.cu",
+              "ccmh/ops/layernorm.py:63", linear_hash["fused_layer_norm"], ln_cases),
+        entry("fused_add_layer_norm", "ccmh_torch/csrc/layernorm.cu",
+              "ccmh/ops/layernorm.py:80", linear_hash["fused_add_layer_norm"], add_ln_cases),
     ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     shutil.rmtree(WORK, ignore_errors=True)

@@ -96,6 +96,39 @@ def test_cli_training_loop_matches_ccmh(tmp_path):
 
 
 
+@pytest.mark.parametrize("method", ["DSPH", "DNpH", "DDBH", "DMsH_LN", "DScPH", "DDWSH"])
+def test_linear_hash_methods_train_and_save_through_the_cli(tmp_path, method):
+    """Each LinearHash method trains 2 epochs on the CPU with the tiny tower
+    and saves a ``.npz`` that ``Retriever.from_pretrained`` serves: the
+    restored model encodes the query split to the trainer's own codes."""
+    from ccmh_torch.config import Config
+    from ccmh_torch.retrieval import Retriever
+
+    data = write_synthetic_mat_dataset(str(tmp_path / "data"), n=30, n_class=5,
+                                       resolution=32, seed=4)
+    trainer = torch_main(["--method", method, "--dataset", "synthetic", "--output-dim", str(K),
+                          "--data-dir", data, "--save-dir", str(tmp_path / "out"),
+                          "--epochs", "2", "--batch-size", "6", "--query-num", "6",
+                          "--train-num", "12", "--eval-batch", "6", "--clip-arch", "tiny",
+                          "--display-step", "1", "--save-model", "--num-workers", "1",
+                          "--device", "cpu"])
+    losses = [r["loss"] for r in _records(trainer.cfg.save_dir, "train")]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert len(_records(trainer.cfg.save_dir, "valid")) == 2
+    assert (trainer.state.extra is not None) == (method == "DSPH")
+
+    saved = os.path.join(trainer.cfg.save_dir, "model-1.npz")
+    retriever = Retriever.from_pretrained(
+        Config(method=method, output_dim=K, max_words=trainer.cfg.max_words, pretrained=saved),
+        device="cpu")
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    batches = list(trainer.query_loader)
+    np.testing.assert_array_equal(
+        retriever.encode_images(np.concatenate([b["image"] for b in batches])), q_img)
+    np.testing.assert_array_equal(
+        retriever.encode_texts(np.concatenate([b["text"] for b in batches])), q_txt)
+
+
 @pytest.mark.parametrize("flags", [
     ["--test"], ["--resume"], ["--checkpoint-every", "1"], ["--mesh", "2"], ["--fsdp"],
     ["--cache-images"], ["--remat"], ["--profile"], ["--set", "optim_moments_dtype=bfloat16"],

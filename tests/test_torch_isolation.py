@@ -33,7 +33,9 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.train.state, ccmh_torch.ops.map_metric\n"
         "import ccmh_torch.ops.similarity, ccmh_torch.losses.dchmt\n"
         "import ccmh_torch.data.dataset, ccmh_torch.data.split, ccmh_torch.data.synthetic\n"
-        "import ccmh_torch.utils.logger\n"
+        "import ccmh_torch.utils.logger, ccmh_torch.utils.xlsx, ccmh_torch.ops.layernorm\n"
+        "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
+        "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccmh', 'optax', 'orbax', 'PIL'))\n"
         "print(','.join(bad))\n"

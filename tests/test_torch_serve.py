@@ -101,15 +101,17 @@ def test_from_pretrained_checks(pair):
         Retriever.from_pretrained(Config(**_cfg(pretrained=path, output_dim=32)),
                                   device="cpu")                              # wrong K
     with pytest.raises(NotImplementedError):
-        Retriever.from_pretrained(Config(**_cfg(pretrained=path, method="DSPH")),
+        Retriever.from_pretrained(Config(**_cfg(pretrained=path, method="DHaPH")),
                                   device="cpu")
 
 
 def test_registry_says_what_is_ported():
-    assert available_methods() == ["DCHMT"]
-    assert len(unported_methods()) == 13 and "DSPH" in unported_methods()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_method("MITH")
+    assert available_methods() == ["DCHMT", "DDBH", "DDWSH", "DMsH_LN", "DNpH", "DSPH",
+                                   "DScPH"]
+    assert unported_methods() == ["DGHDGH", "DHaPH", "DNPH", "DPBE", "DPSIH", "MITH", "TwDH"]
+    for name in unported_methods():
+        with pytest.raises(NotImplementedError, match="not ported.*'DSPH'"):
+            get_method(name)
     with pytest.raises(KeyError):
         get_method("NOPE")
 

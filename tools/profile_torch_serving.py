@@ -36,6 +36,8 @@ def _classify(name: str) -> str:
         return "fused_attention_bwd_kernel"
     if "hamming_packed_kernel" in n:
         return "popcount_kernel"
+    if "layer_norm_kernel<" in n and "at::native" not in n:
+        return "fused_layernorm_kernel"
     if "memcpy htod" in n or "memcpy h2d" in n:
         return "h2d_copy"
     if "memcpy dtoh" in n or "memcpy d2h" in n:
