@@ -1,0 +1,364 @@
+"""The attention ablation variants of ``tools/bench_attn_bwd.py``: five
+kernels, each a wrapper with a plain PyTorch version beside it.
+
+Port of the five Pallas kernels of ``tools/bench_attn_bwd.py`` as CUDA C++
+for Hopper: ``backward_x`` (#6, eight ablation ``mode``\\ s of the
+attention backward at a forced batch block), ``backward_savedp`` (#8, the
+backward from saved probabilities), ``backward_merged`` (#9, bb batch
+elements as merged rows under a block-diagonal mask) and
+``backward_headpair`` (#10, two heads a program) as
+``ccmh_torch/csrc/attention_variants.cu``; ``forward_stacked`` (#7, the
+forward with all heads' logits stacked before one softmax) as
+``ccmh_torch/csrc/attention_fwd_stacked.cu``.  Each computes kernel #2's
+(or #1's) function with no projection bias, apart from the changes its
+``mode`` makes (``*_reference`` spell each out step by step after the
+Pallas bodies).  ``savedp_probs`` and ``merged_mask`` build the setup
+inputs that the TPU tool builds outside its ``pallas_call``\\ s, and stay
+plain PyTorch.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  Every wrapper counts its launches.  One departure from the TPU
+tool, on both devices: its grids are ``B // bb`` and leave the trailing
+rows of a B that bb does not divide unwritten; here such a B raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ccmh_torch.ops import build
+from ccmh_torch.ops.attention import attention_reference
+
+# launches of the CUDA kernels since the counts were last set to 0
+backward_x_launches = 0          # #6
+forward_stacked_launches = 0     # #7
+backward_savedp_launches = 0     # #8
+backward_merged_launches = 0     # #9
+backward_headpair_launches = 0   # #10
+
+# #6's modes, in the order of their codes in csrc/attention_variants.cu
+MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
+# the modes that compute kernel #2's function (nomax: other rounding)
+SAME_FUNCTION_MODES = ("full", "stacked", "pair", "nomax")
+MAX_SEQ = 128          # keys a lane carries: 4 slots of 32
+MAX_MERGED_ROWS = 256  # #9: 8 slots of 32
+MAX_HEAD_DIM = 128
+OFF_BLOCK = -1e9       # #9's mask between batch elements
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ------------------------------------------------------------ plain versions
+
+def _heads(qkv: torch.Tensor, n_head: int):
+    """q, k, v of [N, R, 3D] as fp32 [N, R, H, Dh] each."""
+    N, R, D3 = qkv.shape
+    return qkv.reshape(N, R, 3, n_head, D3 // 3 // n_head).float().unbind(2)
+
+
+def _backward(qkv, logits, g, n_head, mode="full", probs_c=None):
+    """The Pallas bodies' backward from fp32 ``logits`` [N, H, R, R] (or,
+    for #8, the rounded ``probs_c``), ``qkv`` [N, R, 3D] and ``g``
+    [N, R, D] in qkv's type -> dqkv [N, R, 3D]."""
+    N, R, D3 = qkv.shape
+    D = D3 // 3
+    head_dim = D // n_head
+    scale = 1.0 / math.sqrt(head_dim)
+    dtype = qkv.dtype
+    q, k, v = _heads(qkv, n_head)
+    g = g.to(dtype).reshape(N, R, n_head, head_dim).float()
+    if probs_c is not None:                       # #8: the saved, rounded probs
+        probs = probs_c.float()
+    elif mode == "nomax":
+        e = torch.exp(logits)
+        probs = e / e.sum(-1, keepdim=True)
+    elif mode == "nosoftmax":
+        probs = logits * 0.01
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    dprobs = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    if mode == "novjp":
+        dlogits_c = (dprobs * scale).to(dtype).float()
+    elif mode == "bf16vjp":
+        # the chain in the input type, each op rounded to it; scale is a
+        # scalar of that type
+        p16, dp16 = probs.to(dtype), dprobs.to(dtype)
+        dlogits = p16 * (dp16 - (dp16 * p16).sum(-1, keepdim=True).to(dtype))
+        dlogits_c = (dlogits * torch.tensor(scale, dtype=dtype)).to(dtype).float()
+    else:
+        dlogits = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
+        dlogits_c = (dlogits * scale).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlogits_c, k)
+    if mode == "fewstores":
+        out = torch.empty_like(qkv)
+        out[:, :, D:2 * D] = dq.reshape(N, R, D).to(dtype)
+        return out
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlogits_c, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(dtype).float(), g)
+    return torch.stack([dq, dk, dv], dim=2).to(dtype).reshape(N, R, D3)
+
+
+def _logits(qkv, bias, n_head):
+    q, k, _ = _heads(qkv, n_head)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    return logits if bias is None else logits + bias.float()
+
+
+def backward_x_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
+                         n_head: int, mode: str = "full") -> torch.Tensor:
+    """Plain #6, ``_bwd_kernel_x`` step by step: ``full``, ``stacked`` and
+    ``pair`` are kernel #2's backward with no projection bias (the schedule
+    is all that differs); ``nomax`` drops the max from the softmax,
+    ``nosoftmax`` takes ``probs = logits * 0.01``, ``novjp`` takes
+    ``dlogits = dprobs``, ``bf16vjp`` runs the softmax VJP in the input
+    type, and ``fewstores`` writes only dq, into the dk slot, and leaves the
+    q and v slots uninitialised (``torch.empty``)."""
+    _check_mode(mode, n_head)
+    return _backward(qkv, _logits(qkv, bias, n_head), g, n_head, mode)
+
+
+def forward_stacked_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                              n_head: int) -> torch.Tensor:
+    """Plain #7: kernel #1's forward with no projection bias (stacking the
+    heads' logits before the softmax changes the schedule only)."""
+    return attention_reference(qkv, bias, n_head)
+
+
+def savedp_probs(qkv: torch.Tensor, bias: Optional[torch.Tensor], n_head: int) -> torch.Tensor:
+    """#8's setup input: the fp32 logits plus ``bias``, softmax, rounded to
+    qkv's type -> [B, H, L, L]."""
+    return torch.softmax(_logits(qkv, bias, n_head), dim=-1).to(qkv.dtype)
+
+
+def backward_savedp_reference(qkv: torch.Tensor, probs: torch.Tensor, g: torch.Tensor,
+                              n_head: int) -> torch.Tensor:
+    """Plain #8, ``_bwd_kernel_savedp``: the backward with the fp32 value
+    of the saved, rounded ``probs`` [B, H, L, L] in place of the recomputed
+    softmax (no mask is read)."""
+    return _backward(qkv, None, g, n_head, probs_c=probs)
+
+
+def merged_mask(bias: Optional[torch.Tensor], L: int, bb: int,
+                device="cpu") -> torch.Tensor:
+    """#9's setup input: the fp32 [R, R] mask of R = bb L merged rows,
+    ``bias`` (or 0) in each of the bb diagonal [L, L] blocks and -1e9
+    between batch elements.  On ``bias``'s device when there is one."""
+    if bias is not None:
+        device = bias.device
+    R = bb * L
+    mask = torch.full((R, R), OFF_BLOCK, dtype=torch.float32, device=device)
+    blk = torch.zeros((L, L), device=device) if bias is None else bias.float()
+    for i in range(bb):
+        mask[i * L:(i + 1) * L, i * L:(i + 1) * L] = blk
+    return mask
+
+
+def backward_merged_reference(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                              n_head: int, bb: int) -> torch.Tensor:
+    """Plain #9, ``_bwd_kernel_merged``: the backward over R = bb L merged
+    rows with the [R, R] ``mask`` added to every head's logits.  Off-block
+    probabilities are exactly 0, so it is kernel #2's function, at bb-fold
+    operations."""
+    B, L, D3 = qkv.shape
+    R = bb * L
+    merged = qkv.reshape(B // bb, R, D3)
+    out = _backward(merged, _logits(merged, mask, n_head), g.reshape(B // bb, R, D3 // 3),
+                    n_head)
+    return out.reshape(B, L, D3)
+
+
+def backward_headpair_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                                g: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Plain #10, ``_bwd_kernel_headpair``: kernel #2's backward with no
+    projection bias (two heads a program is the schedule); H even."""
+    _check_mode("pair", n_head)
+    return _backward(qkv, _logits(qkv, bias, n_head), g, n_head)
+
+
+# ------------------------------------------------------------ checks
+
+def _check_mode(mode: str, n_head: int) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "pair" and n_head % 2:
+        raise ValueError(f"two heads a block needs an even head count, got {n_head}")
+
+
+def _check(qkv, bias, g, n_head, bb, what) -> None:
+    if qkv.ndim != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be [B, L, 3D], got {list(qkv.shape)}")
+    B, L, D3 = qkv.shape
+    if n_head < 1 or (D3 // 3) % n_head:
+        raise ValueError(f"D={D3 // 3} is not divisible by n_head={n_head}")
+    if bias is not None and tuple(bias.shape) != (L, L):
+        raise ValueError(f"bias must be [L, L] = [{L}, {L}], got {list(bias.shape)}")
+    if g is not None and tuple(g.shape) != (B, L, D3 // 3):
+        raise ValueError(f"g must be [{B}, {L}, {D3 // 3}], got {list(g.shape)}")
+    if bb < 1 or B % bb:
+        # the TPU grid B // bb would leave the trailing rows unwritten
+        raise ValueError(f"{what}: bb={bb} must divide B={B}")
+    for name, t in (("bias", bias), ("g", g)):
+        if t is not None and t.device != qkv.device:
+            raise ValueError(f"{name} is on {t.device}, qkv on {qkv.device}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {qkv.device}")
+
+
+def _check_kernel(qkv, n_head, what, max_rows=MAX_SEQ, rows=None, fp32=()) -> None:
+    B, L, D3 = qkv.shape
+    head_dim = D3 // 3 // n_head
+    rows = L if rows is None else rows
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {qkv.dtype}")
+    if not 1 <= rows <= max_rows or not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes at most {max_rows} rows a block and a head dim of "
+                         f"at most {MAX_HEAD_DIM} (got {rows} and {head_dim})")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    for name, t in fp32:
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
+            raise TypeError(f"{name} must be contiguous float32, got {t.dtype}")
+
+
+# ------------------------------------------------------------ the kernels
+
+def _entry(lib_name: str, name: str, n_ptrs: int, n_ints: int):
+    lib = build.load(lib_name)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return lib, fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(lib_name, name, qkv, ptrs, ints, n_head):
+    B, L, D3 = qkv.shape
+    head_dim = D3 // 3 // n_head
+    lib, fn = _entry(lib_name, name, len(ptrs), 4 + len(ints))
+    err = fn(qkv.device.index, *(_ptr(p) for p in ptrs), B, L, n_head, head_dim, *ints,
+             1.0 / math.sqrt(head_dim), _DTYPE_CODES[qkv.dtype],
+             torch.cuda.current_stream(qkv.device).cuda_stream)
+    build.raise_on_error(lib, name, err)
+
+
+def _g(g, qkv):
+    """The cotangent in qkv's type (as the TPU tool casts it), contiguous."""
+    return g.to(qkv.dtype).contiguous()
+
+
+def backward_x(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
+               n_head: int, bb: int, mode: str) -> torch.Tensor:
+    """#6: the attention backward of ``qkv`` [B, L, 3D] for the cotangent
+    ``g`` [B, L, D] under the fp32 [L, L] ``bias`` (or None), a block
+    walking ``bb`` batch elements, in one of :data:`MODES` (see
+    :func:`backward_x_reference`) -> dqkv [B, L, 3D] in qkv's type."""
+    global backward_x_launches
+    _check(qkv, bias, g, n_head, bb, "backward_x")
+    _check_mode(mode, n_head)
+    if qkv.device.type == "cpu":
+        return backward_x_reference(qkv, bias, g, n_head, mode)
+    _check_kernel(qkv, n_head, "backward_x", fp32=(("bias", bias),))
+    g = _g(g, qkv)
+    dqkv = torch.empty_like(qkv)
+    _launch("attention_variants", "ccmh_attention_bwd_x", qkv, (qkv, bias, g, dqkv),
+            (bb, MODES.index(mode)), n_head)
+    backward_x_launches += 1
+    return dqkv
+
+
+def forward_stacked(qkv: torch.Tensor, bias: Optional[torch.Tensor], n_head: int,
+                    bb: int) -> torch.Tensor:
+    """#7: the attention forward of ``qkv`` [B, L, 3D] under ``bias``, all
+    heads' logits stacked before one softmax, a block walking ``bb`` batch
+    elements -> [B, L, D] in qkv's type."""
+    global forward_stacked_launches
+    _check(qkv, bias, None, n_head, bb, "forward_stacked")
+    if qkv.device.type == "cpu":
+        return forward_stacked_reference(qkv, bias, n_head)
+    _check_kernel(qkv, n_head, "forward_stacked", fp32=(("bias", bias),))
+    B, L, D3 = qkv.shape
+    out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _launch("attention_fwd_stacked", "ccmh_attention_fwd_stacked", qkv, (qkv, bias, out),
+            (bb,), n_head)
+    forward_stacked_launches += 1
+    return out
+
+
+def backward_savedp(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
+                    n_head: int, bb: int,
+                    probs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """#8: the backward from saved probabilities.  ``probs`` [B, H, L, L]
+    in qkv's type is :func:`savedp_probs` of ``qkv`` and ``bias``, built
+    here when not given (a caller timing the kernel builds it once, as the
+    TPU tool's jit hoists it out of its loop); the kernel reads no mask."""
+    global backward_savedp_launches
+    _check(qkv, bias, g, n_head, bb, "backward_savedp")
+    if probs is None:
+        probs = savedp_probs(qkv, bias, n_head)
+    B, L, _ = qkv.shape
+    if tuple(probs.shape) != (B, n_head, L, L) or probs.dtype != qkv.dtype:
+        raise ValueError(f"probs must be [{B}, {n_head}, {L}, {L}] {qkv.dtype}, got "
+                         f"{list(probs.shape)} {probs.dtype}")
+    if qkv.device.type == "cpu":
+        return backward_savedp_reference(qkv, probs, g, n_head)
+    _check_kernel(qkv, n_head, "backward_savedp")
+    if not probs.is_contiguous() or probs.device != qkv.device:
+        raise ValueError("probs must be contiguous, on qkv's device")
+    g = _g(g, qkv)
+    dqkv = torch.empty_like(qkv)
+    _launch("attention_variants", "ccmh_attention_bwd_savedp", qkv, (qkv, probs, g, dqkv),
+            (bb,), n_head)
+    backward_savedp_launches += 1
+    return dqkv
+
+
+def backward_merged(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
+                    n_head: int, bb: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """#9: the backward over R = bb L merged rows under ``mask`` [R, R],
+    :func:`merged_mask` of ``bias``, built here when not given (a caller
+    timing the kernel builds it once, as the TPU tool builds it at trace
+    time).  The kernel takes R <= 256."""
+    global backward_merged_launches
+    _check(qkv, bias, g, n_head, bb, "backward_merged")
+    B, L, _ = qkv.shape
+    if mask is None:
+        mask = merged_mask(bias, L, bb, device=qkv.device)
+    if tuple(mask.shape) != (bb * L, bb * L) or mask.device != qkv.device:
+        raise ValueError(f"mask must be [{bb * L}, {bb * L}] on qkv's device, got "
+                         f"{list(mask.shape)} on {mask.device}")
+    if qkv.device.type == "cpu":
+        return backward_merged_reference(qkv, mask, g, n_head, bb)
+    _check_kernel(qkv, n_head, "backward_merged", max_rows=MAX_MERGED_ROWS, rows=bb * L,
+                  fp32=(("mask", mask),))
+    g = _g(g, qkv)
+    dqkv = torch.empty_like(qkv)
+    _launch("attention_variants", "ccmh_attention_bwd_merged", qkv, (qkv, mask, g, dqkv),
+            (bb,), n_head)
+    backward_merged_launches += 1
+    return dqkv
+
+
+def backward_headpair(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
+                      n_head: int, bb: int) -> torch.Tensor:
+    """#10: the backward on a (B / bb, H / 2) grid, two heads a block
+    (``qkv`` seen as [B, L, 3, H, Dh], the same memory); H even."""
+    global backward_headpair_launches
+    _check(qkv, bias, g, n_head, bb, "backward_headpair")
+    _check_mode("pair", n_head)
+    if qkv.device.type == "cpu":
+        return backward_headpair_reference(qkv, bias, g, n_head)
+    _check_kernel(qkv, n_head, "backward_headpair", fp32=(("bias", bias),))
+    g = _g(g, qkv)
+    dqkv = torch.empty_like(qkv)
+    _launch("attention_variants", "ccmh_attention_bwd_headpair", qkv, (qkv, bias, g, dqkv),
+            (bb,), n_head)
+    backward_headpair_launches += 1
+    return dqkv

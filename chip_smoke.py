@@ -63,7 +63,19 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
 8. beside it: the full-width DSPH loss and gradient with the LayerNorm
    kernels against the plain LayerNorm (losses within 1e-5, relative
    gradient norm within 1e-3), and the DSPH step's ms at batch 128, fp32
-   and bf16, LayerNorm fused and plain in turns.
+   and bf16, LayerNorm fused and plain in turns;
+9. the attention ablation path: ``python -m
+   ccmh_torch.tools.bench_attn_bwd --quick`` in-process, counters set to 0
+   just before and read just after (every variant at vision B=256 L=50
+   H=12 and text B=256 L=32 H=8 causal, bf16 and fp32, each checked
+   against its plain version and v0); it checks that kernels #6-#10 and,
+   as its harness check and v0, #1 and #2 launched.  Then each of #6-#10
+   against its plain version at those shapes (#6 in all eight modes,
+   fewstores on its dk slot; fp32 within 1e-4 and bf16 within 2e-2 of the
+   output scale), with ms per call beside its bound, the plain version's
+   ms and SDPA's where it computes the same function; edge shapes (L=77
+   causal, Dh=30 at an odd bb, L=1 at bb=B) and the refusals (odd H for
+   ``pair`` and #10, R > 256 for #9, a bb that does not divide B, fp16).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -127,15 +139,19 @@ def check(cond: bool, msg: str) -> None:
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from ccmh_torch.ops import attention as attn
+    from ccmh_torch.ops import attention_variants as av
     from ccmh_torch.ops import hamming as ham
     from ccmh_torch.ops import layernorm as ln
 
     attn.launches = attn.backward_launches = ham.launches = 0
     ln.launches = ln.add_launches = 0
+    av.backward_x_launches = av.forward_stacked_launches = av.backward_savedp_launches = 0
+    av.backward_merged_launches = av.backward_headpair_launches = 0
 
 
 def read_counts() -> dict:
     from ccmh_torch.ops import attention as attn
+    from ccmh_torch.ops import attention_variants as av
     from ccmh_torch.ops import hamming as ham
     from ccmh_torch.ops import layernorm as ln
 
@@ -143,7 +159,12 @@ def read_counts() -> dict:
             "fused_attention_bwd": attn.backward_launches,
             "hamming_distance_packed": ham.launches,
             "fused_layer_norm": ln.launches,
-            "fused_add_layer_norm": ln.add_launches}
+            "fused_add_layer_norm": ln.add_launches,
+            "backward_x": av.backward_x_launches,
+            "forward_stacked": av.forward_stacked_launches,
+            "backward_savedp": av.backward_savedp_launches,
+            "backward_merged": av.backward_merged_launches,
+            "backward_headpair": av.backward_headpair_launches}
 
 
 def say(phase: str, **fields) -> None:
@@ -1265,6 +1286,225 @@ def beside_linear_hash(state):
     return runs
 
 
+# --------------------------------------------------------------------- phase 9
+
+ABLATION = ("backward_x", "forward_stacked", "backward_savedp", "backward_merged",
+            "backward_headpair")
+ABLATION_SOURCES = {   # (source, the TPU kernel it replaces)
+    "backward_x": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:202"),
+    "forward_stacked": ("ccmh_torch/csrc/attention_fwd_stacked.cu",
+                        "tools/bench_attn_bwd.py:258"),
+    "backward_savedp": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:322"),
+    "backward_merged": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:404"),
+    "backward_headpair": ("ccmh_torch/csrc/attention_variants.cu",
+                          "tools/bench_attn_bwd.py:470"),
+}
+
+
+def ablation_path():
+    """``python -m ccmh_torch.tools.bench_attn_bwd --quick`` in-process
+    (counted launches around it): every variant at vision and text, bf16
+    and fp32, with its checks.  Its JSON lines go to a file beside the
+    other outputs; the card's times per variant are summed up here."""
+    import contextlib
+
+    import torch
+
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "bench_attn_bwd.jsonl")
+    reset_counts()
+    t0 = time.perf_counter()
+    with open(path, "w") as fh, contextlib.redirect_stdout(fh):
+        rc = bench.main(["--quick"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh if line.startswith("{")]
+    check(rc == 0, f"the ablation bench exited {rc}")
+    check(len(rows) == 64, f"the ablation bench printed {len(rows)} variants, not 16 x 4")
+    for kernel in ABLATION + ("fused_attention_fwd", "fused_attention_bwd"):
+        check(launches[kernel] > 0, f"the ablation bench never launched {kernel}")
+    check(all(r["us_per_call"] is not None and r["us_per_call"] > 0 for r in rows),
+          "an ablation variant has no device time")
+    say("ablation", entry="python -m ccmh_torch.tools.bench_attn_bwd --quick",
+        seconds=round(seconds, 2), variants=len(rows), **launches)
+    for key in sorted({(r["shape"], r["dtype"]) for r in rows}):
+        mine = [r for r in rows if (r["shape"], r["dtype"]) == key]
+        say("ablation", shape=key[0], dtype=key[1],
+            us_per_call={r["variant"]: round(r["us_per_call"], 2) for r in mine},
+            bound_us={r["variant"]: round(r["bound_us"], 2) for r in mine},
+            sdpa_fwd_us=mine[0]["library_us"], sdpa_bwd_us=mine[2]["library_us"])
+    return launches
+
+
+def _variant_call(kernel, qkv, mask, g, H, bb, mode):
+    """(kernel call, plain call) of one ablation kernel on these inputs."""
+    from ccmh_torch.ops import attention_variants as av
+
+    if kernel == "backward_x":
+        return (lambda: av.backward_x(qkv, mask, g, H, bb, mode),
+                lambda: av.backward_x_reference(qkv, mask, g, H, mode))
+    if kernel == "forward_stacked":
+        return (lambda: av.forward_stacked(qkv, mask, H, bb),
+                lambda: av.forward_stacked_reference(qkv, mask, H))
+    if kernel == "backward_savedp":
+        probs = av.savedp_probs(qkv, mask, H)
+        return (lambda: av.backward_savedp(qkv, mask, g, H, bb, probs=probs),
+                lambda: av.backward_savedp_reference(qkv, probs, g, H))
+    if kernel == "backward_merged":
+        m = av.merged_mask(mask, qkv.shape[1], bb, device=qkv.device)
+        return (lambda: av.backward_merged(qkv, mask, g, H, bb, mask=m),
+                lambda: av.backward_merged_reference(qkv, m, g, H, bb))
+    return (lambda: av.backward_headpair(qkv, mask, g, H, bb),
+            lambda: av.backward_headpair_reference(qkv, mask, g, H))
+
+
+def _variant_err(kernel, mode, got, want, D):
+    """Max abs error and the output scale it is held against: the forward
+    absolutely (as kernel #1), a backward relative to its output's scale;
+    fewstores on the dk slot it writes."""
+    if mode == "fewstores":
+        got, want = got[..., D:2 * D], want[..., D:2 * D]
+    err = (got.float() - want.float()).abs().max().item()
+    scale = 1.0 if kernel == "forward_stacked" else max(1.0, want.float().abs().max().item())
+    return err, scale
+
+
+def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
+    """One ablation kernel against its plain version at a bench shape
+    (B=256, Dh=64), with ms per call beside its bound, the plain version's
+    ms and SDPA's where it computes the same function."""
+    import torch
+
+    from ccmh_torch.ops import attention_variants as av
+    from ccmh_torch.tools.bench_attn_bwd import bound_us, causal_bias, cost
+
+    B, Dh = 256, 64
+    D = H * Dh
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(L * 1000 + H + 2)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+    mask = causal_bias(L, dev) if causal else None
+    tname = "float32" if dtype == torch.float32 else "bfloat16"
+    fn, plain = _variant_call(kernel, qkv, mask, g, H, bb, mode)
+    with torch.no_grad():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, scale = _variant_err(kernel, mode, got, want, D)
+        del got, want
+        check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
+              f"{kernel} {mode or ''} bb={bb} {name} {tname}: max abs err {err} > "
+              f"{ATTN_TOL[tname]} x {scale}")
+        ms = cuda_ms(fn, iters=10)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    forward = kernel == "forward_stacked"
+    n_bytes, n_ops = cost(kernel, B, L, H, Dh, qkv.element_size(), causal, bb, mode or "full")
+    bound, bound_by = bound_us(n_bytes, n_ops, dtype)
+    same = mode is None or mode in av.SAME_FUNCTION_MODES
+    if kernel == "backward_savedp":
+        library, lib_ms = "none: no PyTorch call takes saved probabilities", None
+    elif not same:
+        library, lib_ms = f"none: mode {mode} is not the attention function", None
+    elif forward:
+        library, lib_ms = "SDPA fwd", sdpa[0]
+    else:
+        library, lib_ms = "SDPA fwd+bwd minus SDPA fwd", sdpa[1]
+    case = {"case": f"{name} {tname}" + (f" {mode}" if mode else "") + f" bb={bb}",
+            "shape": [B, L, 3 * D], "heads": H, "causal": causal, "bb": bb, "mode": mode,
+            "max_abs_err": err, "output_scale": scale, "tol": ATTN_TOL[tname], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library": library,
+            "bound_ms": bound / 1e3, "bound_by": bound_by}
+    say("kernel", kernel=kernel, **case)
+    return case
+
+
+def ablation_kernel_cases():
+    """Each of #6-#10 against its plain version at the bench's shapes,
+    fp32 and bf16: #6 in all eight modes at bb=4, #7 at bb=16, #8 and #10
+    at bb=4, #9 at bb=2 and 4 (R = 100 / 200 vision, 64 / 128 text)."""
+    import torch
+
+    from ccmh_torch.ops import attention_variants as av
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    cases = {k: [] for k in ABLATION}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, L, H, causal in (("vision", 50, 12, False), ("text", 32, 8, True)):
+            x = torch.randn((256, L, 3 * H * 64), device="cuda").to(dt)
+            sdpa = bench.sdpa_yardstick(x, causal, H, (3, 23), 3)   # (fwd, bwd) ms
+            del x
+            for mode in av.MODES:
+                cases["backward_x"].append(
+                    variant_case("backward_x", name, L, H, causal, dt, 4, mode, sdpa))
+            for kernel, bbs in (("forward_stacked", (16,)), ("backward_savedp", (4,)),
+                                ("backward_merged", (2, 4)), ("backward_headpair", (4,))):
+                for bb in bbs:
+                    cases[kernel].append(
+                        variant_case(kernel, name, L, H, causal, dt, bb, None, sdpa))
+            torch.cuda.empty_cache()
+    return cases
+
+
+def ablation_edges():
+    """#6-#10 at edge shapes (L=77 causal at bb=2, Dh=30 at an odd bb=3,
+    L=1 at bb=B), every mode of #6, fp32 and bf16; and the refusals: odd H
+    for #10 and ``pair``, R > 256 for #9, a bb that does not divide B, and
+    fp16 raise and launch nothing."""
+    import torch
+
+    from ccmh_torch.ops import attention_variants as av
+    from ccmh_torch.tools.bench_attn_bwd import causal_bias
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shapes = ((4, 77, 8, 64, True, 2), (6, 13, 4, 30, False, 3), (5, 1, 2, 64, False, 5))
+    calls = [("backward_x", m) for m in av.MODES] + [(k, None) for k in ABLATION[1:]]
+    worst = {}
+    with torch.no_grad():
+        for B, L, H, Dh, causal, bb in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                tname = "float32" if dtype == torch.float32 else "bfloat16"
+                qkv = torch.randn((B, L, 3 * H * Dh), generator=gen, device=dev).to(dtype)
+                g = torch.randn((B, L, H * Dh), generator=gen, device=dev).to(dtype)
+                m = causal_bias(L, dev) if causal else None
+                for kernel, mode in calls:
+                    fn, plain = _variant_call(kernel, qkv, m, g, H, bb, mode)
+                    err, scale = _variant_err(kernel, mode, fn(), plain(), H * Dh)
+                    check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
+                          f"{kernel} {mode} at {(B, L, H, Dh, causal, bb)} {tname}: "
+                          f"err {err} > {ATTN_TOL[tname]} x {scale}")
+                    key = f"{kernel}{':' + mode if mode else ''} {tname}"
+                    worst[key] = max(worst.get(key, 0.0), err / scale)
+
+    x = torch.zeros((4, 8, 3 * 48), device=dev)
+    gx = torch.zeros((4, 8, 48), device=dev)
+    xv = torch.zeros((8, 50, 3 * 64), device=dev)
+    gv = torch.zeros((8, 50, 64), device=dev)
+    refused = 0
+    for call in (
+        lambda: av.backward_headpair(x, None, gx, 3, 1),                   # odd H
+        lambda: av.backward_x(x, None, gx, 3, 1, "pair"),                  # odd H
+        lambda: av.backward_merged(xv, None, gv, 1, 8),                    # R = 400
+        lambda: av.backward_x(x, None, gx, 4, 3, "full"),                  # 4 % 3
+        lambda: av.forward_stacked(x, None, 4, 3),                         # 4 % 3
+        lambda: av.backward_savedp(x.half(), None, gx.half(), 4, 1),       # fp16
+        lambda: av.backward_x(x.half(), None, gx.half(), 4, 1, "full"),    # fp16
+    ):
+        before = read_counts()
+        try:
+            call()
+        except (ValueError, TypeError):
+            refused += 1
+        check(read_counts() == before, "a refused ablation input launched")
+    check(refused == 7, f"only {refused} of 7 unsupported ablation inputs raised")
+    say("edges", ablation_shapes=[list(s) for s in shapes],
+        ablation_worst_err_over_scale=worst, ablation_refusals=refused)
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1345,9 +1585,21 @@ def main() -> int:
     finally:
         cm.set_ln_impl("plain")
     beside_linear_hash(state)
+    state.pop("dsph", None)
+    torch.cuda.empty_cache()
+
+    # the ablation path (slice 4): ablation_path resets the counts just
+    # before it calls the bench's main and reads them just after
+    t9 = time.perf_counter()
+    ablation = ablation_path()
+    say("launches", path="attn_ablation", **ablation)
+    variant_cases = ablation_kernel_cases()
+    ablation_edges()
+    say("ablation", phase_seconds=round(time.perf_counter() - t9, 1))
 
     by_path = {k: {"serving": serving[k], "training": training[k],
-                   "linear_hash": linear_hash[k]} for k in serving}
+                   "linear_hash": linear_hash[k], "attn_ablation": ablation[k]}
+               for k in serving}
 
     def entry(name, source, replaces, launches, cases):
         top = cases[0]   # vision fp32 (the default's dominant call) or the search
@@ -1356,6 +1608,7 @@ def main() -> int:
                 "max_abs_err": top["max_abs_err"], "ms": top["ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+                **({"library": top["library"]} if "library" in top else {}),
                 "cases": cases}
 
     kernels = [
@@ -1369,7 +1622,8 @@ def main() -> int:
               "ccmh/ops/layernorm.py:63", linear_hash["fused_layer_norm"], ln_cases),
         entry("fused_add_layer_norm", "ccmh_torch/csrc/layernorm.cu",
               "ccmh/ops/layernorm.py:80", linear_hash["fused_add_layer_norm"], add_ln_cases),
-    ]
+    ] + [entry(name, *ABLATION_SOURCES[name], ablation[name], variant_cases[name])
+         for name in ABLATION]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     shutil.rmtree(WORK, ignore_errors=True)
     print(card, flush=True)

@@ -1,10 +1,12 @@
-"""ccmh_torch and chip_smoke.py stand alone: no JAX, nothing of ccmh.
+"""ccmh_torch, chip_smoke.py and the port's tools stand alone: no JAX,
+nothing of ccmh.
 
 The machine with the card has no jax (nor regex, Pillow, ftfy, optax,
 orbax), so the port keeps its own copies of what it needs from ccmh.
 """
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -16,7 +18,10 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "ccmh", "optax", "orbax", "regex", "PIL", "f
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the port's scripts under tools/ run on the card's machine too
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "bench_attn_bwd_occupancy.py")]
+    files += glob.glob(os.path.join(REPO, "tools", "*torch*.py"))
     for root, _, names in os.walk(os.path.join(REPO, "ccmh_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -34,6 +39,7 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.ops.similarity, ccmh_torch.losses.dchmt\n"
         "import ccmh_torch.data.dataset, ccmh_torch.data.split, ccmh_torch.data.synthetic\n"
         "import ccmh_torch.utils.logger, ccmh_torch.utils.xlsx, ccmh_torch.ops.layernorm\n"
+        "import ccmh_torch.ops.attention_variants, ccmh_torch.tools.bench_attn_bwd\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -69,7 +75,6 @@ def test_no_forbidden_import_in_source(path):
 def test_package_data_ships_the_kernel_sources_and_vocab():
     """The CUDA sources are built at first use from the installed package,
     so every package-data glob of ccmh_torch must match real files."""
-    import glob
     import tomllib
 
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
