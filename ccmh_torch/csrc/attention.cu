@@ -8,197 +8,161 @@
 // additive mask; fp32 row softmax; probabilities rounded to the input type;
 // ctx = p . v accumulated in fp32 and stored in the input type, [B, L, D].
 //
-// What bounds it on an H100: bytes.  The vision call at B=256 fp32 must
-// read 118 MB of qkv and write 39 MB of context (~47 us at 3.35 TB/s); its
-// 2 GFLOP of dot products are under 30 us even on the fp32 CUDA cores.
+// What bounds it on an H100: bytes.  At B=256 the vision call (L=50, H=12)
+// reads 59 MB of qkv and writes 20 MB of context in bf16 (23 us at 3.35
+// TB/s; fp32 twice that, 47 us), the text call (L=32, H=8) 25 + 8 MB (10
+// us; fp32 20 us).  Its 4 B H L^2 Dh = 2.0 GFLOP (vision) take 2 us at the
+// bf16 tensor-core peak (989 TFLOP/s) and 12 us as 3xTF32 (three TF32
+// products at 495); the padding of L to 16 below makes that 3 and 20 us.
 //
-// Design: one block per (batch element, head).  The head's q, k and v are
-// read once from device memory into shared memory as fp32; nothing of the
-// [L, L] logits ever leaves the SM.  Rows are padded to a multiple of 4
-// floats plus 4 (stride 68 at Dh=64): 16-byte aligned for float4 reads, and
-// eight lanes reading eight different key rows hit eight different 16-byte
-// bank groups.  Each warp carries 4 query rows at once, so every k (or v)
-// value read from shared memory feeds 4 FMAs: a lane owns keys
-// j = lane + 32 t (t < 4, so L <= 128) and keeps the 4 rows' logits in
-// registers; the row max and sum are warp shuffles.  For ctx a lane owns the
-// head-dim pair d = 64 c + 2 lane (+1) (c < 2, so Dh <= 128), the
-// probabilities are broadcast by shuffle, and the stores are coalesced.
-// Both products sum over their index in order, one FMA at a time.  Shared
-// memory is 3 L (Dh + 4) * 4 bytes: 41 KB at L=50, 63 KB at L=77 (above the
-// 48 KB default, hence cudaFuncSetAttribute), 203 KB at the L=Dh=128 limit.
-// Simple first: no tensor cores, no TMA; the dot products run on fp32 FMAs.
+// Design: one block per (batch element, head), L/16 warps rounded up (4 at
+// L=50, 2 at L=32, 5 at L=77, 8 at L=128), each warp one 16-query tile.
+// q, k and v of the head are read once from device memory into shared
+// memory in the input type, 16 bytes at a time where the head rows allow
+// (Dh sizeof(T), the row stride and the pointers all multiples of 16;
+// scalar loads otherwise, e.g. Dh=30 or a view at an odd offset), with the
+// bias added in T: in bf16 on the 16-byte registers on the way in, in fp32
+// by cp.async copies and then one pass over shared memory (each measured
+// the faster for its type, mma_tiles.cuh load_qkv).  Rows and columns are
+// zero-padded to 16.  Both products run on the tensor cores with mma.sync
+// (bf16 m16n8k16; fp32 as 3xTF32 m16n8k8, which holds fp32 accuracy):
+// S = q k^T stays in registers, its row max and sum are shuffles over the 4
+// lanes that share a row, padded keys are -inf and their v rows zero; the
+// probabilities are rounded to T and repacked in registers as the A operand
+// of p . v (FlashAttention-2's register reuse: no [L, L] tile in shared
+// memory, no shuffle broadcasts); ldmatrix feeds k and (transposed) v.  Each
+// mask element is read once, by the one lane that holds that logit,
+// straight into registers.  The context tile is staged in T over the warp's
+// own q rows and written with coalesced 16-byte stores where aligned.
+// Register arrays are sized by a class: L and Dh up to 64, or up to 128.
+// Blocks an SM: bf16 at L, Dh <= 64 is held to 64 registers, so 8 blocks fit
+// (4% faster at vision, PERF.md); fp32 spills at 64 and takes what it
+// needs (4 blocks at vision, set by the 53 KB of shared memory).
+// A persistent block that prefetched the next head into a second buffer
+// measured slower: the buffers halve the blocks an SM.
+//
+// Shared memory, 3 pad16(L) (pad16(Dh) + 8 | 4) + 3 pad16(Dh) elements of
+// T (bf16 | fp32) at Dh=64: L=32 14.2 KB bf16 / 26.9 KB fp32; L=50 28.0 /
+// 53.0 KB; L=77 34.9 / 66.0 KB; L=128 55.7 / 105.2 KB (Dh=128: 105.2 /
+// 204.3 KB).  Above 48 KB it needs cudaFuncSetAttribute.
 
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;                 // query rows a warp carries at once
+using namespace ccmh::mma;
+
 constexpr int kMaxL = 128;
 constexpr int kMaxDh = 128;
-constexpr int kKeySlots = kMaxL / 32;    // keys j = lane + 32 t
-constexpr int kDimPairs = kMaxDh / 64;   // dims d = 64 c + 2 lane, +1
 
-__host__ __device__ __forceinline__ int padded_dim(int Dh) { return (Dh + 3) & ~3; }
-__host__ __device__ __forceinline__ int row_stride(int Dh) { return padded_dim(Dh) + 4; }
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// bf16 at L, Dh <= 64: 8 blocks an SM (64 registers), which measured
+// faster; fp32 and Dh = 128 spill there, so they take what they need
+template <typename T, int LMAX, int DMAX>
+__global__ void __launch_bounds__(LMAX / 16 * 32,
+                                  LMAX == 64 && DMAX == 64 && sizeof(T) == 2 ? 8 : 1)
 attention_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_b,
                      const float* __restrict__ mask, T* __restrict__ out,
-                     int L, int H, int Dh, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dp = padded_dim(Dh);
-  const int ld = row_stride(Dh);
+                     int L, int H, int Dh, float scale, int vec) {
+  using F = Frag<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int Lp = pad16(L), Dp = pad16(Dh), ld = tile_ld<T>(Dh);
   const int b = blockIdx.x, h = blockIdx.y;
   const int D = H * Dh, D3 = 3 * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* sq = smem;
+  T* sk = sq + Lp * ld;
+  T* sv = sk + Lp * ld;
+  T* sb = sv + Lp * ld;     // fp32: the bias, [3][Dp]
 
-  // q | k | v of head h -> shared memory, bias added in the input type.  A
-  // warp copies one (part, row) at a time with its lanes along the head dim:
-  // coalesced reads, and the index arithmetic is per row, not per element.
-  // The padding columns Dh..dp-1 are zero and add nothing to the dots.
-  for (int pr = warp; pr < 3 * L; pr += kWarps) {
-    const int part = pr / L;
-    const int l = pr - part * L;
-    const int col = part * D + h * Dh;
-    const T* src = qkv + ((size_t)b * L + l) * D3 + col;
-    float* dst = smem + (part * L + l) * ld;
-    for (int d = lane; d < dp; d += 32) {
-      float x = 0.f;
-      if (d < Dh) {
-        x = ccmh::to_float(src[d]);
-        if (qkv_b != nullptr) x = ccmh::round_to<T>(x + ccmh::to_float(qkv_b[col + d]));
-      }
-      dst[d] = x;
-    }
-  }
-  __syncthreads();
+  load_qkv<T>(sq, Lp, ld, sb, qkv + (size_t)b * L * D3 + h * Dh, D, D3, L, Dh,
+              qkv_b ? qkv_b + h * Dh : nullptr, vec);
+  finish_qkv<T>(sq, Lp, ld, sb, L, Dh, qkv_b != nullptr, vec);
 
-  const float* sq = smem;
-  const float* sk = smem + L * ld;
-  const float* sv = smem + 2 * L * ld;
-  const int n_slots = (L + 31) >> 5;
+  const int m0 = warp * 16;
+  const int n_kt = Lp / 16;     // 16-key blocks
+  const int n_dk = Dp / 16;     // 16-dim blocks
 
-  for (int i0 = warp * kRows; i0 < L; i0 += kWarps * kRows) {
-    // rows past L are clamped to L-1 for reading and never stored
-    int row[kRows];
+  // S = q k^T for the warp's 16 queries against every key
+  float s[LMAX / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) row[r] = min(i0 + r, L - 1);
-
-    float s[kRows][kKeySlots];
+  for (int j = 0; j < LMAX / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int kb = 0; kb < n_dk; ++kb) {
+    const typename F::A a = F::a_rows(sq, ld, m0, kb * 16, lane);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < kKeySlots; ++t) s[r][t] = 0.f;
-
-    for (int d = 0; d < dp; d += 4) {
-      float4 qv[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(sq + row[r] * ld + d);
-#pragma unroll
-      for (int t = 0; t < kKeySlots; ++t) {
-        if (t < n_slots) {   // warp-uniform
-          const int j = min(t * 32 + lane, L - 1);
-          const float4 kv = *reinterpret_cast<const float4*>(sk + j * ld + d);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            float a = s[r][t];
-            a = fmaf(qv[r].x, kv.x, a);
-            a = fmaf(qv[r].y, kv.y, a);
-            a = fmaf(qv[r].z, kv.z, a);
-            a = fmaf(qv[r].w, kv.w, a);
-            s[r][t] = a;
-          }
-        }
-      }
-    }
-
-    // fp32 softmax per row; probabilities rounded to the input type
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float row_max = -CUDART_INF_F;
-#pragma unroll
-      for (int t = 0; t < kKeySlots; ++t) {
-        const int j = t * 32 + lane;
-        float logit = -CUDART_INF_F;
-        if (j < L) {
-          logit = s[r][t] * scale;
-          if (mask != nullptr) logit += mask[row[r] * L + j];
-        }
-        s[r][t] = logit;
-        row_max = fmaxf(row_max, logit);
-      }
-      row_max = ccmh::warp_max(row_max);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kKeySlots; ++t) {
-        const float e = (t * 32 + lane < L) ? expf(s[r][t] - row_max) : 0.f;
-        s[r][t] = e;
-        row_sum += e;
-      }
-      row_sum = ccmh::warp_sum(row_sum);
-#pragma unroll
-      for (int t = 0; t < kKeySlots; ++t) s[r][t] = ccmh::round_to<T>(s[r][t] / row_sum);
-    }
-
-    // ctx = p . v over the keys in order
-    float2 acc[kRows][kDimPairs];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kDimPairs; ++c) acc[r][c] = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int t = 0; t < kKeySlots; ++t) {
-      if (t >= n_slots) break;   // warp-uniform
-      const int n_keys = min(32, L - t * 32);
-      for (int u = 0; u < n_keys; ++u) {
-        float p[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) p[r] = __shfl_sync(0xffffffffu, s[r][t], u);
-        const float* vj = sv + (t * 32 + u) * ld;
-#pragma unroll
-        for (int c = 0; c < kDimPairs; ++c) {
-          const int d = c * 64 + 2 * lane;
-          if (d < dp) {
-            const float2 vv = *reinterpret_cast<const float2*>(vj + d);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              acc[r][c].x = fmaf(p[r], vv.x, acc[r][c].x);
-              acc[r][c].y = fmaf(p[r], vv.y, acc[r][c].y);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i0 + r >= L) break;   // warp-uniform
-      T* o = out + ((size_t)b * L + i0 + r) * D + h * Dh;
-#pragma unroll
-      for (int c = 0; c < kDimPairs; ++c) {
-        const int d = c * 64 + 2 * lane;
-        if (d < Dh) o[d] = ccmh::from_float<T>(acc[r][c].x);
-        if (d + 1 < Dh) o[d + 1] = ccmh::from_float<T>(acc[r][c].y);
+    for (int jp = 0; jp < LMAX / 16; ++jp) {
+      if (jp < n_kt) {
+        typename F::B b0, b1;
+        F::b_rows(b0, b1, sk, ld, jp * 16, kb * 16, lane);
+        F::mma(s[2 * jp], a, b0);
+        F::mma(s[2 * jp + 1], a, b1);
       }
     }
   }
+
+  // fp32 softmax of the warp's rows, in registers
+  float mx[2], sum[2];
+  softmax_tile(s, (L + 7) / 8, scale, mask, m0, L, lane, mx, sum);
+
+  // ctx = p . v, p rounded to T as it becomes the A operand
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+  for (int kb = 0; kb < LMAX / 16; ++kb) {
+    if (kb < n_kt) {
+      const typename F::A a = F::a_acc(s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+      for (int np = 0; np < DMAX / 16; ++np) {
+        if (np < n_dk) {
+          typename F::B b0, b1;
+          F::b_cols(b0, b1, sv, ld, kb * 16, np * 16, lane);
+          F::mma(o[2 * np], a, b0);
+          F::mma(o[2 * np + 1], a, b1);
+        }
+      }
+    }
+  }
+
+  // stage over the warp's own q rows (only this warp read them), then store
+  __syncwarp();
+  stage_acc<T>(sq + m0 * ld, ld, o, 2 * n_dk, lane);
+  __syncwarp();
+  if (m0 < L)
+    store_rows<T>(out + ((size_t)b * L + m0) * D + h * Dh, D, sq + m0 * ld, ld,
+                  min(16, L - m0), Dh, vec, lane);
+}
+
+template <typename T, int LMAX, int DMAX>
+cudaError_t launch_class(const void* qkv, const void* qkv_b, const float* mask, void* out,
+                         int B, int L, int H, int Dh, float scale, bool vec,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)3 * (pad16(L) * tile_ld<T>(Dh) + pad16(Dh)) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, LMAX, DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B, H);
+  attention_fwd_kernel<T, LMAX, DMAX><<<grid, pad16(L) / 16 * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(qkv_b), mask, static_cast<T*>(out),
+      L, H, Dh, scale, vec ? 1 : 0);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* qkv, const void* qkv_b, const float* mask, void* out,
                    int B, int L, int H, int Dh, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)3 * L * row_stride(Dh) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B, H);
-  attention_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(qkv_b), mask,
-      static_cast<T*>(out), L, H, Dh, scale);
-  return cudaGetLastError();
+  // 16-byte copies need 16-byte head rows, row strides and base pointers
+  const bool vec = (Dh * sizeof(T)) % 16 == 0 && aligned16(qkv) && aligned16(out) &&
+                   (qkv_b == nullptr || aligned16(qkv_b));
+  const bool small_l = pad16(L) <= 64, small_d = pad16(Dh) <= 64;
+  if (small_l && small_d)
+    return launch_class<T, 64, 64>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
+  if (small_l)
+    return launch_class<T, 64, 128>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
+  if (small_d)
+    return launch_class<T, 128, 64>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
+  return launch_class<T, 128, 128>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
 }
 
 }  // namespace

@@ -7,7 +7,10 @@ Port of ``ccmh/ops/attention.py``: the Pallas forward ``_pallas_forward`` /
 CUDA C++ for Hopper.  One block per (batch element, head) keeps the head on
 chip: the forward runs the fp32 softmax without writing the [L, L] logits to
 device memory; the backward recomputes them, likewise on chip, and writes
-dq, dk and dv into one packed [B, L, 3D] gradient.
+dq, dk and dv into one packed [B, L, 3D] gradient.  Every product runs on
+the tensor cores (``mma.sync``: bf16, or fp32 as 3xTF32, which keeps fp32's
+accuracy), one warp per 16-row tile, with the head's rows loaded by 16-byte
+``cp.async`` copies where they are aligned (``csrc/mma_tiles.cuh``).
 
 :class:`FusedAttention` is ``ccmh``'s ``jax.custom_vjp``: it saves only the
 raw ``qkv``, the mask and ``qkv_b`` (``_fwd``), and its backward is kernel C
@@ -32,8 +35,8 @@ from ccmh_torch.ops import build
 launches = 0            # the forward, kernel A
 backward_launches = 0   # the backward, kernel C
 
-MAX_SEQ = 128        # the kernel keeps up to 4 keys per lane in registers
-MAX_HEAD_DIM = 128   # ... and up to 4 head dims per lane
+MAX_SEQ = 128        # the kernels keep a warp's [16, L] logits in registers
+MAX_HEAD_DIM = 128   # ... and its [16, Dh] products
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

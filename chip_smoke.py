@@ -20,8 +20,11 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    256x50 W=768, text rows 256x32 W=512; fp32 within 1e-5, bf16 within
    2e-2, the sum exactly equal), each with ms per call beside its bound,
    the plain version's ms and a PyTorch library call's ms where one
-   computes the same function; edge shapes (L=77, L=Dh=128, Dh=30, L=1;
-   one row, ragged row counts, W from 1 to 1024), gradients through
+   computes the same function (the attention kernels, at their C entries
+   and, beside, through their wrappers, and SDPA timed as min over 3 of
+   (t_240 - t_40) / 200 chained calls); edge shapes (L=77,
+   L=Dh=128, Dh=30, L=1, L=64, a qkv view at an odd storage offset; one
+   row, ragged row counts, W from 1 to 1024), gradients through
    ``fused_attention`` and the LayerNorm Functions against autograd
    through the plain versions, and the refusals of inputs the kernels do
    not take;
@@ -111,6 +114,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12}
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+STEADY_LOOPS = (40, 240)   # the attention kernels' and SDPA's steady timing
 # LayerNorm kernels vs their plain versions on unit-variance rows: fp32
 # (rsqrtf and the reduction order differ), bf16 one ulp at the output scale
 LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -196,6 +200,45 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def steady_ms(fn) -> float:
+    """Device time per call as the ablation bench takes it: min over 3 of
+    (t_240 - t_40) / 200 chained calls, CUDA events."""
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    def run(n):
+        for _ in range(n):
+            fn()
+    run(STEADY_LOOPS[0])
+    return bench._events_ms(run, *STEADY_LOOPS, 3)
+
+
+def attention_entry(kind, qkv, mask, qkv_b, H, g=None):
+    """A zero-argument call of attention kernel ``kind`` ("fwd" or "bwd")
+    through its C entry, with the arguments its wrapper passes and a
+    preallocated output: the kernel's own time, without the wrapper's
+    Python checks (which take longer than the text shape's kernel)."""
+    import torch
+
+    from ccmh_torch.ops import attention as attn
+
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    out = torch.empty((B, L, D3 // 3) if kind == "fwd" else (B, L, D3), dtype=qkv.dtype,
+                      device=qkv.device)
+    lib, fn = attn._entry(kind)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    ptrs = [attn._ptr(qkv), attn._ptr(qkv_b), attn._ptr(mask)]
+    ptrs += ([] if kind == "fwd" else [attn._ptr(g)]) + [attn._ptr(out)]
+    args = (qkv.device.index, *ptrs, B, L, H, Dh, 1.0 / math.sqrt(Dh),
+            attn._DTYPE_CODES[qkv.dtype], stream)
+
+    def call():
+        code = fn(*args)
+        if code:
+            fail(f"ccmh_attention_{kind}: CUDA error {code}")
+    return call
+
+
 def host_s(fn, reps: int = 3) -> float:
     """Best host-clock seconds of ``fn`` (which ends in a host copy)."""
     best = math.inf
@@ -232,10 +275,10 @@ def phase_build():
 
 def attention_case(name, B, L, H, causal, dtype):
     import torch
-    import torch.nn.functional as F
 
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
+    from ccmh_torch.tools import bench_attn_bwd as bench
 
     dev = torch.device("cuda")
     D, Dh = H * 64, 64
@@ -251,19 +294,19 @@ def attention_case(name, B, L, H, causal, dtype):
         tname = "float32" if dtype == torch.float32 else "bfloat16"
         check(math.isfinite(err) and err <= ATTN_TOL[tname],
               f"attention {name} {tname}: max abs err {err} > {ATTN_TOL[tname]}")
-        ms = cuda_ms(lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
+        ms = steady_ms(attention_entry("fwd", qkv, mask, qkv_b, H))
+        wrapper_ms = steady_ms(lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
         plain_ms = cuda_ms(lambda: attn.attention_reference(qkv, mask, H, qkv_b=qkv_b))
-        # the library yardstick: SDPA on the same (biased) q, k, v
-        q, k, v = (qkv + qkv_b).view(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    # the library yardstick: SDPA on the same (biased) q, k, v, timed alike
+    lib_ms = bench.sdpa_yardstick(qkv + qkv_b, causal, H, STEADY_LOOPS, 3)[0]
     item = qkv.element_size()
     n_bytes = (qkv.numel() + qkv_b.numel() + B * L * D) * item + (L * L * 4 if causal else 0)
     n_ops = 4.0 * B * H * L * L * Dh
     bound_ms, bound_by = bound(n_bytes, n_ops, tname)
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "tol": ATTN_TOL[tname], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
     say("kernel", kernel="fused_attention_fwd", **case)
     return case
 
@@ -271,10 +314,10 @@ def attention_case(name, B, L, H, causal, dtype):
 def attention_bwd_case(name, B, L, H, causal, dtype):
     """Kernel C against its plain version at the training path's shapes."""
     import torch
-    import torch.nn.functional as F
 
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
+    from ccmh_torch.tools import bench_attn_bwd as bench
 
     dev = torch.device("cuda")
     D, Dh = H * 64, 64
@@ -294,31 +337,22 @@ def attention_bwd_case(name, B, L, H, causal, dtype):
         check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
               f"attention backward {name} {tname}: max abs err {err} > "
               f"{ATTN_TOL[tname]} x output scale {scale}")
-        ms = cuda_ms(lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
+        ms = steady_ms(attention_entry("bwd", qkv, mask, qkv_b, H, g))
+        wrapper_ms = steady_ms(lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
         plain_ms = cuda_ms(lambda: attn.attention_backward_reference(qkv, mask, qkv_b, g, H),
                            iters=5)
     # the library yardstick: SDPA forward + backward through autograd on the
-    # q, k, v views of the biased qkv, minus SDPA's forward alone
-    x = (qkv + qkv_b).detach().requires_grad_()
-    g_heads = g.view(B, L, H, Dh).transpose(1, 2)
-
-    def sdpa_fwd():
-        q, k, v = x.view(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-
-    def sdpa_fwd_bwd():
-        out = sdpa_fwd()
-        torch.autograd.grad(out, x, g_heads)
-
-    lib_ms = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+    # q, k, v views of the biased qkv, minus SDPA's forward alone, each as
+    # min over 3 of (t_240 - t_40) / 200 chained calls (the ablation bench's)
+    lib_ms = bench.sdpa_yardstick(qkv + qkv_b, causal, H, STEADY_LOOPS, 3)[1]
     item = qkv.element_size()
     n_bytes = (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item + (L * L * 4 if causal else 0)
     n_ops = 10.0 * B * H * L * L * Dh
     bound_ms, bound_by = bound(n_bytes, n_ops, tname)
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "output_scale": scale,
-            "tol": ATTN_TOL[tname], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library": "SDPA fwd+bwd minus SDPA fwd", "bound_ms": bound_ms,
+            "tol": ATTN_TOL[tname], "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "SDPA fwd+bwd minus SDPA fwd", "bound_ms": bound_ms,
             "bound_by": bound_by}
     say("kernel", kernel="fused_attention_bwd", **case)
     return case
@@ -498,30 +532,36 @@ def edge_checks():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    shapes = (  # (B, L, H, Dh, causal): the longest text context, the
-        #         L = Dh = 128 limit (203 KB of shared memory forward, 170 KB
-        #         backward), an odd head dim, L = 1
-        (3, 77, 8, 64, True), (2, 128, 2, 128, True), (2, 13, 3, 30, False),
-        (5, 1, 2, 64, False))
+    shapes = (  # (B, L, H, Dh, causal, offset): the longest text context,
+        #         the L = Dh = 128 limit (203 KB of shared memory forward; the
+        #         backward's recompute path in fp32, its tiles in bf16), an odd
+        #         head dim, L = 1, L = 64 (full mma tiles, no padded key), and
+        #         a view one element into its storage (not 16-byte aligned:
+        #         the kernels' scalar loads and stores)
+        (3, 77, 8, 64, True, 0), (2, 128, 2, 128, True, 0), (2, 13, 3, 30, False, 0),
+        (5, 1, 2, 64, False, 0), (3, 64, 4, 64, True, 0), (4, 50, 12, 64, False, 1))
     errs, bwd_errs = [], []
     with torch.no_grad():
-        for B, L, H, Dh, causal in shapes:
+        for B, L, H, Dh, causal, offset in shapes:
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                qkv = torch.randn((B, L, 3 * H * Dh), generator=gen, device=dev).to(dtype)
+                n = B * L * 3 * H * Dh
+                flat = torch.randn((offset + n,), generator=gen, device=dev).to(dtype)
+                qkv = flat[offset:].view(B, L, 3 * H * Dh)
                 b = torch.randn((3 * H * Dh,), generator=gen, device=dev).to(dtype)
                 g = torch.randn((B, L, H * Dh), generator=gen, device=dev).to(dtype)
                 m = causal_mask(L, device=dev) if causal else None
                 err = (attn.fused_attention(qkv, m, H, qkv_b=b).float()
                        - attn.attention_reference(qkv, m, H, qkv_b=b).float()
                        ).abs().max().item()
-                check(err <= tol, f"attention {(B, L, H, Dh, causal)} {dtype}: err {err}")
+                check(err <= tol, f"attention {(B, L, H, Dh, causal, offset)} {dtype}: err {err}")
                 errs.append(err)
                 want = attn.attention_backward_reference(qkv, m, b, g, H).float()
                 scale = max(1.0, want.abs().max().item())
                 err = (attn.attention_backward(qkv, m, b, g, H).float() - want
                        ).abs().max().item()
                 check(err <= tol * scale,
-                      f"attention backward {(B, L, H, Dh, causal)} {dtype}: err {err}")
+                      f"attention backward {(B, L, H, Dh, causal, offset)} {dtype}: "
+                      f"err {err}")
                 bwd_errs.append(err)
         q = torch.randint(-2 ** 31, 2 ** 31, (37, 3), generator=gen, device=dev, dtype=torch.int32)
         r = torch.randint(-2 ** 31, 2 ** 31, (1001, 3), generator=gen, device=dev, dtype=torch.int32)

@@ -1,0 +1,175 @@
+"""The fp32 arithmetic of the attention kernels (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``), emulated in plain PyTorch and held against
+ccmh's ``fused_attention`` and its ``jax.vjp`` (the Pallas kernels in
+interpret mode on the CPU).
+
+The kernels run fp32 products on the tensor cores as 3xTF32: each operand
+x is split into ``hi = rna(x)`` and ``lo = rna(x - hi)``, TF32 values
+rounded to nearest with ties away from zero (PTX ``cvt.rna.tf32.f32``,
+which clears the low 13 of fp32's 23 mantissa bits), and each product is
+``hi.hi' + hi.lo' + lo.hi'`` accumulated in fp32.  A product of two TF32
+values is exact in fp32 (11 + 11 significant bits), so the emulation below
+differs from the card only in the order of the fp32 sums.
+
+The card holds the kernels to 1e-4 (forward) and 1e-4 x the output scale
+(backward) against their plain versions (``chip_smoke.py``).  Here the
+emulated 3xTF32 chain sits at least 10x under those gates at vision
+(L=50, H=12, Dh=64) and text (L=32, H=8, causal) widths, while one TF32
+pass (``rna(a) . rna(b)``) breaks them: it keeps about three decimal
+digits, which is why the kernels do not use it.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ccmh.clip.model import causal_mask as jax_causal_mask
+from ccmh.ops.attention import fused_attention as jax_fused
+from ccmh_torch.clip.model import causal_mask
+
+GATE = 1e-4          # chip_smoke.py's ATTN_TOL for fp32
+MARGIN = 10.0        # the emulated 3xTF32 error must sit this far under it
+
+SHAPES = {
+    # (B, L, H, Dh, causal)
+    "vision": (2, 50, 12, 64, False),
+    "text": (2, 32, 8, 64, True),
+}
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32``: the magnitude rounded to 10
+    mantissa bits, half-way cases away from zero, kept as fp32."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    sign = bits & 0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = sign | mag
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    (ah, al), (bh, bl) = split(a), split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def _heads(qkv, qkv_b, H):
+    B, L, D3 = qkv.shape
+    x = qkv + qkv_b
+    return x.reshape(B, L, 3, H, D3 // 3 // H).permute(2, 0, 3, 1, 4)   # q, k, v [B, H, L, Dh]
+
+
+def forward_emulated(qkv, qkv_b, mask, H, mm):
+    """The forward kernel's fp32 chain with products taken by ``mm``."""
+    q, k, v = _heads(qkv, qkv_b, H)
+    B, _, L, Dh = q.shape
+    logits = mm(q, k.transpose(-1, -2)) * torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1)
+    return mm(probs, v).permute(0, 2, 1, 3).reshape(B, L, H * Dh)
+
+
+def backward_emulated(qkv, qkv_b, mask, g, H, mm):
+    """The backward kernel's fp32 chain -> packed dqkv [B, L, 3D]."""
+    q, k, v = _heads(qkv, qkv_b, H)
+    B, _, L, Dh = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    gh = g.reshape(B, L, H, Dh).permute(0, 2, 1, 3)
+    logits = mm(q, k.transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1)
+    dprobs = mm(gh, v.transpose(-1, -2))
+    dlogits = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True)) * scale
+    dq = mm(dlogits, k)
+    dk = mm(dlogits.transpose(-1, -2), q)
+    dv = mm(probs.transpose(-1, -2), gh)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, L, 3 * H * Dh)
+
+
+def _inputs(B, L, H, Dh, seed):
+    rng = np.random.RandomState(seed)
+    qkv = rng.randn(B, L, 3 * H * Dh).astype(np.float32)
+    b = (0.1 * rng.randn(3 * H * Dh)).astype(np.float32)
+    g = rng.randn(B, L, H * Dh).astype(np.float32)
+    return qkv, b, g
+
+
+_CCMH = {}
+
+
+def _ccmh(shape):
+    """ccmh's forward and its VJP at ``shape`` (cached: the interpreted
+    Pallas kernels are the slow part)."""
+    if shape not in _CCMH:
+        B, L, H, Dh, causal = SHAPES[shape]
+        qkv, b, g = _inputs(B, L, H, Dh, seed=L + H)
+        mask = jax_causal_mask(L) if causal else None
+        out, vjp = jax.vjp(lambda x, bb: jax_fused(x, mask, H, qkv_b=bb),
+                           jnp.asarray(qkv), jnp.asarray(b))
+        dqkv, _ = vjp(jnp.asarray(g))
+        _CCMH[shape] = (qkv, b, g, np.asarray(out), np.asarray(dqkv))
+    return _CCMH[shape]
+
+
+def _error(shape, direction, mm):
+    """(max abs error of the emulated chain against ccmh, the card's gate)."""
+    B, L, H, Dh, causal = SHAPES[shape]
+    qkv, b, g, out, dqkv = _ccmh(shape)
+    mask = causal_mask(L) if causal else None
+    args = (torch.from_numpy(qkv), torch.from_numpy(b), mask)
+    if direction == "forward":
+        got = forward_emulated(*args, H, mm).numpy()
+        return float(np.abs(got - out).max()), GATE
+    got = backward_emulated(*args, torch.from_numpy(g), H, mm).numpy()
+    return float(np.abs(got - dqkv).max()), GATE * max(1.0, float(np.abs(dqkv).max()))
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),      # a tie rounds away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -12, 1.0),                   # under half an ulp rounds down
+    (1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -10),  # over half an ulp rounds up
+    (3.0, 3.0),
+])
+def test_tf32_rounding_is_rna(x, want):
+    got = tf32_rna(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+    # TF32 keeps 10 mantissa bits: the low 13 of fp32's are clear
+    assert int(got.view(torch.int32).item()) & 0x1FFF == 0
+
+
+def test_split_is_exact_to_fp32_rounding():
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(np.float32))
+    hi, lo = split(x)
+    # hi + lo carries 22 of fp32's 24 significant bits
+    assert torch.all((hi + lo - x).abs() <= x.abs() * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_3xtf32_sits_under_the_card_gate(shape, direction):
+    err, gate = _error(shape, direction, mm_3xtf32)
+    assert math.isfinite(err) and err * MARGIN <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_one_tf32_pass_breaks_the_card_gate(shape, direction):
+    err, gate = _error(shape, direction, mm_1xtf32)
+    assert err > gate, (err, gate)

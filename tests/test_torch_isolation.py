@@ -19,8 +19,7 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "ccmh", "optax", "orbax", "regex", "PIL", "f
 
 def _port_files():
     # the port's scripts under tools/ run on the card's machine too
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "bench_attn_bwd_occupancy.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")]
     files += glob.glob(os.path.join(REPO, "tools", "*torch*.py"))
     for root, _, names in os.walk(os.path.join(REPO, "ccmh_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

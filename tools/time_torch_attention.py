@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels #1 (forward) and #2 (backward) beside
+SDPA at the towers' shapes, for the ``ccmh_torch`` package of a checkout.
+
+    python3 tools/time_torch_attention.py [--root DIR]
+
+``--root`` (default: this checkout) is the directory holding the
+``ccmh_torch`` to time, so two versions compare inside one call on one
+card: unpack the other under ``build/`` (``git archive <commit> | tar -x
+-C build/old``) and run old, new, new, old.  Shapes: vision B=256 L=50
+H=12, text B=256 L=32 H=8 causal, Dh=64, with the projection bias, bf16
+and fp32; inputs from a seed.  Each time is the min over 3 of
+(t_240 - t_40) / 200 chained calls from CUDA events, the kernels' at their
+C entries (``fwd_ms``, ``bwd_ms``) and through their Python wrappers
+(``*_wrapper_ms``, host-bound where the kernel is short); SDPA runs on the
+same biased q, k, v (forward, and forward + backward minus forward).  One
+JSON line per shape and type, with each kernel's max abs error against
+its plain version; the card's name and power limit first.  Needs one CUDA
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+LOOPS = (40, 240)
+REPEATS = 3
+SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
+
+
+def steady_ms(fn) -> float:
+    import torch
+
+    def run(n):
+        for _ in range(n):
+            fn()
+    run(LOOPS[0])
+    best = math.inf
+    for _ in range(REPEATS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        run(LOOPS[0])
+        ev[1].record()
+        ev[2].record()
+        run(LOOPS[1])
+        ev[3].record()
+        torch.cuda.synchronize()
+        t = ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])
+        best = min(best, t / (LOOPS[1] - LOOPS[0]))
+    return best
+
+
+def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
+    """A zero-argument call of the kernel at its C entry (``attn._entry``),
+    with the wrapper's arguments and a preallocated output."""
+    import torch
+
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    out = torch.empty((B, L, D3 // 3) if kind == "fwd" else (B, L, D3), dtype=qkv.dtype,
+                      device=qkv.device)
+    _, fn = attn._entry(kind)
+    ptrs = [attn._ptr(qkv), attn._ptr(qkv_b), attn._ptr(mask)]
+    ptrs += ([] if kind == "fwd" else [attn._ptr(g)]) + [attn._ptr(out)]
+    args = (qkv.device.index, *ptrs, B, L, H, Dh, 1.0 / math.sqrt(Dh),
+            attn._DTYPE_CODES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream)
+
+    def call():
+        if fn(*args):
+            raise RuntimeError(f"ccmh_attention_{kind} refused the launch")
+    return call
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    help="checkout whose ccmh_torch is timed")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("time_torch_attention: needs a CUDA card", file=sys.stderr)
+        return 2
+    from ccmh_torch.clip.model import causal_mask
+    from ccmh_torch.ops import attention as attn
+
+    if not os.path.abspath(attn.__file__).startswith(root + os.sep):
+        print(f"time_torch_attention: imported {attn.__file__}, not from {root}", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(json.dumps({"root": root, "card": card.stdout.strip().splitlines()[0]}), flush=True)
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, B, L, H, causal in SHAPES:
+            Dh = 64
+            D = H * Dh
+            gen = torch.Generator(device=dev).manual_seed(L * 1000 + H)
+            qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+            qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
+            g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+            mask = causal_mask(L, device=dev) if causal else None
+            with torch.no_grad():
+                fwd_err = (attn.fused_attention(qkv, mask, H, qkv_b=qkv_b).float()
+                           - attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
+                           ).abs().max().item()
+                want = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
+                bwd_err = (attn.attention_backward(qkv, mask, qkv_b, g, H).float() - want
+                           ).abs().max().item()
+                fwd_ms = steady_ms(entry_call(attn, "fwd", qkv, mask, qkv_b, H))
+                bwd_ms = steady_ms(entry_call(attn, "bwd", qkv, mask, qkv_b, H, g))
+                fwd_wrapper_ms = steady_ms(
+                    lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
+                bwd_wrapper_ms = steady_ms(
+                    lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
+            x = (qkv + qkv_b).detach().requires_grad_()
+            g_heads = g.view(B, L, H, Dh).transpose(1, 2)
+
+            def sdpa():
+                q, k, v = x.view(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
+                return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+            sdpa_fwd = steady_ms(lambda: sdpa().detach())
+            sdpa_both = steady_ms(lambda: torch.autograd.grad(sdpa(), x, g_heads))
+            print(json.dumps({
+                "shape": tag, "dtype": str(dtype).split(".")[-1], "B": B, "L": L, "H": H,
+                "causal": causal, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                "fwd_wrapper_ms": fwd_wrapper_ms, "bwd_wrapper_ms": bwd_wrapper_ms,
+                "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_both - sdpa_fwd,
+                "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+                "bwd_output_scale": want.abs().max().item()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

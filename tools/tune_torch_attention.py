@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Compile variants of the attention kernels' sources side by side and time
+each through its C entry, on one CUDA card.
+
+    python3 tools/tune_torch_attention.py [VARIANTS.json]
+
+The checkout's ``ccmh_torch/csrc/attention.cu`` and ``attention_bwd.cu``
+are always built (``fwd_new``, ``bwd_new``).  VARIANTS.json lists more:
+``[{"name": "fwd_x", "src": "attention.cu", "srcdir": "...", "subs":
+[["old text", "new text"], ...]}, ...]``: the source file and the headers
+beside it are copied from ``srcdir`` (default: the checkout's csrc) into
+``build/tune_attention/<name>/``, each substitution is applied to every
+file that holds its old text (it must match somewhere), and the variant is
+compiled with the port's nvcc flags, all variants at once.  A name that
+starts with ``fwd`` is the forward's entry, any other the backward's.
+
+For vision B=256 L=50 H=12 and text B=256 L=32 H=8 causal (Dh=64, with
+the projection bias), bf16 and fp32, it prints one JSON line with each
+variant's µs per call (min over 3 of (t_240 - t_40) / 200 chained calls,
+CUDA events) and whether it agrees with the plain version (fp32 1e-4, bf16
+2e-2, the backward relative to its output scale; a variant that computes
+something else on purpose, an ablation, prints BAD with its error), and
+SDPA's forward and forward + backward minus forward beside them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "ccmh_torch", "csrc")
+OUT = os.path.join(REPO, "build", "tune_attention")
+SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
+
+
+def variant(name, src, subs=(), srcdir=CSRC):
+    """Write the variant's sources; returns (name, path of its .cu)."""
+    d = os.path.join(OUT, name)
+    os.makedirs(d, exist_ok=True)
+    texts = {f: open(os.path.join(srcdir, f)).read() for f in os.listdir(srcdir)
+             if f == src or f.endswith(".cuh")}
+    for old, new in subs:
+        hit = False
+        for f, t in texts.items():
+            if old in t:
+                texts[f] = t.replace(old, new)
+                hit = True
+        if not hit:
+            raise SystemExit(f"{name}: {old!r} is in none of its sources")
+    for f, t in texts.items():
+        with open(os.path.join(d, f), "w") as fh:
+            fh.write(t)
+    return name, os.path.join(d, src)
+
+
+def build(variants):
+    """Compile every variant at once; returns name -> loaded library."""
+    from ccmh_torch.ops import build as kbuild
+
+    procs = []
+    for name, path in variants:
+        so = path[:-3] + ".so"
+        procs.append((name, so, subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
+        report = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+        print(json.dumps({"variant": name, "ptxas": report}), flush=True)
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def entry(lib, fwd):
+    fn = lib.ccmh_attention_fwd if fwd else lib.ccmh_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (4 if fwd else 5) + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    sys.path.insert(0, REPO)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tune_torch_attention: needs a CUDA card", file=sys.stderr)
+        return 2
+    from ccmh_torch.clip.model import causal_mask
+    from ccmh_torch.ops import attention as attn
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    specs = json.load(open(argv[0])) if argv else []
+    vs = [variant("fwd_new", "attention.cu"), variant("bwd_new", "attention_bwd.cu")]
+    vs += [variant(sp["name"], sp["src"], [tuple(x) for x in sp.get("subs", [])],
+                   sp.get("srcdir", CSRC)) for sp in specs]
+    libs = build(vs)
+    dev = torch.device("cuda")
+
+    def steady_ms(fn):
+        def run(n):
+            for _ in range(n):
+                fn()
+        run(40)
+        return bench._events_ms(run, 40, 240, 3)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, B, L, H, causal in SHAPES:
+            Dh, D = 64, H * 64
+            gen = torch.Generator(device=dev).manual_seed(L)
+            qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+            qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
+            g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+            mask = causal_mask(L, device=dev) if causal else None
+            want_f = attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
+            want_b = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
+            scale = max(1.0, want_b.abs().max().item())
+            code = 0 if dtype == torch.float32 else 1
+            stream = torch.cuda.current_stream().cuda_stream
+            row = {"shape": tag, "dtype": str(dtype).split(".")[-1]}
+            for name, _ in vs:
+                fwd = name.startswith("fwd")
+                fn = entry(libs[name], fwd)
+                out = torch.empty((B, L, D) if fwd else (B, L, 3 * D), dtype=dtype, device=dev)
+                args = [0, qkv.data_ptr(), qkv_b.data_ptr(),
+                        None if mask is None else mask.data_ptr()]
+                args += ([] if fwd else [g.data_ptr()]) + [
+                    out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
+                err = fn(*args)
+                torch.cuda.synchronize()
+                if err:
+                    row[name] = f"CUDA error {err}"
+                    continue
+                e = (out.float() - (want_f if fwd else want_b)).abs().max().item()
+                tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else scale)
+                row[name] = [1e3 * steady_ms(lambda: fn(*args)),
+                             "ok" if e <= tol else f"BAD {e}"]
+            f, b = bench.sdpa_yardstick(qkv + qkv_b, causal, H, (40, 240), 3)
+            row["sdpa_fwd"], row["sdpa_bwd"] = 1e3 * f, 1e3 * b
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
