@@ -3,10 +3,13 @@ each tied to its closed-form backward as a ``torch.autograd.Function``.
 
 Port of ``ccmh/ops/layernorm.py``: the Pallas forwards ``_ln_forward`` /
 ``_ln_kernel`` and ``_add_ln_forward`` / ``_add_ln_kernel`` as
-``ccmh_torch/csrc/layernorm.cu``, CUDA C++ for Hopper, one warp per row
-with the row in registers: ``x`` (and ``d``) read once, ``y`` (and the sum
-``s``) written once.  ``ccmh``'s backward is plain XLA (``_ln_vjp``, the
-closed-form VJP on the saved input), so the port's is plain PyTorch.
+``ccmh_torch/csrc/layernorm.cu``, CUDA C++ for Hopper: one warp per row,
+16-byte loads and stores, the row, scale and bias held in registers packed
+in their own types; ``x`` (and ``d``) read once, ``y`` (and the sum ``s``)
+written once.  Rows that cannot be read 16 bytes at a time take the
+same kernel's scalar branch (:func:`_vector_path` decides).  ``ccmh``'s
+backward is plain XLA (``_ln_vjp``, the closed-form VJP on the saved
+input), so the port's is plain PyTorch.
 
 :func:`layer_norm_reference` and :func:`add_layer_norm_reference` beside
 the kernels are the plain versions, with the kernels' rounding points: the
@@ -99,15 +102,52 @@ def _check_kernel_inputs(x2d: torch.Tensor, d2d: Optional[torch.Tensor],
             raise ValueError(f"{name} must be contiguous")
 
 
-def _entry(add: bool):
-    """(library, C entry) of kernel #5 (``add``) or #4 with argument types."""
-    lib = build.load("layernorm")
-    fn = lib.ccmh_add_ln_forward if add else lib.ccmh_ln_forward
-    n_ptrs = 6 if add else 4   # x, [d], scale, bias, y, [s]
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib, fn
+def _vector_path(x2d: torch.Tensor, d2d: Optional[torch.Tensor], y: torch.Tensor,
+                 s: Optional[torch.Tensor], scale: torch.Tensor, bias: torch.Tensor) -> bool:
+    """Whether the kernel may take its 16-byte branch: a row of W values
+    is a whole number of 16-byte chunks in the input type and in the
+    parameter type, and every pointer is 16-byte aligned.  Otherwise it
+    takes its scalar branch (W = 100 in bf16, a view one element in)."""
+    W = x2d.shape[-1]
+    if (W * x2d.element_size()) % 16 or (W * scale.element_size()) % 16:
+        return False
+    return all(t.data_ptr() % 16 == 0 for t in (x2d, d2d, y, s, scale, bias) if t is not None)
+
+
+# (library, C entry) of kernel #4 (False) and #5 (True), resolved with the
+# argument types on first use, once per process
+_ENTRIES: dict = {}
+
+
+def _c_entry(add: bool):
+    """(library, C entry) of kernel #5 (``add``) or #4 with its argument
+    types, from the cache."""
+    hit = _ENTRIES.get(add)
+    if hit is None:
+        lib = build.load("layernorm")
+        fn = lib.ccmh_add_ln_forward if add else lib.ccmh_ln_forward
+        n_ptrs = 6 if add else 4   # x, [d], scale, bias, y, [s]
+        fn.restype = ctypes.c_int
+        # device, pointers, rows, W, dtype, param_dtype, vector, stream
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        hit = _ENTRIES[add] = (lib, fn)
+    return hit
+
+
+def _launch(x2d: torch.Tensor, d2d: Optional[torch.Tensor], scale: torch.Tensor,
+            bias: torch.Tensor, y: torch.Tensor, s: Optional[torch.Tensor], device: int,
+            stream: int) -> None:
+    """Kernel #5 (``d2d`` given) or #4 on checked inputs into the allocated
+    outputs, on ``device``'s ``stream``; raises if the launch was refused."""
+    add = d2d is not None
+    lib, fn = _c_entry(add)
+    rows, W = x2d.shape
+    ptrs = [t.data_ptr() for t in (x2d, d2d, scale, bias, y, s) if t is not None]
+    err = fn(device, *ptrs, rows, W, _DTYPE_CODES[x2d.dtype], _DTYPE_CODES[scale.dtype],
+             int(_vector_path(x2d, d2d, y, s, scale, bias)), stream)
+    build.raise_on_error(lib, "ccmh_add_ln_forward" if add else "ccmh_ln_forward", err)
 
 
 def _device_of(x: torch.Tensor, what: str) -> str:
@@ -123,14 +163,9 @@ def ln_forward(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> to
     if _device_of(x2d, "fused_layer_norm") == "cpu":
         return layer_norm_reference(x2d, scale, bias)
     _check_kernel_inputs(x2d, None, scale, bias)
-    rows, W = x2d.shape
     y = torch.empty_like(x2d)
-    lib, fn = _entry(add=False)
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    err = fn(x2d.device.index, x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             y.data_ptr(), rows, W, _DTYPE_CODES[x2d.dtype], _DTYPE_CODES[scale.dtype],
-             stream)
-    build.raise_on_error(lib, "ccmh_ln_forward", err)
+    _launch(x2d, None, scale, bias, y, None, x2d.device.index,
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     launches += 1
     return y
 
@@ -142,14 +177,9 @@ def add_ln_forward(x2d: torch.Tensor, d2d: torch.Tensor, scale: torch.Tensor,
     if _device_of(x2d, "fused_add_layer_norm") == "cpu":
         return add_layer_norm_reference(x2d, d2d, scale, bias)
     _check_kernel_inputs(x2d, d2d, scale, bias)
-    rows, W = x2d.shape
     y, s = torch.empty_like(x2d), torch.empty_like(x2d)
-    lib, fn = _entry(add=True)
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    err = fn(x2d.device.index, x2d.data_ptr(), d2d.data_ptr(), scale.data_ptr(),
-             bias.data_ptr(), y.data_ptr(), s.data_ptr(), rows, W,
-             _DTYPE_CODES[x2d.dtype], _DTYPE_CODES[scale.dtype], stream)
-    build.raise_on_error(lib, "ccmh_add_ln_forward", err)
+    _launch(x2d, d2d, scale, bias, y, s, x2d.device.index,
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     add_launches += 1
     return y, s
 

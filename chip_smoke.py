@@ -20,11 +20,14 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    256x50 W=768, text rows 256x32 W=512; fp32 within 1e-5, bf16 within
    2e-2, the sum exactly equal), each with ms per call beside its bound,
    the plain version's ms and a PyTorch library call's ms where one
-   computes the same function (the attention kernels, at their C entries
-   and, beside, through their wrappers, and SDPA timed as min over 3 of
-   (t_240 - t_40) / 200 chained calls); edge shapes (L=77,
+   computes the same function (the kernels at their C entries and,
+   beside, through their wrappers, as min over 3 of (t_240 - t_40) / 200
+   chained calls; SDPA timed alike; ``F.layer_norm`` and a copy of the
+   LayerNorm's bytes in CUDA graphs, host-free); edge shapes (L=77,
    L=Dh=128, Dh=30, L=1, L=64, a qkv view at an odd storage offset; one
-   row, ragged row counts, W from 1 to 1024), gradients through
+   row, ragged row counts, W from 1 to 1024, views one element in, fp32
+   parameters with bf16 activations, each LayerNorm case with the branch
+   it took, 16-byte or scalar), gradients through
    ``fused_attention`` and the LayerNorm Functions against autograd
    through the plain versions, and the refusals of inputs the kernels do
    not take;
@@ -391,91 +394,76 @@ def hamming_case():
 def layernorm_case(name, rows, W, dtype, add):
     """Kernel #4 (``add`` False) or #5 against its plain version at a
     tower's shape, [rows = B * L, W] with the weights in the input type (as
-    the towers cast them).  The timed calls cycle over enough input sets
-    that each call reads inputs the L2 cache no longer holds: in the towers
-    they come from a matmul's output, not from a warm cache."""
-    import itertools
-
+    the towers cast them), timed by ``tools/time_torch_layernorm.py``: at
+    the C entry (``ms``) and through the wrapper, beside ``F.layer_norm``
+    in CUDA graphs (host-free), a copy of the same bytes and the plain
+    version.  The calls cycle over enough input and output sets that each
+    reads inputs the L2 cache no longer holds: in the towers they come from
+    a matmul's output, not from a warm cache."""
     import torch
-    import torch.nn.functional as F
 
     from ccmh_torch.ops import layernorm as ln
+    from tools import time_torch_layernorm as timing
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(rows + W + add)
+    case = timing.measure(ln, name, rows, W, dtype, add)
+    kernel = case.pop("kernel")
     tname = "float32" if dtype == torch.float32 else "bfloat16"
-    kernel = "fused_add_layer_norm" if add else "fused_layer_norm"
-    item = torch.empty((), dtype=dtype).element_size()
-    n_bytes = ((4 if add else 2) * rows * W + 2 * W) * item
-    n_sets = max(2, math.ceil(2 * 50e6 / n_bytes) + 1)
-    sets = [tuple(torch.randn((rows, W), generator=gen, device=dev).to(dtype)
-                  for _ in range(2 if add else 1)) for _ in range(n_sets)]
-    scale = (1.0 + 0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
-    bias = (0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
     if add:
-        fns = {"kernel": lambda x, d: ln.add_ln_forward(x, d, scale, bias),
-               "plain": lambda x, d: ln.add_layer_norm_reference(x, d, scale, bias),
-               # no single PyTorch call fuses the add: x + d then
-               # F.layer_norm, timed for context only
-               "context": lambda x, d: F.layer_norm(x + d, (W,), scale, bias, 1e-5)}
-    else:
-        fns = {"kernel": lambda x: ln.ln_forward(x, scale, bias),
-               "plain": lambda x: ln.layer_norm_reference(x, scale, bias),
-               "context": lambda x: F.layer_norm(x, (W,), scale, bias, 1e-5)}
-    with torch.inference_mode():
-        got, want = fns["kernel"](*sets[0]), fns["plain"](*sets[0])
-        torch.cuda.synchronize()
-        if add:
-            check(torch.equal(got[1], want[1]), f"{kernel} {name} {tname}: s is not x + d")
-            got, want = got[0], want[0]
-        err = (got.float() - want.float()).abs().max().item()
-        check(math.isfinite(err) and err <= LN_TOL[tname],
-              f"{kernel} {name} {tname}: max abs err {err} > {LN_TOL[tname]}")
-        times = {}
-        for key, fn in fns.items():
-            cycle = itertools.cycle(sets)
-            times[key] = cuda_ms(lambda: fn(*next(cycle)), iters=8 * n_sets, warmup=n_sets)
-    n_ops = 8.0 * rows * W + (rows * W if add else 0)   # fp32 arithmetic per element
-    bound_ms, bound_by = bound(n_bytes, n_ops, "float32")
-    case = {"case": f"{name} {tname}", "shape": [rows, W], "max_abs_err": err,
-            "tol": LN_TOL[tname], "ms": times["kernel"], "plain_ms": times["plain"],
-            "library_ms": None if add else times["context"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "input_sets": n_sets}
-    if add:
-        case.update(s_equal=True, add_then_layer_norm_ms=times["context"])
+        check(case["s_equal"], f"{kernel} {name} {tname}: s is not x + d")
+    err = case["max_abs_err"]
+    check(math.isfinite(err) and err <= LN_TOL[tname],
+          f"{kernel} {name} {tname}: max abs err {err} > {LN_TOL[tname]}")
+    case["tol"] = LN_TOL[tname]
     say("kernel", kernel=kernel, **case)
     return case
 
 
 def layernorm_edges():
     """Kernels #4 and #5 at edge shapes (one row, a ragged row count, W = 1,
-    100, 128, 1000 and 1024), a gradient through the autograd Functions
+    100, 128, 1000 and 1024; views whose data starts one element in, fp32
+    and bf16; fp32 parameters with bf16 activations), each with the branch
+    it took (16-byte or scalar), a gradient through the autograd Functions
     against autograd through the plain versions, and the refusals: an
-    unsupported type or width raises, it never takes the plain path."""
+    unsupported type or width raises, it never takes the plain path, and
+    the C entry refuses the 16-byte branch on data one element in."""
     import torch
 
     from ccmh_torch.ops import layernorm as ln
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
     shapes = ((1, 768), (1001, 512), (37, 1), (9, 100), (300, 128), (65, 1000), (1003, 1024))
-    errs = []
+    # (rows, W, activation type, parameter type, elements the data starts in)
+    cases = [(rows, W, dt, dt, 0) for rows, W in shapes for dt in (f32, bf16)]
+    cases += [(257, 768, f32, f32, 1), (257, 512, bf16, bf16, 1),
+              (300, 768, bf16, f32, 0), (300, 100, bf16, f32, 0)]
+    errs, branches = [], {}
     with torch.no_grad():
-        for rows, W in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                tname = "float32" if dtype == torch.float32 else "bfloat16"
-                x, d = (torch.randn((rows, W), generator=gen, device=dev).to(dtype)
-                        for _ in range(2))
-                sc = (1.0 + 0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
-                bi = (0.1 * torch.randn((W,), generator=gen, device=dev)).to(dtype)
-                err = (ln.ln_forward(x, sc, bi).float()
-                       - ln.layer_norm_reference(x, sc, bi).float()).abs().max().item()
-                y, s = ln.add_ln_forward(x, d, sc, bi)
-                want_y, want_s = ln.add_layer_norm_reference(x, d, sc, bi)
-                err = max(err, (y.float() - want_y.float()).abs().max().item())
-                check(torch.equal(s, want_s), f"layer norm {(rows, W)} {tname}: s != x + d")
-                check(err <= LN_TOL[tname], f"layer norm {(rows, W)} {tname}: err {err}")
-                errs.append(err)
+        for rows, W, dtype, pdtype, offset in cases:
+            tname = "float32" if dtype == f32 else "bfloat16"
+            x, d = (torch.randn((offset + rows * W,), generator=gen, device=dev).to(dtype)
+                    [offset:].view(rows, W) for _ in range(2))
+            sc = (1.0 + 0.1 * torch.randn((W,), generator=gen, device=dev)).to(pdtype)
+            bi = (0.1 * torch.randn((W,), generator=gen, device=dev)).to(pdtype)
+            vector = ln._vector_path(x, d, torch.empty_like(x), torch.empty_like(x), sc, bi)
+            key = f"{rows}x{W} {tname}" + (" fp32 params" if pdtype != dtype else "") + (
+                f" +{offset}" if offset else "")
+            branches[key] = "16-byte" if vector else "scalar"
+            err = (ln.ln_forward(x, sc, bi).float()
+                   - ln.layer_norm_reference(x, sc, bi).float()).abs().max().item()
+            y, s = ln.add_ln_forward(x, d, sc, bi)
+            want_y, want_s = ln.add_layer_norm_reference(x, d, sc, bi)
+            err = max(err, (y.float() - want_y.float()).abs().max().item())
+            check(torch.equal(s, want_s), f"layer norm {key}: s != x + d")
+            check(err <= LN_TOL[tname], f"layer norm {key}: err {err}")
+            errs.append(err)
+    for key in ("9x100 bfloat16", "300x100 bfloat16 fp32 params", "257x768 float32 +1",
+                "257x512 bfloat16 +1"):
+        check(branches[key] == "scalar", f"layer norm {key} took the {branches[key]} branch")
+    for key in ("65x1000 bfloat16", "300x768 bfloat16 fp32 params", "1001x512 bfloat16",
+                "1x768 float32"):
+        check(branches[key] == "16-byte", f"layer norm {key} took the {branches[key]} branch")
 
     # autograd on the card: the kernels' forwards + the closed-form VJP
     # against autograd through the plain versions
@@ -514,9 +502,18 @@ def layernorm_edges():
             refusals += 1
         check(ln.launches + ln.add_launches == before, "a refused LayerNorm input launched")
     check(refusals == 4, f"only {refusals} of 4 unsupported LayerNorm inputs raised")
-    say("edges", layernorm_shapes=[list(x) for x in shapes],
-        layernorm_max_abs_err_fp32_bf16=errs, layernorm_gradient_rel_err_vs_plain=grad_err,
-        layernorm_refusals=refusals)
+    # the C entry checks the wrapper's rule again: asked for the 16-byte
+    # branch on data one element in, it returns cudaErrorInvalidValue (1)
+    xo = torch.zeros((4 * 64 + 1,), device=dev)[1:].view(4, 64)
+    yo = torch.empty_like(xo)
+    _, fn = ln._c_entry(False)
+    code = fn(dev.index or 0, xo.data_ptr(), w.data_ptr(), w.data_ptr(), yo.data_ptr(), 4, 64,
+              0, 0, 1, torch.cuda.current_stream().cuda_stream)
+    check(code == 1, f"the C entry took the 16-byte branch on data one element in ({code})")
+    say("edges", layernorm_cases=[[r, W, str(t)[6:], str(p)[6:], o] for r, W, t, p, o in cases],
+        layernorm_branches=branches, layernorm_max_abs_err=errs,
+        layernorm_gradient_rel_err_vs_plain=grad_err, layernorm_refusals=refusals,
+        layernorm_c_entry_refuses_unaligned_vector=True)
 
 
 def edge_checks():
