@@ -7,7 +7,8 @@ trees (``img_head`` / ``txt_head``).  The port keeps exactly that layout
 with ``torch.Tensor`` leaves, so the bridge is a leaf-wise conversion that
 preserves dtypes and shapes: numpy in, tensors out, and back.  Neither
 direction imports ``ccmh`` or JAX; callers hand over numpy arrays
-(``jax.tree.map(np.asarray, tree)`` on the JAX side).  ``ccmh``'s BertAdam
+(``jax.tree.map(np.asarray, tree)`` on the JAX side).  Lists in a tree
+(MITH's residual MLP layers) stay lists.  ``ccmh``'s BertAdam
 state (the ``m`` and ``v`` trees and ``step``, as numpy) goes into the
 port's optimizer with ``BertAdam.load_tree_state`` (train/optim.py).
 """
@@ -32,6 +33,8 @@ def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
         return torch.from_numpy(np.array(node, copy=True)).to(dev)
 
     return conv(tree)
@@ -44,6 +47,8 @@ def params_to_jax(tree: Params) -> Params:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
         if isinstance(node, torch.Tensor):
             node = node.detach().cpu()
             # numpy has no bfloat16: such leaves widen (exactly) to float32

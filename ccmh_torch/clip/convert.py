@@ -3,7 +3,11 @@ half of ``ccmh/clip/convert.py``).
 
 The file layout is ``ccmh``'s: one array per leaf under its flat
 ``a/b/c`` key path, stacked transformer blocks included, so the two
-packages read each other's files.  The architecture is inferred from the
+packages read each other's files.  A list in a tree (MITH's residual MLP
+layers) is stored one key per element, ``layers/0/...``, and read back as
+a list; ``ccmh`` writes such a list as one pickled object array, which its
+own ``allow_pickle=False`` reader refuses, so neither package reads
+the other's MITH checkpoints.  The architecture is inferred from the
 array shapes.  Conversion of OpenAI ``.pt`` archives and HuggingFace
 checkpoints is not ported yet.
 """
@@ -23,18 +27,28 @@ Params = Dict[str, Any]
 
 
 def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict of arrays -> {"a/b/c": array}."""
+    """Nested dicts (and lists) of arrays -> {"a/b/c": array}."""
     flat: Dict[str, np.ndarray] = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
+    if isinstance(tree, (dict, list)):
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
             flat.update(flatten(v, f"{prefix}{k}/"))
     else:
         flat[prefix[:-1]] = np.asarray(tree)
     return flat
 
 
+def _lists(node):
+    """Dicts keyed "0", "1", ... -> lists (what :func:`flatten` wrote)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(map(str, range(len(node)))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def unflatten(flat: Dict[str, np.ndarray]) -> Params:
-    """{"a/b/c": array} -> nested dict of numpy arrays."""
+    """{"a/b/c": array} -> nested dict (and lists) of numpy arrays."""
     tree: Params = {}
     for key, value in flat.items():
         node = tree
@@ -42,7 +56,7 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Params:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = np.asarray(value)
-    return tree
+    return _lists(tree)
 
 
 def infer_clip_config(clip: Params) -> ClipConfig:

@@ -13,20 +13,26 @@ packages unchanged (``ccmh_torch/bridge.py``):
   whatever the compute dtype.
 
 Attention dispatch follows ``ccmh``: the fused kernel
-(ccmh_torch/ops/attention.py) whenever the mask is None or [L, L].  The
+(ccmh_torch/ops/attention.py) whenever the attention weights are not asked
+for and the mask is None or [L, L]; a per-example key-padding bias
+[B, 1, L, L] and ``need_weights`` take the plain formulation.  The
 blocks' LayerNorms take the fused kernels (ccmh_torch/ops/layernorm.py)
 under ``set_ln_impl("fused")``; ``ln_pre``, ``ln_post`` and ``ln_final``
-stay plain, as in ``ccmh``.  This
-slice ports the ``pooled`` features; the ``tokens``/``mith`` modes,
-``need_weights``, per-example key-padding masks and the head-major
-(tensor-parallel) layout come later.
+stay plain, as in ``ccmh``.
+
+The towers return ``ccmh``'s :class:`VisionOutput` / :class:`TextOutput`:
+``features="pooled"`` the CLIP embedding, ``"tokens"`` also the
+pre-projection token states (DPSIH), ``"mith"`` every token through the
+final LayerNorm and the projection, the last layer's attention row of the
+cls (vision) or EOS (text) token and the extended key-padding mask (MITH).
+The head-major (tensor-parallel) layout is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,6 +81,21 @@ class ClipConfig:
         )
 
 
+class VisionOutput(NamedTuple):
+    pooled: torch.Tensor                       # [B, E] CLIP embedding
+    tokens_pre: Optional[torch.Tensor] = None  # [B, 1+P, W] after the blocks
+    tokens_proj: Optional[torch.Tensor] = None  # [B, 1+P, E] ln_post(all) @ proj
+    cls_attn: Optional[torch.Tensor] = None    # [B, P] last layer's cls -> patch row
+
+
+class TextOutput(NamedTuple):
+    pooled: torch.Tensor                       # [B, E] EOT-pooled embedding
+    tokens_pre: Optional[torch.Tensor] = None  # [B, L, W] after the blocks
+    tokens_proj: Optional[torch.Tensor] = None  # [B, L, E] ln_final(all) @ projection
+    eos_attn: Optional[torch.Tensor] = None    # [B, L] last layer's EOS row
+    key_padding_mask: Optional[torch.Tensor] = None  # [B, L] pads *and* EOT
+
+
 # ---------------------------------------------------------------------------
 # primitive layers
 # ---------------------------------------------------------------------------
@@ -115,26 +136,37 @@ def set_ln_impl(impl: str) -> None:
 
 
 def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
-                         attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention over [B, L, D] with a fused qkv projection.
+                         attn_bias: Optional[torch.Tensor] = None,
+                         need_weights: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Self-attention over [B, L, D] with a fused qkv projection ->
+    (output, weights or None).
 
-    ``attn_bias`` is an additive fp32 [L, L] mask (0 / -inf) or None."""
-    if ATTN_IMPL == "fused" and (attn_bias is None or attn_bias.ndim == 2):
+    ``attn_bias`` is an additive fp32 [L, L] or [B, 1, L, L] mask (0 /
+    -inf) or None.  The weights, with ``need_weights``, are the softmax
+    probabilities averaged over heads [B, L, L] (torch MHA's, which MITH
+    reads)."""
+    if ATTN_IMPL == "fused" and not need_weights and (attn_bias is None or attn_bias.ndim == 2):
         # feed the RAW x @ qkv_w product; the kernel folds qkv_b into its
         # load, saving the [B, L, 3D] round trip of a standalone bias add
         ctx = fused_attention(x @ p["qkv_w"], attn_bias, n_head, qkv_b=p["qkv_b"])
+        weights = None
+    elif need_weights:
+        ctx, weights = attention_reference(x @ p["qkv_w"] + p["qkv_b"], attn_bias, n_head,
+                                           need_weights=True)
     else:
-        ctx = attention_reference(x @ p["qkv_w"] + p["qkv_b"], attn_bias, n_head)
-    return ctx @ p["out_w"] + p["out_b"]
+        ctx, weights = attention_reference(x @ p["qkv_w"] + p["qkv_b"], attn_bias, n_head), None
+    return ctx @ p["out_w"] + p["out_b"], weights
 
 
-def _block(x: torch.Tensor, p: Params, n_head: int,
-           attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """Pre-LN residual attention block (attention + QuickGELU MLP)."""
+def _block(x: torch.Tensor, p: Params, n_head: int, attn_bias: Optional[torch.Tensor],
+           need_weights: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-LN residual attention block (attention + QuickGELU MLP) ->
+    (output, the attention weights with ``need_weights``)."""
     fused = LN_IMPL == "fused"
     ln = fused_layer_norm if fused else layer_norm
     h = ln(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    attn_out = multi_head_attention(h, p["attn"], n_head, attn_bias)
+    attn_out, weights = multi_head_attention(h, p["attn"], n_head, attn_bias, need_weights)
     if fused:
         # the residual add + pre-MLP LN in one pass (kernel #5)
         h, x = fused_add_layer_norm(x, attn_out, p["ln_2"]["scale"], p["ln_2"]["bias"])
@@ -142,7 +174,8 @@ def _block(x: torch.Tensor, p: Params, n_head: int,
         x = x + attn_out
         h = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"])
     mlp = p["mlp"]
-    return x + (quick_gelu(h @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"] + mlp["proj_b"])
+    x = x + (quick_gelu(h @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"] + mlp["proj_b"])
+    return x, weights
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -150,18 +183,23 @@ def _layer(tree: Params, i: int) -> Params:
 
 
 def transformer(x: torch.Tensor, stacked: Params, n_head: int,
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run the blocks in order over the stacked layer parameters.
+                attn_bias: Optional[torch.Tensor] = None, need_last_attn: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run the blocks in order over the stacked layer parameters ->
+    (output, the last block's attention weights with ``need_last_attn``;
+    only that block then takes the plain attention, as in ``ccmh``).
 
     Weights in another dtype than ``x`` are cast per layer (LayerNorm still
     reduces in fp32); :func:`cast_clip_params` casts them once instead."""
     n_layers = stacked["ln_1"]["scale"].shape[0]
+    weights = None
     for i in range(n_layers):
         layer = _layer(stacked, i)
         if layer["ln_1"]["scale"].dtype != x.dtype:
             layer = _map(lambda t: t.to(x.dtype), layer)
-        x = _block(x, layer, n_head, attn_bias)
-    return x
+        x, weights = _block(x, layer, n_head, attn_bias,
+                            need_weights=need_last_attn and i == n_layers - 1)
+    return x, weights
 
 
 def _map(fn, tree: Params) -> Params:
@@ -209,9 +247,17 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """ViT forward -> pooled [B, E] embedding (reference
-    model/base/model.py:228-252)."""
+                   dtype: torch.dtype = torch.float32,
+                   features: str = "pooled") -> VisionOutput:
+    """ViT forward (reference model/base/model.py:228-252).  ``features``:
+
+    "pooled": the CLIP embedding;
+    "tokens": and the token states before ``ln_post`` (DPSIH,
+              model/DPSIH.py:88-95);
+    "mith":   ``ln_post`` on *all* tokens, all projected, and the last
+              layer's cls -> patch attention row (model/MITH.py:57-83)."""
+    if features not in ("pooled", "tokens", "mith"):
+        raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     if images.dtype == torch.uint8:
         images = normalize_pixels(images)
     x = patchify(images.to(dtype), cfg.vision_patch_size)
@@ -221,9 +267,16 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
     x = torch.cat([cls, x], dim=1)
     x = x + p["positional_embedding"].to(dtype)
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
-    x = transformer(x, p["blocks"], cfg.vision_heads, None)
+    x, attn = transformer(x, p["blocks"], cfg.vision_heads, None,
+                          need_last_attn=features == "mith")
+    if features == "mith":
+        h = layer_norm(x, p["ln_post"]["scale"], p["ln_post"]["bias"])
+        tokens_proj = h @ p["proj"].to(dtype)              # [B, 1+P, E]
+        return VisionOutput(pooled=tokens_proj[:, 0, :], tokens_pre=x,
+                            tokens_proj=tokens_proj, cls_attn=attn[:, 0, 1:])
     pooled = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
-    return pooled @ p["proj"].to(dtype)
+    pooled = pooled @ p["proj"].to(dtype)
+    return VisionOutput(pooled=pooled, tokens_pre=x if features == "tokens" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +290,45 @@ def causal_mask(length: int, device: Any = "cpu") -> torch.Tensor:
 
 
 def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Causal text transformer with EOT pooling -> pooled [B, E].
+                 dtype: torch.dtype = torch.float32, features: str = "pooled",
+                 key_padding_mask: Optional[torch.Tensor] = None) -> TextOutput:
+    """Causal text transformer with EOT pooling.
 
     ``ids``: integer [B, L] (L <= context_length; the positional embedding
     is sliced to L).  The EOT position is ``argmax(ids)`` (the EOT id is
-    the largest in the vocab; the first maximum wins, as in ``ccmh``)."""
+    the largest in the vocab; the first maximum wins, as in ``ccmh``).
+    ``key_padding_mask`` [B, L] (True = a masked key, torch's convention)
+    joins the causal mask as a per-example [B, 1, L, L] bias.
+    ``features``: "pooled" | "tokens" | "mith" (every token projected, the
+    EOS attention row with its own column zeroed and the key-padding mask
+    extended to the EOT token, model/MITH.py:120-144)."""
+    if features not in ("pooled", "tokens", "mith"):
+        raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     B, L = ids.shape
     ids = ids.long()
     x = p["token_embedding"].to(dtype)[ids]               # [B, L, W]
     x = x + p["positional_embedding"].to(dtype)[:L]
-    x = transformer(x, p["blocks"], cfg.transformer_heads,
-                    causal_mask(L, device=x.device))
+    bias = causal_mask(L, device=x.device)
+    if key_padding_mask is not None:
+        kp = torch.zeros(key_padding_mask.shape, device=x.device).masked_fill(
+            key_padding_mask.to(torch.bool), -math.inf)
+        bias = bias[None, None, :, :] + kp[:, None, None, :]
+    x, attn = transformer(x, p["blocks"], cfg.transformer_heads, bias,
+                          need_last_attn=features == "mith")
     eos_pos = ids.argmax(dim=-1)                           # [B]
+    rows = torch.arange(B, device=x.device)
     h = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])
-    pooled = h[torch.arange(B, device=h.device), eos_pos]
-    return pooled @ p["text_projection"].to(dtype)
+    if features == "mith":
+        tokens_proj = h @ p["text_projection"].to(dtype)   # [B, L, E]
+        eos_attn = attn[rows, eos_pos]                     # [B, L]
+        eos_attn = eos_attn * (1.0 - torch.nn.functional.one_hot(eos_pos, L).to(eos_attn.dtype))
+        kpm = (key_padding_mask.to(torch.bool) if key_padding_mask is not None
+               else torch.zeros((B, L), dtype=torch.bool, device=x.device))
+        return TextOutput(pooled=tokens_proj[rows, eos_pos], tokens_pre=x,
+                          tokens_proj=tokens_proj, eos_attn=eos_attn,
+                          key_padding_mask=kpm | (ids == cfg.vocab_size - 1))
+    pooled = h[rows, eos_pos] @ p["text_projection"].to(dtype)
+    return TextOutput(pooled=pooled, tokens_pre=x if features == "tokens" else None)
 
 
 # ---------------------------------------------------------------------------

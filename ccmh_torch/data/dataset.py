@@ -8,7 +8,8 @@ dataset/base.py:35-100):
   tokenized to SOT + tokens + EOT, zero-padded to ``max_words``;
 * images are CLIP-normalized NHWC float32 (same constants, same op order,
   so the same bits as ``ccmh``'s ``normalize_u8``);
-* item -> (image, caption ids int32, label float32, index int32).
+* item -> (image, caption ids int32, label float32, index int32), and
+  with ``with_mask`` the key-padding mask ``ids == 0`` (MITH's batches).
 
 Images: npy-mode arrays only.  An image already at the configured
 resolution passes through unchanged, which is exactly what ``ccmh`` yields
@@ -49,8 +50,9 @@ class CrossModalDataset:
     """Indexable dataset over one split."""
 
     def __init__(self, raw: RawData, *, is_train: bool = True, max_words: int = 32,
-                 resolution: int = 224, seed: int = 0):
+                 resolution: int = 224, seed: int = 0, with_mask: bool = False):
         self.raw = raw
+        self.with_mask = with_mask
         self.is_train = is_train
         self.max_words = max_words
         self.resolution = resolution
@@ -93,12 +95,16 @@ class CrossModalDataset:
         return normalize_u8(src)
 
     def meta_items(self, idxs) -> Dict[str, np.ndarray]:
-        """Captions (tokenized), labels and indices of a batch."""
+        """Captions (tokenized), labels and indices of a batch, and the
+        key-padding mask with ``with_mask``."""
         caps = [self._caption(int(i)) for i in idxs]
         labels = np.stack([np.asarray(self.raw.labels[int(i)], np.float32).ravel()
                            for i in idxs])
-        return {"text": tokenize_batch(caps, self.max_words), "label": labels,
-                "index": np.asarray(idxs, np.int32)}
+        ids = tokenize_batch(caps, self.max_words)
+        batch = {"text": ids, "label": labels, "index": np.asarray(idxs, np.int32)}
+        if self.with_mask:
+            batch["key_padding_mask"] = ids == 0
+        return batch
 
 
 class BatchIterator:

@@ -42,12 +42,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def attention_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                         n_head: int,
-                        qkv_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        qkv_b: Optional[torch.Tensor] = None,
+                        need_weights: bool = False):
     """Plain PyTorch attention, [B, L, 3D] packed q|k|v -> [B, L, D].
 
     ``qkv_b`` is added in the input type, logits and softmax are fp32,
     the probabilities are rounded to the input type before ``p . v``,
-    which accumulates in fp32 and is stored in the input type."""
+    which accumulates in fp32 and is stored in the input type.  ``bias``
+    is [L, L] or a per-example [B, 1, L, L].  With ``need_weights`` it
+    returns ``(context, probabilities averaged over heads [B, L, L])``."""
     B, L, D3 = qkv.shape
     D = D3 // 3
     head_dim = D // n_head
@@ -60,7 +63,8 @@ def attention_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(qkv.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-    return ctx.to(qkv.dtype).reshape(B, L, D)
+    ctx = ctx.to(qkv.dtype).reshape(B, L, D)
+    return (ctx, probs.mean(1)) if need_weights else ctx
 
 
 def _check(qkv, bias, n_head, qkv_b) -> None:

@@ -15,13 +15,16 @@ The reference ranks with a CPU Python loop over queries
      ``hist``: the sort-free expected AP over random tie orders from
      per-distance histograms (McSherry & Najork, ECIR'08), mAP@all only.
 
-Queries run in chunks so the [chunk, N] working set stays bounded.  Mesh
-placement, gallery sharding and bit-packed labels are not ported.
+``dist_fn`` replaces step 1 with a method's own integer distances in
+[0, n_bins) (DPSIH's multi-embed ranking); the exact path then sorts
+(distance, relevance) pairs stably instead of the packed key, as ``ccmh``
+does.  Queries run in chunks so the [chunk, N] working set stays bounded.
+Mesh placement, gallery sharding and bit-packed labels are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,16 +52,20 @@ def _chunk_budget_elems(device: torch.device) -> int:
     return max(1 << 28, int(total * 0.5) // 12)
 
 
-def _map_chunk(q_codes, r_codes, q_labels, r_labels, k: Optional[int]) -> torch.Tensor:
+DistFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _map_chunk(q_codes, r_codes, q_labels, r_labels, k: Optional[int],
+               dist_fn: Optional[DistFn] = None) -> torch.Tensor:
     """Sum of the chunk's per-query APs (float32 scalar), stable ranking."""
     n = r_codes.shape[0]
-    dist = hamming_distance(q_codes, r_codes)                     # [C, N] int32
+    dist = (dist_fn or hamming_distance)(q_codes, r_codes)        # [C, N] int32
     gnd = _gnd_matrix(q_labels, r_labels)
     tsum = gnd.sum(1)
     total = tsum if k is None else torch.clamp(tsum, max=k)
     dist_bits = (q_codes.shape[1] + 1).bit_length()                # distance in [0, K]
     idx_bits = max(n - 1, 1).bit_length()
-    if dist_bits + idx_bits + 1 <= _KEY_BITS:
+    if dist_fn is None and dist_bits + idx_bits + 1 <= _KEY_BITS:
         idx = torch.arange(n, dtype=torch.int32, device=dist.device)[None, :]
         packed = (dist << (idx_bits + 1)) | (idx << 1) | gnd
         gnd_sorted = torch.sort(packed, dim=1).values & 1
@@ -87,13 +94,14 @@ def _bin_counts(dist: torch.Tensor, gnd: torch.Tensor, n_bins: int
     return A, R
 
 
-def _map_chunk_hist(q_codes, r_codes, q_labels, r_labels, n_bins: int) -> torch.Tensor:
+def _map_chunk_hist(q_codes, r_codes, q_labels, r_labels, n_bins: int,
+                    dist_fn: Optional[DistFn] = None) -> torch.Tensor:
     """Sum of the chunk's expected APs over random tie orders.  With A_d
     items (R_d relevant) at distance d, L_d / P_d of them (relevant) closer,
     and H the harmonic number (via digamma), group d contributes
         (R_d/A_d) [ (P_d+1) S1 + (R_d-1)/(A_d-1) (A_d - (L_d+1) S1) ],
         S1 = H(L_d+A_d) - H(L_d)."""
-    dist = hamming_distance(q_codes, r_codes)
+    dist = (dist_fn or hamming_distance)(q_codes, r_codes)
     gnd = _gnd_matrix(q_labels, r_labels).float()
     A, R = _bin_counts(dist, gnd, n_bins)
     L = torch.cumsum(A, dim=1) - A
@@ -122,10 +130,12 @@ def _as_tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def calc_map(q_codes, r_codes, q_labels, r_labels, k: Optional[int] = None,
              chunk: Optional[int] = None, method: str = "auto",
              n_bins: Optional[int] = None,
-             device: Optional[DeviceLike] = None) -> torch.Tensor:
+             device: Optional[DeviceLike] = None,
+             dist_fn: Optional[DistFn] = None) -> torch.Tensor:
     """mAP@k of the Hamming ranking (k=None: mAP@all), a float32 scalar on
     the device; the mean is over ALL queries, zero-relevance ones included
-    (reference parity).
+    (reference parity).  ``dist_fn(q, r) -> int32 [Q, N]`` replaces the
+    Hamming distance (its values must lie in [0, n_bins) for "hist").
 
     ``method``: "exact" — stable sort, ties in gallery index order;
     "hist" — the sort-free expected-tie AP (mAP@all only); "auto" — hist
@@ -154,16 +164,16 @@ def calc_map(q_codes, r_codes, q_labels, r_labels, k: Optional[int] = None,
     for start in range(0, num_query, chunk):
         q, l = qc[start:start + chunk], ql[start:start + chunk]
         if use_hist:
-            total = total + _map_chunk_hist(q, rc, l, rl, n_bins)
+            total = total + _map_chunk_hist(q, rc, l, rl, n_bins, dist_fn)
         else:
-            total = total + _map_chunk(q, rc, l, rl, k)
+            total = total + _map_chunk(q, rc, l, rl, k, dist_fn)
     return total / num_query
 
 
 def calc_map_4way(query_img, query_txt, retrieval_img, retrieval_txt, q_labels, r_labels,
                   k: Optional[int] = None, chunk: Optional[int] = None,
                   method: str = "auto", n_bins: Optional[int] = None,
-                  device: Optional[DeviceLike] = None
+                  device: Optional[DeviceLike] = None, dist_fn: Optional[DistFn] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(i2t, t2i, i2i, t2t) mAP, the reference's validation quartet
     (train/base.py:259-262); the labels move to the device once."""
@@ -172,7 +182,7 @@ def calc_map_4way(query_img, query_txt, retrieval_img, retrieval_txt, q_labels, 
     dev = resolve_device(device)
     ql = _as_tensor(q_labels, dev, torch.float32)
     rl = _as_tensor(r_labels, dev, torch.float32)
-    kw = dict(k=k, chunk=chunk, method=method, n_bins=n_bins, device=dev)
+    kw = dict(k=k, chunk=chunk, method=method, n_bins=n_bins, device=dev, dist_fn=dist_fn)
     i2t = calc_map(query_img, retrieval_txt, ql, rl, **kw)
     t2i = calc_map(query_txt, retrieval_img, ql, rl, **kw)
     i2i = calc_map(query_img, retrieval_img, ql, rl, **kw)

@@ -37,6 +37,7 @@ from ccmh_torch.tokenizer.bpe import tokenize_batch
 from ccmh_torch.train.checkpoint import load_checkpoint
 from ccmh_torch.train.methods import get_method
 from ccmh_torch.train.methods.base import resolve_compute_dtype
+from ccmh_torch.train.optim import tree_leaves_with_path
 
 # combined sort key = (distance << idx_bits) | gallery_index, minimized;
 # both parts must fit an int32
@@ -334,13 +335,18 @@ class Retriever:
             raise ValueError(
                 f"checkpoint {cfg.pretrained} holds a {found} tower but "
                 f"{clip_cfg} was asked for")
-        # the hash heads' shapes; the trees beside them (a label net, loss
-        # heads) depend on the class count, which serving does not know
-        heads, _, _ = method.init(torch.Generator(), cfg.replace(nclass=max(cfg.nclass, 1)),
-                                  found)
-        for name in ("img_head", "txt_head"):
-            want = {k: tuple(v.shape) for k, v in heads[name].items()}
-            got = {k: tuple(np.shape(v)) for k, v in tree.get(name, {}).items()}
+        # the head trees' shapes; a tree whose shapes follow the class count
+        # (a label net, loss heads), which serving does not know, is found by
+        # initialising the method at two class counts and is not checked
+        def shapes(t):
+            return {k: tuple(np.shape(v)) for k, v in tree_leaves_with_path(t)}
+        heads, _, _ = method.init(torch.Generator(), cfg.replace(nclass=1), found)
+        other, _, _ = method.init(torch.Generator(), cfg.replace(nclass=2), found)
+        for name in heads:
+            want = shapes(heads[name])
+            if want != shapes(other[name]):
+                continue
+            got = shapes(tree.get(name, {}))
             if want != got:
                 raise ValueError(f"checkpoint head {name!r} has shapes {got}, "
                                  f"{cfg.method} K={cfg.output_dim} needs {want}")
@@ -416,4 +422,6 @@ class Retriever:
 def _to_device(tree, dev: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
     return tree.to(dev)

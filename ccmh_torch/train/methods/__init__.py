@@ -32,7 +32,8 @@ EXPECTED_METHODS: Dict[str, str] = {
 }
 
 # modules of ccmh_torch.train.methods ported so far; each defines METHOD
-PORTED = ("dchmt", "dsph", "dnph_tmm", "dmsh_ln", "dscph", "ddwsh", "ddbh")
+PORTED = ("dchmt", "dsph", "dnph_tmm", "dhaph", "dmsh_ln", "dscph", "ddwsh", "ddbh", "mith",
+          "dpsih")
 
 
 def available_methods() -> List[str]:

@@ -12,8 +12,10 @@ methods:
 ``ccmh`` encodes one modality by returning one output of its joint
 ``encode`` under ``jit`` and letting XLA drop the other tower.  PyTorch
 runs eagerly, so the port's methods carry one encode function per tower,
-and the joint :meth:`Method.encode` is their composition.  ``jax.random``
-keys become an explicit ``torch.Generator`` (dropout of the linear heads).
+and the joint :meth:`Method.encode` is their composition; a ``needs_mask``
+method's ``encode_text`` builds the key-padding mask ``ids == 0`` itself,
+as ``ccmh``'s Retriever does for it.  ``jax.random`` keys become an
+explicit ``torch.Generator`` (dropout of the linear heads).
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ccmh_torch.clip.model import ClipConfig, text_forward, vision_forward
+from ccmh_torch.clip.model import (
+    ClipConfig, TextOutput, VisionOutput, text_forward, vision_forward,
+)
 from ccmh_torch.config import Config
 from ccmh_torch.models.heads import init_linear_hash, linear_hash
 from ccmh_torch.ops.packing import sign_codes
@@ -48,6 +52,11 @@ class Method:
     # optional: (cfg, extra) -> the optimizer of the loss-side ``extra``
     # parameters (ccmh's extra_tx), stepped after BertAdam
     extra_optimizer: Optional[Callable[[Config, Params], torch.optim.Optimizer]] = None
+    features: str = "pooled"       # the towers' output mode the method reads
+    needs_mask: bool = False       # batches carry key_padding_mask = ids == 0 (MITH)
+    # a global gradient-norm clip of the main parameters before BertAdam's
+    # per-tensor clip (DPSIH: train/DPSIH/hash_train.py:70-71, at 2.0)
+    grad_clip: float = 0.0
 
     def make_loss_fn(self, cfg: Config, clip_cfg: ClipConfig):
         """``(params, extra, aux, batch, generator) -> (loss, (aux, metrics))``."""
@@ -99,8 +108,8 @@ def make_linear_hash_method(
 
     def _loss(params, extra, aux, batch, generator, cfg: Config, clip_cfg: ClipConfig):
         img, txt = clip_embeds(params, clip_cfg, batch, cfg)
-        hi = linear_hash(params["img_head"], img, train=True, generator=generator)
-        ht = linear_hash(params["txt_head"], txt, train=True, generator=generator)
+        hi = linear_hash(params["img_head"], img.pooled, train=True, generator=generator)
+        ht = linear_hash(params["txt_head"], txt.pooled, train=True, generator=generator)
         loss, metrics = loss_body(hi, ht, batch, params, extra, aux, generator, cfg)
         return loss, (aux, metrics)
 
@@ -131,24 +140,51 @@ def resolve_compute_dtype(cfg: Optional[Config]) -> torch.dtype:
         f"unsupported compute_dtype {name!r}; use 'float32' or 'bfloat16'")
 
 
+def _cast_floats_f32(out):
+    """Every floating tensor of a tower output in fp32 (heads and losses
+    keep fp32 numerics under bf16 towers)."""
+    return type(out)(*[t.float() if t is not None and t.is_floating_point() else t
+                       for t in out])
+
+
+def image_features(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
+                   cfg: Optional[Config] = None, *, features: str = "pooled",
+                   dtype=None) -> VisionOutput:
+    """The vision tower's outputs in mode ``features``, in the run's compute
+    dtype, every floating output in fp32 (model/modelbase.py:69-96)."""
+    dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
+    return _cast_floats_f32(vision_forward(params["clip"]["visual"], clip_cfg, images,
+                                           dtype=dtype, features=features))
+
+
+def text_features(params: Params, clip_cfg: ClipConfig, ids: torch.Tensor,
+                  cfg: Optional[Config] = None, *, features: str = "pooled",
+                  key_padding_mask: Optional[torch.Tensor] = None, dtype=None) -> TextOutput:
+    """The text tower's outputs, as :func:`image_features`."""
+    dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
+    return _cast_floats_f32(text_forward(params["clip"]["text"], clip_cfg, ids, dtype=dtype,
+                                         features=features,
+                                         key_padding_mask=key_padding_mask))
+
+
 def image_embeds(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
                  cfg: Optional[Config] = None, *, dtype=None) -> torch.Tensor:
-    """Pooled fp32 image embeddings [B, E] through the vision tower in the
-    run's compute dtype (model/modelbase.py:69-96)."""
-    dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
-    return vision_forward(params["clip"]["visual"], clip_cfg, images, dtype=dtype).float()
+    """Pooled fp32 image embeddings [B, E]."""
+    return image_features(params, clip_cfg, images, cfg, dtype=dtype).pooled
 
 
 def text_embeds(params: Params, clip_cfg: ClipConfig, ids: torch.Tensor,
                 cfg: Optional[Config] = None, *, dtype=None) -> torch.Tensor:
-    """Pooled fp32 text embeddings [B, E] through the text tower."""
-    dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
-    return text_forward(params["clip"]["text"], clip_cfg, ids, dtype=dtype).float()
+    """Pooled fp32 text embeddings [B, E]."""
+    return text_features(params, clip_cfg, ids, cfg, dtype=dtype).pooled
 
 
 def clip_embeds(params: Params, clip_cfg: ClipConfig, batch: Dict[str, torch.Tensor],
-                cfg: Optional[Config] = None, *, dtype=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both towers: (image embeds, text embeds), fp32 out."""
-    return (image_embeds(params, clip_cfg, batch["image"], cfg, dtype=dtype),
-            text_embeds(params, clip_cfg, batch["text"], cfg, dtype=dtype))
+                cfg: Optional[Config] = None, *, features: str = "pooled", dtype=None
+                ) -> Tuple[VisionOutput, TextOutput]:
+    """Both towers in mode ``features``, fp32 out; the text tower takes the
+    batch's ``key_padding_mask`` where it has one."""
+    return (image_features(params, clip_cfg, batch["image"], cfg, features=features,
+                           dtype=dtype),
+            text_features(params, clip_cfg, batch["text"], cfg, features=features,
+                          key_padding_mask=batch.get("key_padding_mask"), dtype=dtype))

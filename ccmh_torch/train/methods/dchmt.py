@@ -40,7 +40,7 @@ def _encode_text(params, aux, ids, cfg: Config, clip_cfg: ClipConfig):
 
 
 def _loss(params, extra, aux, batch, generator, cfg: Config, clip_cfg: ClipConfig):
-    img, txt = clip_embeds(params, clip_cfg, batch, cfg)
+    img, txt = (out.pooled for out in clip_embeds(params, clip_cfg, batch, cfg))
     if cfg.dchmt.hash_layer == "select":
         # [B, K, 2] pairs -> [B, 2K] (hash_train.py:55-57)
         hi = select_hash(params["img_head"], img).flatten(1)

@@ -148,10 +148,12 @@ def _get(tree: Params, path: Tuple[str, ...]):
     return tree
 
 
-def tree_leaves_with_path(tree: Params, prefix: Tuple[str, ...] = ()
-                          ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-    for k, v in tree.items():
-        if isinstance(v, dict):
+def tree_leaves_with_path(tree: Params, prefix: Tuple[Any, ...] = ()
+                          ) -> Iterator[Tuple[Tuple[Any, ...], Any]]:
+    """(path, leaf) of every leaf in order; a path holds dict keys and, for
+    lists (MITH's residual MLP layers), integer indices."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
             yield from tree_leaves_with_path(v, prefix + (k,))
         else:
             yield prefix + (k,), v

@@ -4,10 +4,11 @@
 step.  PyTorch runs eagerly: the state holds the parameter tree (leaf
 tensors with ``requires_grad``), the method's ``extra`` and ``aux`` trees,
 the step counter and the ``torch.Generator`` of the step's randomness, and
-the step is forward, loss, backward and one BertAdam step, updating the
-parameters in place.  A method's loss-side ``extra`` parameters (DSPH's
-proxies) take the same backward and their own optimizer (``ccmh``'s
-``extra_tx``), stepped after BertAdam.
+the step is forward, loss, backward, the method's global gradient clip
+where it has one (DPSIH's), and one BertAdam step, updating the parameters
+in place.  A method's loss-side ``extra`` parameters (DSPH's proxies)
+take the same backward and their own optimizer (``ccmh``'s ``extra_tx``),
+stepped after BertAdam.
 """
 
 from __future__ import annotations
@@ -64,17 +65,32 @@ def trainable(params: Params) -> Params:
 LossFn = Callable[..., Tuple[torch.Tensor, Tuple[Params, Dict[str, torch.Tensor]]]]
 
 
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place: every gradient unchanged when
+    the global norm ‖g‖ < ``max_norm``, else ``g / ‖g‖ * max_norm``
+    (``clip_grad_norm_`` divides by ‖g‖ + 1e-6 instead).  No host sync;
+    returns ‖g‖."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
 def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
-                    extra_optimizer: Optional[torch.optim.Optimizer] = None):
+                    extra_optimizer: Optional[torch.optim.Optimizer] = None,
+                    grad_clip: float = 0.0):
     """``(state, batch) -> (state, metrics)``: one eager step.
 
     ``loss_fn(params, extra, aux, batch, generator) -> (loss, (new_aux,
     metrics))``; one backward differentiates the parameters and ``extra``
     together, then ``optimizer`` steps the parameters and
     ``extra_optimizer`` the ``extra`` leaves (``ccmh``'s two updates of
-    one step).  ``metrics`` holds detached device scalars, ``loss`` among
-    them (reading them synchronises with the card, so the caller decides
-    when)."""
+    one step).  ``grad_clip`` > 0 clips the gradients of ``optimizer``'s
+    parameters by their global norm first (``ccmh`` chains
+    ``clip_by_global_norm`` before BertAdam).  ``metrics`` holds detached
+    device scalars, ``loss`` among them (reading them synchronises with the
+    card, so the caller decides when)."""
     optimizers = [optimizer] + ([extra_optimizer] if extra_optimizer is not None else [])
 
     def step_fn(state: TrainState, batch: Dict[str, Any]):
@@ -83,6 +99,9 @@ def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
         loss, (new_aux, metrics) = loss_fn(state.params, state.extra, state.aux, batch,
                                            state.generator)
         loss.backward()
+        if grad_clip > 0:
+            clip_by_global_norm_([p.grad for group in optimizer.param_groups
+                                  for p in group["params"] if p.grad is not None], grad_clip)
         for opt in optimizers:
             opt.step()
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -4,10 +4,13 @@
 One device (``cuda`` unless the caller asks for ``cpu``).  Per epoch: the
 train split streams from :class:`BatchIterator` (host assembly on threads,
 pinned host buffers on the card), each batch runs one eager train step
-(CLIP forward x2, heads, loss, backward, BertAdam, and the method's own
-optimizer for its loss-side ``extra`` parameters where it has one, as
-DSPH's proxy SGD); the epoch rides in every batch.  Then ``valid`` extracts
-±1 codes for the query and retrieval splits, ranks with the histogram mAP
+(CLIP forward x2, heads, loss, backward, the method's global gradient
+clip where it has one, BertAdam, and the method's own optimizer for its
+loss-side ``extra`` parameters where it has one, as DSPH's proxy SGD);
+the epoch rides in every batch, and a ``needs_mask`` method's batches
+carry the key-padding mask.  Then ``valid`` extracts
+±1 codes for the query and retrieval splits, ranks them (by Hamming
+distance, or the method's own ``dist_fn``) with the histogram mAP
 and rechecks candidates for a best epoch with the exact stable-sort mAP
 (``ccmh``'s ``_needs_exact``), keeps the best-epoch trackers, and writes
 the ``.mat`` codes, the csv and the reference's log lines.  ``--save-model``
@@ -127,7 +130,8 @@ class Trainer:
             splits = make_splits(caption, index, label, cfg.query_num, cfg.train_num,
                                  cfg.seed, npy=npy)
         self.splits = splits
-        kw = dict(max_words=cfg.max_words, resolution=cfg.resolution, seed=cfg.seed)
+        kw = dict(max_words=cfg.max_words, resolution=cfg.resolution, seed=cfg.seed,
+                  with_mask=self.method.needs_mask)
         self.train_data = CrossModalDataset(splits.train, is_train=True, **kw)
         self.query_data = CrossModalDataset(splits.query, is_train=False, **kw)
         self.retrieval_data = CrossModalDataset(splits.retrieval, is_train=False, **kw)
@@ -161,6 +165,11 @@ class Trainer:
             if not os.path.exists(cfg.pretrained):
                 raise FileNotFoundError(f"--pretrained {cfg.pretrained!r} does not exist")
             params, extra, aux, step = self._restore(cfg.pretrained, params, extra)
+        if "train_labels" in aux:
+            # MITH's buffer losses compare against the whole train split; the
+            # labels are this run's, also after --pretrained (ccmh keeps a
+            # checkpoint's own)
+            aux["train_labels"] = torch.from_numpy(self.train_data.all_labels()).to(self.device)
         params = trainable(params)
         self.optimizer = make_main_optimizer(cfg, params, len(self.train_loader))
         # the loss-side extra parameters train only under the method's own
@@ -172,7 +181,10 @@ class Trainer:
         self.state = TrainState(params, extra, aux, step,
                                 torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
         self.train_step = make_train_step(self.method.make_loss_fn(cfg, clip_cfg),
-                                          self.optimizer, self.extra_optimizer)
+                                          self.optimizer, self.extra_optimizer,
+                                          grad_clip=self.method.grad_clip)
+        # the method's own ranking distance in evaluation (DPSIH), else Hamming
+        self.eval_dist_fn = self.method.dist_fn(cfg) if self.method.dist_fn else None
 
     def _restore(self, path: str, params, extra):
         """Weights of a ccmh-format ``.npz`` (``restore_state``'s npz branch):
@@ -302,7 +314,8 @@ class Trainer:
         q_img, q_txt, q_time = self.get_code(self.query_loader, len(self.query_data))
         r_img, r_txt, r_time = self.get_code(self.retrieval_loader, len(self.retrieval_data))
         qL, rL = self._eval_labels_dev()
-        kw = dict(n_bins=self.cfg.output_dim + 1, device=self.device)
+        kw = dict(n_bins=self.cfg.output_dim + 1, device=self.device,
+                  dist_fn=self.eval_dist_fn)
         i2t, t2i, i2i, t2t = map(float, calc_map_4way(q_img, q_txt, r_img, r_txt, qL, rL, **kw))
 
         # best-epoch decisions use the exact stable-sort metric

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ccmh_torch serving and training paths on one NVIDIA card and
-check them: DCHMT serving, DCHMT training, and LinearHash training with
-the LayerNorm kernels.
+check them: DCHMT serving, DCHMT training, LinearHash training with the
+LayerNorm kernels, and the token-level methods (MITH, DPSIH, DHaPH).
 
     python3 chip_smoke.py
 
@@ -13,7 +13,8 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    CUDA kernel from the sources in the checkout, one ``nvcc`` per source;
 2. each kernel against its plain PyTorch version on the card, at the
    paths' shapes: the attention forward and backward (vision B=256 L=50
-   D=768 H=12, text B=256 L=32 D=512 H=8 causal, both with the projection
+   D=768 H=12, text B=256 L=32 D=512 H=8 causal, MITH's concept
+   transformers B=128 L=K in {16, 64} D=512 H=8, all with the projection
    bias; fp32 within 1e-4 and bf16 within 2e-2, the backward's relative to
    its output scale) and packed Hamming (Q=512, N=2^20, K=64, exactly
    equal), the LayerNorm and residual add + LayerNorm (vision rows
@@ -81,7 +82,25 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    output scale), with ms per call beside its bound, the plain version's
    ms and SDPA's where it computes the same function; edge shapes (L=77
    causal, Dh=30 at an odd bb, L=1 at bb=B) and the refusals (odd H for
-   ``pair`` and #10, R > 256 for #9, a bb that does not divide B, fp16).
+   ``pair`` and #10, R > 256 for #9, a bb that does not divide B, fp16);
+10. the token-level path with ``set_ln_impl("fused")``: ``ccmh_torch.cli.main``
+   with ``--method MITH`` (ViT-B/32 K=64 fp32, a seeded ``--pretrained``
+   init with its four code buffers, phase 5's dataset, batch 128, 1 epoch
+   with ``valid`` and ``--save-model``), counters set to 0 just before and
+   read just after.  It checks the launches of #1, #2, #4 and #5 against
+   the counts the code implies (vision layers 1-11 and both concept
+   transformers take #1; the text tower's per-example key-padding bias
+   and the last vision block's attention weights take the plain
+   formulation), the finite losses, every parameter moved, every buffer
+   row written, and that the saved ``.npz`` serves the trainer's codes with
+   the text side masked.  Then DPSIH and DHaPH, 2 steps each through
+   ``Trainer`` and ``valid``: DPSIH ranks through its ``dist_fn`` and a
+   ``HashIndex`` built with it answers a search; DHaPH's HPmodel and LCAs
+   move under AdamW.  Beside it: the full-width MITH loss and gradient
+   with the kernels against plain attention and LayerNorm (losses within
+   1e-5, relative gradient norm within 1e-3), and the MITH, DPSIH and
+   DHaPH step ms at batch 128 in fp32 and bf16, split into forward,
+   backward and optimizer device time by CUDA events.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -112,9 +131,14 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 # is the larger of its bytes over the memory rate and its operations over
 # the peak rate of their type.  The data sheet gives no int32 ALU rate; the
 # fp32 CUDA-core rate stands in (the popcount kernel is bound by bytes
-# either way).
+# either way).  The attention kernels #1 and #2 run their fp32 products on
+# the tensor cores as 3xTF32 (three TF32 products each), a third of the TF32
+# peak.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12,
+                  "3xtf32": 495e12 / 3}
+# the rate of the attention kernels' products, by input type
+ATTN_OP_TYPE = {"float32": "3xtf32", "bfloat16": "bfloat16"}
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 STEADY_LOOPS = (40, 240)   # the attention kernels' and SDPA's steady timing
@@ -258,6 +282,42 @@ def bound(n_bytes: float, n_ops: float, op_type: str):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_train_steps(loss_fn, st, batch, optimizers, steps: int, warm: int,
+                     grad_clip: float = 0.0) -> dict:
+    """Host ms per eager train step and its forward, backward and optimizer
+    device ms by CUDA events, over ``steps`` steps after ``warm`` (the
+    method's global gradient clip in the optimizer part, as in the step)."""
+    import torch
+
+    from ccmh_torch.train.state import clip_by_global_norm_
+
+    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    t_host = 0.0
+    for i in range(warm + steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ev[0].record()
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(st.params, st.extra, st.aux, batch, st.generator)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        if grad_clip:
+            clip_by_global_norm_([p.grad for g in optimizers[0].param_groups
+                                  for p in g["params"] if p.grad is not None], grad_clip)
+        for opt in optimizers:
+            opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            t_host += time.perf_counter() - h0
+            for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+                parts[k] += ev[a].elapsed_time(ev[b]) / steps
+    return {"step_ms": 1e3 * t_host / steps, **{f"{k}_ms": v for k, v in parts.items()}}
+
+
 # --------------------------------------------------------------------- phase 1
 
 def phase_build():
@@ -305,7 +365,7 @@ def attention_case(name, B, L, H, causal, dtype):
     item = qkv.element_size()
     n_bytes = (qkv.numel() + qkv_b.numel() + B * L * D) * item + (L * L * 4 if causal else 0)
     n_ops = 4.0 * B * H * L * L * Dh
-    bound_ms, bound_by = bound(n_bytes, n_ops, tname)
+    bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "tol": ATTN_TOL[tname], "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -351,7 +411,7 @@ def attention_bwd_case(name, B, L, H, causal, dtype):
     item = qkv.element_size()
     n_bytes = (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item + (L * L * 4 if causal else 0)
     n_ops = 10.0 * B * H * L * L * Dh
-    bound_ms, bound_by = bound(n_bytes, n_ops, tname)
+    bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "output_scale": scale,
             "tol": ATTN_TOL[tname], "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -936,12 +996,42 @@ def training_path(state):
     state.update(trainer=trainer, params0=params0, train_launches=launches)
 
 
-def check_training(state):
+def check_served_codes(phase, trainer, pretrained, margin_of, **cfg_kw):
+    """The saved weights serve: ``Retriever.from_pretrained`` on
+    ``pretrained`` encodes the query split to the trainer's own codes, the
+    text side as the method encodes it (MITH under its key-padding mask).
+    A bit may differ only where ``margin_of(kind, retriever, cfg, x)``, the
+    relaxed code's distance from a flip, is below MARGIN."""
     import torch
 
     from ccmh_torch.config import Config
-    from ccmh_torch.models.heads import select_hash
     from ccmh_torch.retrieval import Retriever
+
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    batches = list(trainer.query_loader)
+    images = np.concatenate([b["image"] for b in batches])
+    ids = np.concatenate([b["text"] for b in batches])
+    cfg = Config(method=trainer.cfg.method, output_dim=K_BITS,
+                 max_words=trainer.cfg.max_words, pretrained=pretrained, **cfg_kw)
+    retriever = Retriever.from_pretrained(cfg, device="cuda")
+    differ, near = 0, 0
+    for kind, x, codes, want in (("image", images, retriever.encode_images(images), q_img),
+                                 ("text", ids, retriever.encode_texts(ids), q_txt)):
+        with torch.inference_mode():
+            margin = np.concatenate([
+                margin_of(kind, retriever, cfg, torch.from_numpy(x[i:i + BATCH]).cuda()).cpu().numpy()
+                for i in range(0, len(x), BATCH)])
+        bad = codes != want
+        differ += int(bad.sum())
+        near += int((margin < MARGIN).sum())
+        check(np.all(margin[bad] < MARGIN), f"served {trainer.cfg.method} {kind} codes differ "
+                                            f"from the trainer's at margin >= {MARGIN}")
+    say(phase, method=trainer.cfg.method, served_codes_vs_trainer="agree",
+        bits=q_img.size + q_txt.size, differing_bits=differ, bits_with_margin_below_1e_3=near)
+
+
+def check_training(state):
+    from ccmh_torch.models.heads import select_hash
     from ccmh_torch.train.methods.base import image_embeds, text_embeds
     from ccmh_torch.train.optim import tree_leaves_with_path
 
@@ -967,31 +1057,15 @@ def check_training(state):
     say("train", step_losses=losses, map_i2t=[r["i2t"] for r in valid],
         map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(start))
 
-    # the saved weights serve: Retriever.from_pretrained encodes the query
-    # split to the trainer's own codes
-    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
-    batches = list(trainer.query_loader)
-    images = np.concatenate([b["image"] for b in batches])
-    ids = np.concatenate([b["text"] for b in batches])
-    cfg = Config(method="DCHMT", output_dim=K_BITS, max_words=trainer.cfg.max_words,
-                 pretrained=os.path.join(save_dir, "model-1.npz"))
-    retriever = Retriever.from_pretrained(cfg, device="cuda")
-    differ, near = 0, 0
-    for kind, codes, want in (("image", retriever.encode_images(images), q_img),
-                              ("text", retriever.encode_texts(ids), q_txt)):
-        with torch.inference_mode():
-            x = torch.from_numpy(images if kind == "image" else ids).cuda()
-            emb = (image_embeds(retriever.params, retriever.clip_cfg, x, cfg) if kind == "image"
-                   else text_embeds(retriever.params, retriever.clip_cfg, x, cfg))
-            pairs = select_hash(retriever.params["img_head" if kind == "image" else "txt_head"], emb)
-            margin = (pairs[..., 1] - pairs[..., 0]).abs().cpu().numpy()
-        bad = codes != want
-        differ += int(bad.sum())
-        near += int((margin < MARGIN).sum())
-        check(np.all(margin[bad] < MARGIN),
-              f"served {kind} codes differ from the trainer's at margin >= {MARGIN}")
-    say("train", served_codes_vs_trainer="agree", bits=2 * TRAIN_QUERY * K_BITS,
-        differing_bits=differ, bits_with_margin_below_1e_3=near)
+    # the saved weights serve the trainer's codes; a bit may differ only
+    # where its select pair's margin is below MARGIN
+    def pair_margin(kind, retriever, cfg, x):
+        embeds = image_embeds if kind == "image" else text_embeds
+        head = retriever.params["img_head" if kind == "image" else "txt_head"]
+        pairs = select_hash(head, embeds(retriever.params, retriever.clip_cfg, x, cfg))
+        return (pairs[..., 1] - pairs[..., 0]).abs()
+
+    check_served_codes("train", trainer, os.path.join(save_dir, "model-1.npz"), pair_margin)
 
 
 def beside_training(state):
@@ -1031,39 +1105,16 @@ def beside_training(state):
     del out, gf, gp
 
     # train step time at batch 128, split by CUDA events
-    from ccmh_torch.train.state import TrainState
-
-    opt = trainer.optimizer
     timings = {}
     for name, dtype, impl in (("fp32", "float32", "fused"), ("bf16", "bfloat16", "fused"),
                               ("fp32_plain_attention", "float32", "plain")):
         loss_fn = method.make_loss_fn(cfg.replace(compute_dtype=dtype), clip_cfg)
-        st: TrainState = trainer.state
         cm.set_attn_impl(impl)
         try:
-            parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-            steps, warm = 5, 2
-            t_host = 0.0
-            for i in range(warm + steps):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                torch.cuda.synchronize()
-                h0 = time.perf_counter()
-                ev[0].record()
-                opt.zero_grad(set_to_none=True)
-                loss, _ = loss_fn(st.params, None, st.aux, batch, st.generator)
-                ev[1].record()
-                loss.backward()
-                ev[2].record()
-                opt.step()
-                ev[3].record()
-                torch.cuda.synchronize()
-                if i >= warm:
-                    t_host += time.perf_counter() - h0
-                    for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
-                        parts[k] += ev[a].elapsed_time(ev[b]) / steps
+            timings[name] = time_train_steps(loss_fn, trainer.state, batch,
+                                             [trainer.optimizer], steps=5, warm=2)
         finally:
             cm.set_attn_impl("fused")
-        timings[name] = {"step_ms": 1e3 * t_host / steps, **{f"{k}_ms": v for k, v in parts.items()}}
     say("rates", train_step_batch=TRAIN_BATCH, **timings)
     return timings
 
@@ -1132,11 +1183,7 @@ def linear_hash_path(state):
 
 
 def check_linear_hash(state):
-    import torch
-
-    from ccmh_torch.config import Config
     from ccmh_torch.models.heads import linear_hash
-    from ccmh_torch.retrieval import Retriever
     from ccmh_torch.train.methods.base import image_embeds, text_embeds
 
     trainer, launches = state["dsph"], state["lh_launches"]
@@ -1163,32 +1210,15 @@ def check_linear_hash(state):
         map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(params0),
         extra_leaves_moved=moved_extra, extra_leaves=len(extra0))
 
-    # the saved weights serve: Retriever.from_pretrained encodes the query
-    # split to the trainer's own codes (a bit may differ only where the
-    # relaxed code is within MARGIN of 0)
-    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
-    batches = list(trainer.query_loader)
-    images = np.concatenate([b["image"] for b in batches])
-    ids = np.concatenate([b["text"] for b in batches])
-    cfg = Config(method="DSPH", output_dim=K_BITS, max_words=trainer.cfg.max_words,
-                 pretrained=os.path.join(save_dir, "model-1.npz"))
-    retriever = Retriever.from_pretrained(cfg, device="cuda")
-    differ, near = 0, 0
-    for kind, codes, want in (("image", retriever.encode_images(images), q_img),
-                              ("text", retriever.encode_texts(ids), q_txt)):
-        with torch.inference_mode():
-            x = torch.from_numpy(images if kind == "image" else ids).cuda()
-            emb = (image_embeds(retriever.params, retriever.clip_cfg, x, cfg) if kind == "image"
-                   else text_embeds(retriever.params, retriever.clip_cfg, x, cfg))
-            h = linear_hash(retriever.params["img_head" if kind == "image" else "txt_head"], emb)
-            margin = h.abs().cpu().numpy()
-        bad = codes != want
-        differ += int(bad.sum())
-        near += int((margin < MARGIN).sum())
-        check(np.all(margin[bad] < MARGIN),
-              f"served DSPH {kind} codes differ from the trainer's at margin >= {MARGIN}")
-    say("linear_hash", served_codes_vs_trainer="agree", bits=2 * TRAIN_QUERY * K_BITS,
-        differing_bits=differ, bits_with_margin_below_1e_3=near)
+    # the saved weights serve the trainer's codes; a bit may differ only
+    # where the relaxed code is within MARGIN of 0
+    def code_margin(kind, retriever, cfg, x):
+        embeds = image_embeds if kind == "image" else text_embeds
+        head = retriever.params["img_head" if kind == "image" else "txt_head"]
+        return linear_hash(head, embeds(retriever.params, retriever.clip_cfg, x, cfg)).abs()
+
+    check_served_codes("linear_hash", trainer, os.path.join(save_dir, "model-1.npz"),
+                       code_margin)
 
 
 def other_linear_hash_methods(state):
@@ -1294,29 +1324,8 @@ def beside_linear_hash(state):
             loss_fn = method.make_loss_fn(cfg.replace(compute_dtype=dtype), clip_cfg)
             for impl in ("plain", "fused", "fused", "plain"):
                 cm.set_ln_impl(impl)
-                parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-                steps, warm, t_host = 8, 2, 0.0
-                for i in range(warm + steps):
-                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                    torch.cuda.synchronize()
-                    h0 = time.perf_counter()
-                    ev[0].record()
-                    for opt in opts:
-                        opt.zero_grad(set_to_none=True)
-                    loss, _ = loss_fn(st.params, st.extra, st.aux, batch, st.generator)
-                    ev[1].record()
-                    loss.backward()
-                    ev[2].record()
-                    for opt in opts:
-                        opt.step()
-                    ev[3].record()
-                    torch.cuda.synchronize()
-                    if i >= warm:
-                        t_host += time.perf_counter() - h0
-                        for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
-                            parts[k] += ev[a].elapsed_time(ev[b]) / steps
-                runs.append({"dtype": name, "ln": impl, "step_ms": 1e3 * t_host / steps,
-                             **{f"{k}_ms": v for k, v in parts.items()}})
+                runs.append({"dtype": name, "ln": impl,
+                             **time_train_steps(loss_fn, st, batch, opts, steps=8, warm=2)})
     finally:
         cm.set_ln_impl("plain")
     say("rates", dsph_train_step_batch=TRAIN_BATCH, runs=runs)
@@ -1542,6 +1551,267 @@ def ablation_edges():
         ablation_worst_err_over_scale=worst, ablation_refusals=refused)
 
 
+# -------------------------------------------------------------------- phase 10
+
+TOKEN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "fused_layer_norm",
+                 "fused_add_layer_norm")
+TOKEN_OTHERS = ("DPSIH", "DHaPH")
+MITH_EVAL_BATCH = 256
+
+
+def mith_launches(steps: int, eval_batches: int, clip_cfg, mith_cfg) -> dict:
+    """The kernel launches a MITH CLI run implies.  Attention #1: the vision
+    tower's blocks but its last (which returns its attention weights, so
+    takes the plain formulation), no text block (the per-example
+    key-padding bias takes the plain formulation), and every block of the
+    two concept transformers (L = K, no mask); #2 once for each #1 of a
+    train step.  LayerNorm #4 and #5 (``set_ln_impl("fused")``): once per
+    block of both towers and both concept transformers.  An eval batch
+    encodes both towers, the train step's forward once more."""
+    concept = 2 * mith_cfg.transformer_layers
+    attn_fwd = (clip_cfg.vision_layers - 1) + concept
+    ln = clip_cfg.vision_layers + clip_cfg.transformer_layers + concept
+    return {"fused_attention_fwd": (steps + eval_batches) * attn_fwd,
+            "fused_attention_bwd": steps * attn_fwd,
+            "fused_layer_norm": (steps + eval_batches) * ln,
+            "fused_add_layer_norm": (steps + eval_batches) * ln}
+
+
+def mith_path(state):
+    """``python -m ccmh_torch.cli --method MITH`` in-process, the LayerNorm
+    kernels on (the caller sets ``set_ln_impl("fused")``): ViT-B/32 K=64
+    fp32 from a seeded ``--pretrained`` init (the four code buffers in its
+    aux) on phase 5's dataset, batch 128, 1 epoch with ``valid`` and
+    ``--save-model`` (counted launches around it)."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.config import Config
+    from ccmh_torch.train.checkpoint import save_checkpoint
+    from ccmh_torch.train.methods import get_method
+
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    init = os.path.join(WORK, "mith_init.npz")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = Config(method="MITH", output_dim=K_BITS, nclass=24, train_num=TRAIN_SPLIT)
+    heads, _, aux = get_method("MITH").init(gen, cfg, ClipConfig())
+    params0 = {"clip": init_clip_params(gen, ClipConfig()), **heads}
+    save_checkpoint(init, params0, aux=aux)
+    out = os.path.join(WORK, "mith_out")
+    argv = ["--method", "MITH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--save-dir", out, "--epochs", "1",
+            "--batch-size", str(TRAIN_BATCH), "--query-num", str(TRAIN_QUERY),
+            "--train-num", str(TRAIN_SPLIT), "--eval-batch", str(MITH_EVAL_BATCH),
+            "--pretrained", init, "--display-step", "1", "--save-model", "--num-workers", "4",
+            "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    say("token_methods", model="ViT-B/32 MITH K=64 fp32, LayerNorm kernels on",
+        items=TRAIN_ITEMS, train=TRAIN_SPLIT, query=TRAIN_QUERY, batch=TRAIN_BATCH, epochs=1,
+        cli_s=round(seconds, 2), **launches)
+    state.update(mith=trainer, mith_params0=_snapshot(params0),
+                 mith_buffers0=_snapshot(aux["buffers"]), token_launches=launches)
+    del params0, aux
+
+
+def check_mith(state):
+    import torch
+
+    from ccmh_torch.train.methods import mith as mith_method
+
+    trainer, launches = state["mith"], state["token_launches"]
+    steps = -(-TRAIN_SPLIT // TRAIN_BATCH)
+    eval_batches = sum(-(-len(ds) // MITH_EVAL_BATCH)
+                       for ds in (trainer.query_data, trainer.retrieval_data))
+    want = mith_launches(steps, eval_batches, trainer.clip_cfg, trainer.cfg.mith)
+    for name, n in want.items():
+        check(launches[name] == n, f"MITH CLI run: {launches[name]} launches of {name}, "
+                                   f"the code implies {n} ({steps} steps, {eval_batches} "
+                                   "eval batches)")
+    check(launches["hamming_distance_packed"] == 0 and all(
+        launches[k] == 0 for k in ABLATION), f"MITH CLI run launched other kernels: {launches}")
+    save_dir = trainer.cfg.save_dir
+    with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    losses = [r["loss"] for r in records if r["event"] == "train"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"MITH step losses {losses}")
+    valid = [r for r in records if r["event"] == "valid"]
+    with open(os.path.join(save_dir, "train.log")) as fh:
+        check("[0/1], MAP(i->t): " in fh.read(), "no MAP line in the MITH train.log")
+    params0 = state.pop("mith_params0")
+    moved = _moved(params0, trainer.state.params)
+    check(moved == len(params0), f"MITH: only {moved} of {len(params0)} parameter leaves moved")
+    # every train item's row of the four buffers took its codes (one epoch
+    # covers the split): changed, and tanh codes in [-1, 1]
+    buffers0 = state.pop("mith_buffers0")
+    rows = torch.arange(len(trainer.train_data), device="cuda")
+    for path, start in buffers0.items():
+        buf = trainer.state.aux["buffers"][path[0]]
+        changed = (buf[rows] != start[rows]).any(1)
+        check(bool(changed.all()) and float(buf[rows].abs().max()) <= 1.0,
+              f"MITH buffer {path[0]}: {int(changed.sum())} of {len(rows)} rows written")
+    say("token_methods", method="MITH", step_losses=losses, map_i2t=[r["i2t"] for r in valid],
+        map_t2i=[r["t2i"] for r in valid], leaves_moved=moved, leaves=len(params0),
+        buffer_rows_written=len(rows), launches_as_implied=want)
+
+    # the saved weights serve the trainer's codes, the text side under its
+    # key-padding mask; a bit may differ only where tokens_hash + cls_hash
+    # is within MARGIN of 0
+    def mith_margin(kind, retriever, cfg, x):
+        bits = mith_method._image_bits if kind == "image" else mith_method._text_bits
+        return bits(retriever.params, x, cfg, retriever.clip_cfg).abs()
+
+    check_served_codes("token_methods", trainer, os.path.join(save_dir, "model-0.npz"),
+                       mith_margin, train_num=TRAIN_SPLIT)
+
+
+def other_token_methods(state):
+    """DPSIH and DHaPH, 2 train steps each at full width through
+    ``Trainer.train_epoch`` (ViT-B/32 K=64 fp32, random init, batch 128
+    over a 256-item train split of phase 5's dataset), counted launches
+    around the steps, then ``valid``.  DPSIH's mAP comes through its
+    ``dist_fn`` and a ``HashIndex`` built with it answers a search; DHaPH's
+    HPmodel and LCAs move under AdamW."""
+    import torch
+
+    from ccmh_torch.cli import config_from_args
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.retrieval import HashIndex
+    from ccmh_torch.train.trainer import Trainer
+
+    data = os.path.join(WORK, "train_data")
+    results = {}
+    for name in TOKEN_OTHERS:
+        argv = ["--method", name, "--dataset", "synthetic", "--output-dim", str(K_BITS),
+                "--data-dir", data, "--save-dir", os.path.join(WORK, f"{name}_out"),
+                "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+                "--query-num", str(TRAIN_QUERY), "--train-num", str(2 * TRAIN_BATCH),
+                "--eval-batch", "256", "--display-step", "1", "--num-workers", "4"]
+        trainer = Trainer(config_from_args(argv), clip_cfg=ClipConfig(), device="cuda")
+        start = _snapshot(trainer.state.params)
+        extra0 = _snapshot(trainer.state.extra) if trainer.state.extra is not None else {}
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(trainer.cfg.save_dir, "metrics.jsonl")) as fh:
+            losses = [r["loss"] for r in map(json.loads, fh) if r["event"] == "train"]
+        moved = _moved(start, trainer.state.params)
+        for kernel in ("fused_attention_fwd", "fused_attention_bwd"):
+            check(launches[kernel] > 0, f"{name} never launched {kernel}")
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"{name} step losses {losses}")
+        check(trainer.state.step == 2 and moved == len(start),
+              f"{name}: {trainer.state.step} steps, {moved} of {len(start)} leaves moved")
+        result = {"step_losses": losses, "leaves_moved": moved, "leaves": len(start),
+                  "seconds": round(seconds, 2), **launches}
+        if name == "DHaPH":
+            moved_extra = _moved(extra0, trainer.state.extra)
+            check(trainer.extra_optimizer is not None and moved_extra == len(extra0),
+                  f"DHaPH: {moved_extra} of {len(extra0)} HPmodel/LCA leaves moved")
+            result.update(extra_leaves_moved=moved_extra, extra_leaves=len(extra0))
+
+        # valid, the ranking through the method's distance where it has one
+        calls = {"dist_fn": 0}
+        dist_fn = trainer.eval_dist_fn
+        if dist_fn is not None:
+            def counted(q, r):
+                calls["dist_fn"] += 1
+                return dist_fn(q, r)
+            trainer.eval_dist_fn = counted
+        i2t, t2i, i2i, t2t = trainer.valid(0)
+        check(all(math.isfinite(x) and 0 < x <= 1 for x in (i2t, t2i, i2i, t2t)),
+              f"{name} valid mAPs {(i2t, t2i, i2i, t2t)}")
+        result.update(map_i2t=i2t, map_t2i=t2i, dist_fn_calls=calls["dist_fn"])
+        if name == "DPSIH":
+            check(calls["dist_fn"] >= 4, f"DPSIH valid ranked {calls['dist_fn']} times "
+                                         "through its dist_fn")
+            q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+            r_img, _, _ = trainer.get_code(trainer.retrieval_loader, len(trainer.retrieval_data))
+            check(q_img.shape[1] == 4 * K_BITS, f"DPSIH codes {q_img.shape}")
+            index = HashIndex(r_img, dist_fn=dist_fn, max_dist=K_BITS, device="cuda")
+            dist, idx = index.search(q_txt, 10)
+            with torch.inference_mode():
+                full = dist_fn(torch.from_numpy(q_txt).cuda(), torch.from_numpy(r_img).cuda())
+                want = torch.sort(full, dim=1, stable=True)
+            check(np.array_equal(dist, want.values[:, :10].cpu().numpy())
+                  and np.array_equal(idx, want.indices[:, :10].int().cpu().numpy()),
+                  "DPSIH HashIndex search differs from the sorted dist_fn ranking")
+            result.update(search="agrees with the sorted dist_fn ranking",
+                          index_items=len(index))
+        results[name] = result
+        say("token_methods", method=name, **result)
+        state[f"{name.lower()}_trainer"] = trainer
+        del start, extra0
+    return results
+
+
+def beside_token_methods(state):
+    """The full-width MITH loss and gradient with the kernels (attention
+    and LayerNorm) against the plain attention and LayerNorm at the same
+    parameters and batch, and the MITH, DPSIH and DHaPH step ms at batch
+    128 in fp32 and bf16 (the path's setting: attention and LayerNorm
+    kernels on), split into forward, backward and optimizers by CUDA
+    events."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    trainer = state["mith"]
+    cfg, clip_cfg, method, st = trainer.cfg, trainer.clip_cfg, trainer.method, trainer.state
+    batch = trainer._put(next(iter(trainer.train_loader)))
+    paths, leaves = zip(*tree_leaves_with_path(st.params))
+    out = {}
+    try:
+        for impl in ("fused", "plain"):
+            cm.set_attn_impl(impl)
+            cm.set_ln_impl(impl)
+            loss, _ = method.make_loss_fn(cfg, clip_cfg)(st.params, None, st.aux, batch, None)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            out[impl] = (loss.item(), [torch.zeros_like(p) if g is None else g
+                                       for p, g in zip(leaves, grads)])
+    finally:
+        cm.set_attn_impl("fused")
+        cm.set_ln_impl("plain")
+    (lf, gf), (lp, gp) = out["fused"], out["plain"]
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(gf, gp)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in gp))
+    rel = num / den
+    worst = max(range(len(gp)), key=lambda i: ((gf[i] - gp[i]).norm() / gp[i].norm().clamp(min=1e-30)).item())
+    check(abs(lf - lp) <= 1e-5 * max(1.0, abs(lp)), f"MITH kernels' loss {lf} vs plain {lp}")
+    check(rel <= GRAD_REL_TOL, f"MITH kernels vs plain gradient: relative norm {rel} > {GRAD_REL_TOL}")
+    say("check", mith_kernels_vs_plain_loss=[lf, lp], gradient_rel_norm=rel, tol=GRAD_REL_TOL,
+        worst_leaf="/".join(map(str, paths[worst])))
+    del out, gf, gp
+
+    timings = {}
+    cm.set_ln_impl("fused")
+    try:
+        for name, tr in (("MITH", trainer), ("DPSIH", state["dpsih_trainer"]),
+                         ("DHaPH", state["dhaph_trainer"])):
+            opts = [tr.optimizer] + ([tr.extra_optimizer] if tr.extra_optimizer else [])
+            batch = tr._put(next(iter(tr.train_loader)))
+            batch["epoch"] = torch.tensor(0, dtype=torch.int32, device="cuda")
+            for dname, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+                loss_fn = tr.method.make_loss_fn(tr.cfg.replace(compute_dtype=dtype), tr.clip_cfg)
+                timings[f"{name}_{dname}"] = time_train_steps(
+                    loss_fn, tr.state, batch, opts, steps=4, warm=2,
+                    grad_clip=tr.method.grad_clip)
+    finally:
+        cm.set_ln_impl("plain")
+    say("rates", token_methods_train_step_batch=TRAIN_BATCH, ln="fused", **timings)
+    return timings
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1568,11 +1838,15 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
     phase_build()
 
-    path_shapes = (("vision", 50, 12, False), ("text", 32, 8, True))
-    attn_cases = [attention_case(n, 256, L, H, causal, dt)
-                  for dt in (torch.float32, torch.bfloat16) for n, L, H, causal in path_shapes]
-    bwd_cases = [attention_bwd_case(n, 256, L, H, causal, dt)
-                 for dt in (torch.float32, torch.bfloat16) for n, L, H, causal in path_shapes]
+    # the towers' shapes at batch 256, and MITH's concept transformers
+    # (L = K bits, no mask) at its batch of 128
+    path_shapes = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True),
+                   ("concept K=16", TRAIN_BATCH, 16, 8, False),
+                   ("concept K=64", TRAIN_BATCH, 64, 8, False))
+    attn_cases = [attention_case(n, B, L, H, causal, dt)
+                  for dt in (torch.float32, torch.bfloat16) for n, B, L, H, causal in path_shapes]
+    bwd_cases = [attention_bwd_case(n, B, L, H, causal, dt)
+                 for dt in (torch.float32, torch.bfloat16) for n, B, L, H, causal in path_shapes]
     ham_case = hamming_case()
     ln_shapes = (("vision", 256 * 50, 768), ("text", 256 * 32, 512))
     ln_cases = [layernorm_case(n, rows, W, dt, add=False)
@@ -1633,9 +1907,30 @@ def main() -> int:
     variant_cases = ablation_kernel_cases()
     ablation_edges()
     say("ablation", phase_seconds=round(time.perf_counter() - t9, 1))
+    torch.cuda.empty_cache()
+
+    # the token-level methods (slice 7) with the LayerNorm kernels on:
+    # mith_path resets the counts just before it calls the CLI and reads
+    # them just after; DPSIH and DHaPH count their own two steps
+    t10 = time.perf_counter()
+    cm.set_ln_impl("fused")
+    try:
+        mith_path(state)
+        token = state["token_launches"]
+        say("launches", path="token_methods", **token)
+        check_mith(state)
+        other_token_methods(state)
+    finally:
+        cm.set_ln_impl("plain")
+    beside_token_methods(state)
+    for key in ("mith", "dpsih_trainer", "dhaph_trainer"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    say("token_methods", phase_seconds=round(time.perf_counter() - t10, 1))
 
     by_path = {k: {"serving": serving[k], "training": training[k],
-                   "linear_hash": linear_hash[k], "attn_ablation": ablation[k]}
+                   "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
+                   "token_methods": token[k]}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

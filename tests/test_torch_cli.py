@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -127,6 +128,51 @@ def test_linear_hash_methods_train_and_save_through_the_cli(tmp_path, method):
         retriever.encode_images(np.concatenate([b["image"] for b in batches])), q_img)
     np.testing.assert_array_equal(
         retriever.encode_texts(np.concatenate([b["text"] for b in batches])), q_txt)
+
+
+@pytest.mark.parametrize("method", ["DHaPH", "DPSIH", "MITH"])
+def test_token_methods_train_and_save_through_the_cli(tmp_path, method):
+    """DHaPH, DPSIH and MITH each train 2 epochs on the CPU with the tiny
+    tower (DHaPH with 24 proxies and top-3 mining for the 6-item batches)
+    and save a ``.npz`` that ``Retriever.from_pretrained`` serves: the
+    restored model encodes the query split to the trainer's own codes, and
+    a search ranks with the method's distance (DPSIH's multi-embed one)."""
+    from ccmh_torch.config import Config
+    from ccmh_torch.retrieval import Retriever
+
+    data = write_synthetic_mat_dataset(str(tmp_path / "data"), n=30, n_class=5,
+                                       resolution=32, seed=4)
+    trainer = torch_main(["--method", method, "--dataset", "synthetic", "--output-dim", str(K),
+                          "--data-dir", data, "--save-dir", str(tmp_path / "out"),
+                          "--epochs", "2", "--batch-size", "6", "--query-num", "6",
+                          "--train-num", "12", "--eval-batch", "6", "--clip-arch", "tiny",
+                          "--display-step", "1", "--save-model", "--num-workers", "1",
+                          "--set", "dhaph.n_proxies=24", "--set", "dhaph.topk=3",
+                          "--device", "cpu"])
+    losses = [r["loss"] for r in _records(trainer.cfg.save_dir, "train")]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert len(_records(trainer.cfg.save_dir, "valid")) == 2
+    assert (trainer.state.extra is not None) == (method == "DHaPH")
+    assert (trainer.eval_dist_fn is not None) == (method == "DPSIH")
+
+    saved = os.path.join(trainer.cfg.save_dir, "model-1.npz")
+    retriever = Retriever.from_pretrained(
+        Config(method=method, output_dim=K, max_words=trainer.cfg.max_words, pretrained=saved),
+        device="cpu")
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    assert q_img.shape[1] == (4 * K if method == "DPSIH" else K)
+    batches = list(trainer.query_loader)
+    codes = retriever.encode_images(np.concatenate([b["image"] for b in batches]))
+    np.testing.assert_array_equal(codes, q_img)
+    np.testing.assert_array_equal(
+        retriever.encode_texts(np.concatenate([b["text"] for b in batches])), q_txt)
+    # text -> image search over the query images ranks by the method's distance
+    index = retriever.build_image_index(codes=codes)
+    dist, idx = index.search(q_txt, k=3)
+    want = (trainer.eval_dist_fn or (lambda q, r: (K - q.float() @ r.float().T) / 2))(
+        torch.from_numpy(q_txt), torch.from_numpy(codes)).numpy()
+    np.testing.assert_array_equal(dist, np.take_along_axis(want, idx, 1).astype(np.int32))
+    assert (dist == np.sort(want, 1)[:, :3]).all()
 
 
 @pytest.mark.parametrize("flags", [

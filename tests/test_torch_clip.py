@@ -66,7 +66,7 @@ def test_vision_pooled_matches_ccmh(towers):
     cfg, jp, tp = towers
     images, _ = _inputs(cfg, 3, seed=1)
     want = np.asarray(jm.vision_forward(jp["visual"], cfg, jnp.asarray(images)).pooled)
-    got = tm.vision_forward(tp["visual"], _port_cfg(cfg), torch.from_numpy(images)).numpy()
+    got = tm.vision_forward(tp["visual"], _port_cfg(cfg), torch.from_numpy(images)).pooled.numpy()
     _close(got, want)
 
 
@@ -74,17 +74,17 @@ def test_text_pooled_matches_ccmh(towers):
     cfg, jp, tp = towers
     _, ids = _inputs(cfg, 3, seed=2)
     want = np.asarray(jm.text_forward(jp["text"], cfg, jnp.asarray(ids)).pooled)
-    got = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids)).numpy()
+    got = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids)).pooled.numpy()
     _close(got, want)
 
 
 def test_plain_attention_impl_matches_fused_on_cpu(towers):
     cfg, _, tp = towers
     _, ids = _inputs(cfg, 2, seed=3)
-    fused = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids))
+    fused = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids)).pooled
     tm.set_attn_impl("plain")
     try:
-        plain = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids))
+        plain = tm.text_forward(tp["text"], _port_cfg(cfg), torch.from_numpy(ids)).pooled
     finally:
         tm.set_attn_impl("fused")
     _close(plain.numpy(), fused.numpy(), rel=1e-6)
@@ -98,7 +98,7 @@ def test_uint8_images_normalize_like_ccmh():
                                np.asarray(jm.normalize_pixels(jnp.asarray(raw))),
                                rtol=0, atol=1e-6)
     want = np.asarray(jm.vision_forward(jp["visual"], TINY, jnp.asarray(raw)).pooled)
-    got = tm.vision_forward(tp["visual"], _port_cfg(TINY), torch.from_numpy(raw)).numpy()
+    got = tm.vision_forward(tp["visual"], _port_cfg(TINY), torch.from_numpy(raw)).pooled.numpy()
     _close(got, want)
 
 
@@ -119,9 +119,9 @@ def test_bf16_towers_track_ccmh():
     pairs = [
         (jm.vision_forward(jp["visual"], TINY, jnp.asarray(images), dtype=jnp.bfloat16).pooled,
          tm.vision_forward(tm.cast_clip_params(tp, torch.bfloat16)["visual"], pcfg,
-                           torch.from_numpy(images), dtype=torch.bfloat16)),
+                           torch.from_numpy(images), dtype=torch.bfloat16).pooled),
         (jm.text_forward(jp["text"], TINY, jnp.asarray(ids), dtype=jnp.bfloat16).pooled,
-         tm.text_forward(tp["text"], pcfg, torch.from_numpy(ids), dtype=torch.bfloat16)),
+         tm.text_forward(tp["text"], pcfg, torch.from_numpy(ids), dtype=torch.bfloat16).pooled),
     ]
     for want, got in pairs:
         assert got.dtype == torch.bfloat16

@@ -169,11 +169,11 @@ def test_ln_switch_routes_each_block(monkeypatch):
     cfg = cm.ClipConfig.tiny()
     p = cm.init_clip_params(torch.Generator().manual_seed(0), cfg)
     images = torch.randn(2, cfg.image_resolution, cfg.image_resolution, 3)
-    plain = cm.vision_forward(p["visual"], cfg, images)
+    plain = cm.vision_forward(p["visual"], cfg, images).pooled
     assert calls == {"ln": 0, "add_ln": 0}
     cm.set_ln_impl("fused")
     try:
-        fused = cm.vision_forward(p["visual"], cfg, images)
+        fused = cm.vision_forward(p["visual"], cfg, images).pooled
     finally:
         cm.set_ln_impl("plain")
     assert calls == {"ln": cfg.vision_layers, "add_ln": cfg.vision_layers}
@@ -198,13 +198,13 @@ def test_towers_with_fused_ln_match_ccmh(tower, monkeypatch):
     if tower == "vision":
         inp = rng.randn(2, cfg.image_resolution, cfg.image_resolution, 3).astype(np.float32)
         jfwd = lambda p: jm.vision_forward(p, jcfg, jnp.asarray(inp)).pooled  # noqa: E731
-        fwd = lambda p: cm.vision_forward(p, cfg, torch.from_numpy(inp))      # noqa: E731
+        fwd = lambda p: cm.vision_forward(p, cfg, torch.from_numpy(inp)).pooled  # noqa: E731
         key = "visual"
     else:
         inp = rng.randint(1, 49406, size=(3, 12)).astype(np.int32)
         inp[:, 5] = 49407
         jfwd = lambda p: jm.text_forward(p, jcfg, jnp.asarray(inp)).pooled   # noqa: E731
-        fwd = lambda p: cm.text_forward(p, cfg, torch.from_numpy(inp))       # noqa: E731
+        fwd = lambda p: cm.text_forward(p, cfg, torch.from_numpy(inp)).pooled  # noqa: E731
         key = "text"
     t = rng.randn(2 if tower == "vision" else 3, cfg.embed_dim).astype(np.float32)
 

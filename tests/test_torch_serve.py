@@ -101,14 +101,14 @@ def test_from_pretrained_checks(pair):
         Retriever.from_pretrained(Config(**_cfg(pretrained=path, output_dim=32)),
                                   device="cpu")                              # wrong K
     with pytest.raises(NotImplementedError):
-        Retriever.from_pretrained(Config(**_cfg(pretrained=path, method="DHaPH")),
+        Retriever.from_pretrained(Config(**_cfg(pretrained=path, method="DNPH")),
                                   device="cpu")
 
 
 def test_registry_says_what_is_ported():
-    assert available_methods() == ["DCHMT", "DDBH", "DDWSH", "DMsH_LN", "DNpH", "DSPH",
-                                   "DScPH"]
-    assert unported_methods() == ["DGHDGH", "DHaPH", "DNPH", "DPBE", "DPSIH", "MITH", "TwDH"]
+    assert available_methods() == ["DCHMT", "DDBH", "DDWSH", "DHaPH", "DMsH_LN", "DNpH",
+                                   "DPSIH", "DSPH", "DScPH", "MITH"]
+    assert unported_methods() == ["DGHDGH", "DNPH", "DPBE", "TwDH"]
     for name in unported_methods():
         with pytest.raises(NotImplementedError, match="not ported.*'DSPH'"):
             get_method(name)
