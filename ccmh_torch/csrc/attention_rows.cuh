@@ -1,9 +1,8 @@
-// Row helpers of the attention-variant kernels (attention_variants.cu,
-// attention_fwd_stacked.cu): the building blocks of kernel #2's two-phase
-// design (attention_bwd.cu), generalised to any number of key slots a lane
-// (S, so up to 32 S keys) and to global row indices, so that a block can
-// walk several batch elements, or treat bb batch elements as one run of
-// R = bb L merged rows.  Tensors are row-major [rows, 3D] (qkv, dqkv) and
+// Row helpers of the FMA attention-variant kernels (attention_variants.cu:
+// #6, #8, #10): the building blocks of kernel #2's two-phase design
+// (attention_bwd.cu), generalised to any number of key slots a lane (S, so
+// up to 32 S keys) and to global row indices, so that a block can walk
+// several batch elements.  Tensors are row-major [rows, 3D] (qkv, dqkv) and
 // [rows, D] (g, out); a head's row is fp32 in shared memory, padded to a
 // multiple of 4 floats plus 4 (16-byte aligned float4 reads, and 8 lanes
 // reading 8 different rows hit 8 different 16-byte bank groups).

@@ -1,10 +1,10 @@
 // The attention-backward ablation kernels of tools/bench_attn_bwd.py, for
 // the short sequences of the CLIP towers (vision L=50, text L=32; Dh=64).
 //
-// Replaces four Pallas TPU kernels of tools/bench_attn_bwd.py:
+// Replaces three Pallas TPU kernels of tools/bench_attn_bwd.py (#9,
+// backward_merged, is attention_merged.cu, on the tensor cores):
 //   #6  backward_x / _bwd_kernel_x      -> ccmh_attention_bwd_x (8 modes)
 //   #8  backward_savedp                  -> ccmh_attention_bwd_savedp
-//   #9  backward_merged                  -> ccmh_attention_bwd_merged
 //   #10 backward_headpair                -> ccmh_attention_bwd_headpair
 // Each is kernel #2's function (attention_bwd.cu) with no projection bias:
 // per (batch element, head), from qkv [B, L, 3D] and g [B, L, D] in T,
@@ -28,15 +28,12 @@
 //                  are left unwritten.
 // #8 reads probs [B, H, L, L] in T from device memory instead of
 // recomputing them (the mask is not read) and uses their fp32 value in the
-// VJP.  #9 treats bb batch elements as R = bb L merged rows under an
-// [R, R] fp32 mask whose off-block entries are -1e9, so off-block probs are
-// exactly 0 and it computes the function above at bb-fold operations.
-// #10 runs two heads a block on a (B / bb, H / 2) grid.
+// VJP.  #10 runs two heads a block on a (B / bb, H / 2) grid.
 //
 // What bounds them on an H100: bytes, as kernel #2.  The vision call at
 // B=256 bf16 reads 59 MB of qkv and 20 MB of g and writes 59 MB of dqkv
-// (41 us at 3.35 TB/s); #8 adds 15.4 MB of probs, #9 does bb times the
-// 5 GFLOP of dot products.  fewstores writes a third of dqkv.
+// (41 us at 3.35 TB/s); #8 adds 15.4 MB of probs.  fewstores writes a
+// third of dqkv.
 //
 // Design: kernel #2's two phases for one (rows, head) unit, bwd_unit
 // below: A. query-major, k and v in shared memory, a warp carries 4 query
@@ -47,9 +44,7 @@
 // after the other (the TPU grid's batch block): a grid of (B / bb, H), or
 // (B / bb, H / 2) with two heads a block for `pair` and #10 (pair walks
 // batch elements outer, #10 heads outer, as the two TPU kernels order
-// them).  #9's unit is the bb elements' R merged rows, 8 key slots a lane
-// (R <= 256): at R = 200 the [R, R] tiles do not fit beside k and v, so
-// phase B recomputes.  `stacked` is a kernel of its own, one block per bb
+// them).  `stacked` is a kernel of its own, one block per bb
 // elements: the two [hg, L, L] fp32 stacks of the largest head group hg
 // that fits shared memory (8 of 12 heads at vision, all 8 at text), then
 // the softmax / VJP pass over the group, then its output products.
@@ -64,18 +59,16 @@ using namespace attn;
 // #6's modes as the wrapper numbers them, then the other kernels' own
 enum Mode : int {
   kFull = 0, kStacked = 1, kPair = 2, kNoMax = 3, kNoSoftmax = 4, kNoVjp = 5,
-  kBf16Vjp = 6, kFewStores = 7, kSavedP = 8, kHeadPair = 9, kMerged = 10
+  kBf16Vjp = 6, kFewStores = 7, kSavedP = 8, kHeadPair = 9
 };
 
 constexpr int kSlots = 4;         // L <= 128 keys a unit
-constexpr int kMergedSlots = 8;   // R <= 256 merged rows
 constexpr int kMaxL = 128;
-constexpr int kMaxR = 256;
 
 struct Args {
   int device;
   const void* qkv;
-  const float* mask;   // [L, L] (#9: [R, R]) fp32 or null
+  const float* mask;   // [L, L] fp32 or null
   const void* probs;   // #8: [B, H, L, L] in T
   const void* g;
   void* dqkv;
@@ -104,8 +97,8 @@ __device__ __forceinline__ float dlogit_c(float p, float u, float dot, float sca
   return ccmh::round_to<T>(p * (u - dot) * scale);
 }
 
-// One unit: rows row0 .. row0 + n - 1 of qkv / g / dqkv (n = L, or #9's
-// R), each attending to the same n rows, head h.  mask is [n, n] with rows
+// One unit: rows row0 .. row0 + n - 1 of qkv / g / dqkv (n = L), each
+// attending to the same n rows, head h.  mask is [n, n] with rows
 // mask_ld apart, or null; probs (#8) is the unit's [n, n] block in T.
 template <typename T, int MODE, int S>
 __device__ void bwd_unit(const T* __restrict__ qkv, const T* __restrict__ g,
@@ -355,18 +348,6 @@ bwd_x_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   }
 }
 
-// #9: the block's bb elements as one unit of R = bb L merged rows
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-bwd_merged_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                  const T* __restrict__ g, T* __restrict__ dqkv, int B, int L, int H, int Dh,
-                  int bb, float scale, int tiles) {
-  extern __shared__ __align__(16) float smem[];
-  const int b0 = blockIdx.x * bb, b1 = min(B, b0 + bb);
-  bwd_unit<T, kFull, kMergedSlots>(qkv, g, mask, bb * L, nullptr, dqkv, (size_t)b0 * L,
-                                   (b1 - b0) * L, blockIdx.y, H, Dh, scale, tiles != 0, smem);
-}
-
 // `stacked`: three [L, ld] row buffers, the warps' staging rows and the two
 // [hg, L, ldt] stacks
 size_t stacked_floats(int L, int Dh, int hg) {
@@ -575,20 +556,6 @@ cudaError_t launch_stacked(const Args& a) {
 }
 
 template <typename T>
-cudaError_t launch_merged(const Args& a) {
-  const int optin = smem_optin(a.device);
-  const int R = a.bb * a.L;
-  const bool tiles = unit_floats(R, a.Dh, true) * sizeof(float) <= (size_t)optin;
-  const size_t smem = unit_floats(R, a.Dh, tiles) * sizeof(float);
-  cudaError_t err = set_smem(bwd_merged_kernel<T>, smem, optin);
-  if (err != cudaSuccess) return err;
-  bwd_merged_kernel<T><<<dim3(blocks(a), a.H), kWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.qkv), a.mask, static_cast<const T*>(a.g),
-      static_cast<T*>(a.dqkv), a.B, a.L, a.H, a.Dh, a.bb, a.scale, tiles ? 1 : 0);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_mode(int mode, const Args& a) {
   switch (mode) {
     case kFull: return launch_x<T, kFull>(a);
@@ -601,16 +568,14 @@ cudaError_t launch_mode(int mode, const Args& a) {
     case kFewStores: return launch_x<T, kFewStores>(a);
     case kSavedP: return launch_x<T, kSavedP>(a);
     case kHeadPair: return launch_x<T, kHeadPair>(a);
-    case kMerged: return launch_merged<T>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(int mode, int dtype, const Args& a) {
   const bool pairs = mode == kPair || mode == kHeadPair;
-  const int max_rows = mode == kMerged ? kMaxR : kMaxL;
   if (a.B < 1 || a.bb < 1 || a.H < 1 || a.H > 65535 || (pairs && a.H % 2) || a.L < 1 ||
-      a.Dh < 1 || a.Dh > kMaxDh || (mode == kMerged ? a.bb * a.L : a.L) > max_rows)
+      a.Dh < 1 || a.Dh > kMaxDh || a.L > kMaxL)
     return (int)cudaErrorInvalidValue;
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: name the card of the tensors
@@ -646,15 +611,6 @@ extern "C" int ccmh_attention_bwd_savedp(int device, const void* qkv, const void
                                          const void* g, void* dqkv, int B, int L, int H,
                                          int Dh, int bb, float scale, int dtype, void* stream) {
   return run(kSavedP, dtype, Args{device, qkv, nullptr, probs, g, dqkv, B, L, H, Dh, bb, scale,
-                                  static_cast<cudaStream_t>(stream)});
-}
-
-// #9: mask [R, R] fp32 with R = bb * L <= 256
-extern "C" int ccmh_attention_bwd_merged(int device, const void* qkv, const float* mask,
-                                         const void* g, void* dqkv, int B, int L, int H,
-                                         int Dh, int bb, float scale, int dtype, void* stream) {
-  if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  return run(kMerged, dtype, Args{device, qkv, mask, nullptr, g, dqkv, B, L, H, Dh, bb, scale,
                                   static_cast<cudaStream_t>(stream)});
 }
 

@@ -7,10 +7,13 @@ attention backward at a forced batch block), ``backward_savedp`` (#8, the
 backward from saved probabilities), ``backward_merged`` (#9, bb batch
 elements as merged rows under a block-diagonal mask) and
 ``backward_headpair`` (#10, two heads a program) as
-``ccmh_torch/csrc/attention_variants.cu``; ``forward_stacked`` (#7, the
+``ccmh_torch/csrc/attention_variants.cu``, except #9, which is
+``ccmh_torch/csrc/attention_merged.cu``; ``forward_stacked`` (#7, the
 forward with all heads' logits stacked before one softmax) as
-``ccmh_torch/csrc/attention_fwd_stacked.cu``.  Each computes kernel #2's
-(or #1's) function with no projection bias, apart from the changes its
+``ccmh_torch/csrc/attention_fwd_stacked.cu``.  #7 and #9 run on the tensor
+cores; #9's tile plan (:func:`_merged_plan`) is made here and checked by
+its C entry.  Each computes kernel #2's (or #1's) function with no
+projection bias, apart from the changes its
 ``mode`` makes (``*_reference`` spell each out step by step after the
 Pallas bodies).  ``savedp_probs`` and ``merged_mask`` build the setup
 inputs that the TPU tool builds outside its ``pallas_call``\\ s, and stay
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,8 +48,9 @@ MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "f
 # the modes that compute kernel #2's function (nomax: other rounding)
 SAME_FUNCTION_MODES = ("full", "stacked", "pair", "nomax")
 MAX_SEQ = 128          # keys a lane carries: 4 slots of 32
-MAX_MERGED_ROWS = 256  # #9: 8 slots of 32
+MAX_MERGED_ROWS = 256  # #9: R = bb L
 MAX_HEAD_DIM = 128
+SMEM_OPTIN = 232448    # shared memory a block may take on an H100 (bytes)
 OFF_BLOCK = -1e9       # #9's mask between batch elements
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -176,6 +180,72 @@ def backward_headpair_reference(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     projection bias (two heads a program is the schedule); H even."""
     _check_mode("pair", n_head)
     return _backward(qkv, _logits(qkv, bias, n_head), g, n_head)
+
+
+# ------------------------------------------------------------ #9's tile plan
+
+# #9's ways through phase B: P_c and dS_c recomputed from row statistics,
+# kept in shared memory from phase A, or recomputed with both operands read
+# from device memory (where the two [R, Dh] operand tiles and the dq
+# buffers do not fit shared memory)
+MERGED_PATHS = ("recompute", "keep", "stream")
+
+
+class MergedPlan(NamedTuple):
+    """How ``csrc/attention_merged.cu`` runs R merged rows, in its C entry's
+    argument order: ``key_block``, the register class (the most keys of a
+    16-row tile one warp holds: a group of 2 warps shares a tile's keys up
+    to 128 rows, of 4 above, so 32 up to 64 rows and 64 above), ``path``
+    (an index into :data:`MERGED_PATHS`) and the block's shared-memory
+    bytes."""
+    key_block: int
+    path: int
+    smem_bytes: int
+
+
+MERGED_MAX_WARPS = 16  # a block's warps: groups of 2 (4 above 128 rows) a 16-row tile
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _tile_ld(cols: int, itemsize: int) -> int:
+    """Row stride (elements) of a shared-memory tile: mma_tiles.cuh tile_ld."""
+    return _pad16(cols) + (8 if itemsize == 2 else 4)
+
+
+def _merged_smem(R: int, Dh: int, itemsize: int, path: str) -> int:
+    """The block's shared-memory bytes (attention_merged.cu plan_smem)."""
+    Rp = _pad16(R)
+    group = 2 if Rp <= 128 else 4
+    warps = group * min(Rp // 16, MERGED_MAX_WARPS // group)
+    xch = warps * 16 * 4 * 4                # each warp's row statistics, for its group
+    # the rows' max, sum and sum_j dP P, and the groups' [16, Dh] dq buffers
+    stats = 3 * Rp * 4 + warps // 2 * 16 * _pad16(Dh) * 4
+    if path == "stream":
+        return stats + xch
+    operands = 2 * Rp * _tile_ld(Dh, itemsize) * itemsize
+    if path == "keep":
+        return operands + xch + 2 * Rp * _tile_ld(R, itemsize) * itemsize
+    return operands + xch + stats
+
+
+def _merged_plan(R: int, Dh: int, itemsize: int, smem_optin: int = SMEM_OPTIN,
+                 path: Optional[str] = None) -> MergedPlan:
+    """#9's plan for R merged rows of head dim Dh in a type of ``itemsize``
+    bytes: the [R, R] tiles kept where they fit ``smem_optin``, else
+    recomputed, else (fp32 from 145 rows at a head dim over 80) both
+    operands streamed from device memory.  ``path`` overrides the rule (for timing the
+    others); a plan that does not fit raises."""
+    if path is None:
+        path = next(p for p in ("keep", "recompute", "stream")
+                    if _merged_smem(R, Dh, itemsize, p) <= smem_optin)
+    smem = _merged_smem(R, Dh, itemsize, path)
+    if smem > smem_optin:
+        raise ValueError(f"#9's {path} plan for R={R}, Dh={Dh} takes {smem} bytes of shared "
+                         f"memory, over {smem_optin}")
+    return MergedPlan(32 if _pad16(R) <= 64 else 64, MERGED_PATHS.index(path), smem)
 
 
 # ------------------------------------------------------------ checks
@@ -325,7 +395,8 @@ def backward_merged(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Te
     """#9: the backward over R = bb L merged rows under ``mask`` [R, R],
     :func:`merged_mask` of ``bias``, built here when not given (a caller
     timing the kernel builds it once, as the TPU tool builds it at trace
-    time).  The kernel takes R <= 256."""
+    time).  The kernel takes R <= 256 and runs :func:`_merged_plan`'s
+    plan, which it checks."""
     global backward_merged_launches
     _check(qkv, bias, g, n_head, bb, "backward_merged")
     B, L, _ = qkv.shape
@@ -340,10 +411,17 @@ def backward_merged(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Te
                   fp32=(("mask", mask),))
     g = _g(g, qkv)
     dqkv = torch.empty_like(qkv)
-    _launch("attention_variants", "ccmh_attention_bwd_merged", qkv, (qkv, mask, g, dqkv),
-            (bb,), n_head)
+    _launch_merged(qkv, mask, g, dqkv, n_head, bb)
     backward_merged_launches += 1
     return dqkv
+
+
+def _launch_merged(qkv, mask, g, dqkv, n_head, bb) -> None:
+    """#9's C entry with :func:`_merged_plan`'s plan after bb."""
+    B, L, D3 = qkv.shape
+    plan = _merged_plan(bb * L, D3 // 3 // n_head, qkv.element_size())
+    _launch("attention_merged", "ccmh_attention_bwd_merged", qkv, (qkv, mask, g, dqkv),
+            (bb, *plan), n_head)
 
 
 def backward_headpair(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,

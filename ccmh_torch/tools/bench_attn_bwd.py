@@ -32,7 +32,10 @@ plain version on one call, and each that computes kernel #2's function
 against v0 (the forwards against #1), within 3e-2 of the output scale.
 One JSON line per variant: its device time per call beside the bound (the
 bytes read once and written once at 3.35 TB/s, the operations at 989
-TFLOP/s bf16 or 67 fp32, the larger), both errors, its kernel's launches,
+TFLOP/s bf16; fp32 at 495/3 TFLOP/s for the kernels that take their fp32
+products on the tensor cores as 3xTF32, #1, #2, #7 and #9, and at the 67
+TFLOP/s of the CUDA cores for #6, #8 and #10; the larger), both errors,
+its kernel's launches,
 and SDPA forward + backward minus SDPA forward (the forwards: SDPA
 forward) as the library yardstick, which the port never calls.
 
@@ -60,6 +63,11 @@ from ccmh_torch.ops import attention_variants as av
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the kernels whose fp32 products run on the tensor cores as 3xTF32 (three
+# TF32 products each): a third of the 495 TFLOP/s TF32 peak
+TENSOR_CORE_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "forward_stacked",
+                       "backward_merged")
+PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 CHECK_TOL = 3e-2
 SHAPES = (("vision ViT-B/32", 256, 50, 768, 12, False), ("text", 256, 32, 512, 8, True))
 TINY_SHAPES = (("vision tiny", 16, 8, 64, 4, False), ("text tiny", 16, 8, 64, 4, True))
@@ -178,10 +186,13 @@ def variants(qkv, bias, H) -> List[Variant]:
     return out
 
 
-def bound_us(n_bytes, n_ops, dtype):
-    """The least time the card could take, in us, and what sets it."""
+def bound_us(n_bytes, n_ops, dtype, kernel):
+    """The least time the card could take, in us, and what sets it, for
+    ``kernel`` (a key of :data:`COUNTERS`): its fp32 products at the rate
+    of the path it takes."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
+    tensor_fp32 = dtype == torch.float32 and kernel in TENSOR_CORE_KERNELS
+    t_ops = n_ops / (PEAK_3XTF32_OPS_PER_S if tensor_fp32 else PEAK_OPS_PER_S[dtype])
     return 1e6 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -272,7 +283,7 @@ def run_shape(tag, B, L, D, H, causal, dtype, device, loops, repeats) -> None:
             ref_key = "rel_err_vs_fwd_kernel" if v.forward else "rel_err_vs_v0"
             loop(loops[0])
             ms = _events_ms(loop, loops[0], loops[1], repeats) if cuda else None
-            bound, bound_by = bound_us(*v.cost, dtype)
+            bound, bound_by = bound_us(*v.cost, dtype, v.kernel)
             row = {"variant": v.name, "kernel": v.kernel, "shape": tag,
                    "qkv": [B, L, 3 * D], "heads": H, "causal": causal,
                    "dtype": str(dtype).split(".")[-1], "device": str(device),

@@ -80,9 +80,13 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    against its plain version at those shapes (#6 in all eight modes,
    fewstores on its dk slot; fp32 within 1e-4 and bf16 within 2e-2 of the
    output scale), with ms per call beside its bound, the plain version's
-   ms and SDPA's where it computes the same function; edge shapes (L=77
-   causal, Dh=30 at an odd bb, L=1 at bb=B) and the refusals (odd H for
-   ``pair`` and #10, R > 256 for #9, a bb that does not divide B, fp16);
+   ms and SDPA's where it computes the same function (#7 and #9, on the
+   tensor cores, at their C entries as min over 3 of (t_240 - t_40) / 200
+   chained calls, the wrapper and #9's tile plan beside); edge shapes (L=77
+   causal, Dh=30 at an odd bb, L=1 at bb=B; #9 at R = 256, 112 and 256
+   with Dh=128, #7 at L=77 with Dh=30, each with its path) and the
+   refusals (odd H for ``pair`` and #10, R > 256 for #9, a bb that does
+   not divide B, fp16);
 10. the token-level path with ``set_ln_impl("fused")``: ``ccmh_torch.cli.main``
    with ``--method MITH`` (ViT-B/32 K=64 fp32, a seeded ``--pretrained``
    init with its four code buffers, phase 5's dataset, batch 128, 1 epoch
@@ -1341,7 +1345,7 @@ ABLATION_SOURCES = {   # (source, the TPU kernel it replaces)
     "forward_stacked": ("ccmh_torch/csrc/attention_fwd_stacked.cu",
                         "tools/bench_attn_bwd.py:258"),
     "backward_savedp": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:322"),
-    "backward_merged": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:404"),
+    "backward_merged": ("ccmh_torch/csrc/attention_merged.cu", "tools/bench_attn_bwd.py:404"),
     "backward_headpair": ("ccmh_torch/csrc/attention_variants.cu",
                           "tools/bench_attn_bwd.py:470"),
 }
@@ -1408,6 +1412,38 @@ def _variant_call(kernel, qkv, mask, g, H, bb, mode):
             lambda: av.backward_headpair_reference(qkv, mask, g, H))
 
 
+def variant_entry(kernel, qkv, mask, g, H, bb):
+    """A zero-argument call of #7 or #9 through its C entry, with the
+    arguments its wrapper passes (#9: ``mask`` is the [R, R] merged mask,
+    and the plan ``_merged_plan`` makes) and a preallocated output: the
+    kernel's own time, without the wrapper's Python checks."""
+    import torch
+
+    from ccmh_torch.ops import attention_variants as av
+
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    if kernel == "forward_stacked":
+        out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+        lib, name, ptrs, ints = ("attention_fwd_stacked", "ccmh_attention_fwd_stacked",
+                                 (qkv, mask, out), (bb,))
+    else:
+        out = torch.empty_like(qkv)
+        lib, name, ptrs, ints = ("attention_merged", "ccmh_attention_bwd_merged",
+                                 (qkv, mask, g, out),
+                                 (bb, *av._merged_plan(bb * L, Dh, qkv.element_size())))
+    _, fn = av._entry(lib, name, len(ptrs), 4 + len(ints))
+    args = (qkv.device.index, *(av._ptr(p) for p in ptrs), B, L, H, Dh, *ints,
+            1.0 / math.sqrt(Dh), av._DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+
+    def call():
+        code = fn(*args)
+        if code:
+            fail(f"{name}: CUDA error {code}")
+    return call
+
+
 def _variant_err(kernel, mode, got, want, D):
     """Max abs error and the output scale it is held against: the forward
     absolutely (as kernel #1), a backward relative to its output's scale;
@@ -1422,7 +1458,10 @@ def _variant_err(kernel, mode, got, want, D):
 def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     """One ablation kernel against its plain version at a bench shape
     (B=256, Dh=64), with ms per call beside its bound, the plain version's
-    ms and SDPA's where it computes the same function."""
+    ms and SDPA's where it computes the same function.  #7 and #9 (on the
+    tensor cores) are timed at their C entries as min over 3 of (t_240 -
+    t_40) / 200 chained calls, the wrapper beside; the FMA kernels #6, #8
+    and #10 through their wrappers, 10 calls."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1445,11 +1484,22 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
         check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
               f"{kernel} {mode or ''} bb={bb} {name} {tname}: max abs err {err} > "
               f"{ATTN_TOL[tname]} x {scale}")
-        ms = cuda_ms(fn, iters=10)
+        timing = {}
+        if kernel in ("forward_stacked", "backward_merged"):
+            m = mask if kernel == "forward_stacked" else av.merged_mask(mask, L, bb, device=dev)
+            ms = steady_ms(variant_entry(kernel, qkv, m, g, H, bb))
+            timing = {"wrapper_ms": steady_ms(fn), "timed": "C entry, steady"}
+            if kernel == "backward_merged":
+                plan = av._merged_plan(bb * L, Dh, qkv.element_size())
+                timing["plan"] = {"key_block": plan.key_block,
+                                  "path": av.MERGED_PATHS[plan.path],
+                                  "smem_bytes": plan.smem_bytes}
+        else:
+            ms = cuda_ms(fn, iters=10)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
     forward = kernel == "forward_stacked"
     n_bytes, n_ops = cost(kernel, B, L, H, Dh, qkv.element_size(), causal, bb, mode or "full")
-    bound, bound_by = bound_us(n_bytes, n_ops, dtype)
+    bound, bound_by = bound_us(n_bytes, n_ops, dtype, kernel)
     same = mode is None or mode in av.SAME_FUNCTION_MODES
     if kernel == "backward_savedp":
         library, lib_ms = "none: no PyTorch call takes saved probabilities", None
@@ -1462,7 +1512,7 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     case = {"case": f"{name} {tname}" + (f" {mode}" if mode else "") + f" bb={bb}",
             "shape": [B, L, 3 * D], "heads": H, "causal": causal, "bb": bb, "mode": mode,
             "max_abs_err": err, "output_scale": scale, "tol": ATTN_TOL[tname], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "library": library,
+            **timing, "plain_ms": plain_ms, "library_ms": lib_ms, "library": library,
             "bound_ms": bound / 1e3, "bound_by": bound_by}
     say("kernel", kernel=kernel, **case)
     return case
@@ -1497,9 +1547,13 @@ def ablation_kernel_cases():
 
 def ablation_edges():
     """#6-#10 at edge shapes (L=77 causal at bb=2, Dh=30 at an odd bb=3,
-    L=1 at bb=B), every mode of #6, fp32 and bf16; and the refusals: odd H
-    for #10 and ``pair``, R > 256 for #9, a bb that does not divide B, and
-    fp16 raise and launch nothing."""
+    L=1 at bb=B), every mode of #6, fp32 and bf16; #9 at R = 256 (L=32
+    causal, bb=8: four warps a tile, recomputed), R = 112 (L=56, bb=2: kept
+    tiles) and R = 256 with Dh=128 (fp32: the operands streamed from device
+    memory), #7 at L=77 with Dh=30 (the 128-row class on scalar loads), each
+    with the path it took; and the refusals: odd H for #10 and ``pair``,
+    R > 256 for #9, a bb that does not divide B, and fp16 raise and launch
+    nothing."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1509,15 +1563,31 @@ def ablation_edges():
     gen = torch.Generator(device=dev).manual_seed(17)
     shapes = ((4, 77, 8, 64, True, 2), (6, 13, 4, 30, False, 3), (5, 1, 2, 64, False, 5))
     calls = [("backward_x", m) for m in av.MODES] + [(k, None) for k in ABLATION[1:]]
-    worst = {}
+    # (shape, the kernels it runs): #9's largest R, a kept R of 112 and the
+    # largest R at Dh=128, #7 at L=77 on scalar loads
+    shapes_for = [(s, calls) for s in shapes] + [
+        ((8, 32, 8, 64, True, 8), [("backward_merged", None)]),
+        ((4, 56, 4, 64, False, 2), [("backward_merged", None)]),
+        ((2, 128, 2, 128, False, 2), [("backward_merged", None)]),
+        ((4, 77, 4, 30, True, 2), [("forward_stacked", None)])]
+    worst, paths = {}, []
     with torch.no_grad():
-        for B, L, H, Dh, causal, bb in shapes:
+        for (B, L, H, Dh, causal, bb), kernels in shapes_for:
             for dtype in (torch.float32, torch.bfloat16):
                 tname = "float32" if dtype == torch.float32 else "bfloat16"
                 qkv = torch.randn((B, L, 3 * H * Dh), generator=gen, device=dev).to(dtype)
                 g = torch.randn((B, L, H * Dh), generator=gen, device=dev).to(dtype)
                 m = causal_bias(L, dev) if causal else None
-                for kernel, mode in calls:
+                loads = "vector" if Dh * qkv.element_size() % 16 == 0 else "scalar"
+                for kernel, mode in kernels:
+                    if kernel == "backward_merged":
+                        plan = av._merged_plan(bb * L, Dh, qkv.element_size())
+                        paths.append({"kernel": kernel, "R": bb * L, "Dh": Dh, "dtype": tname,
+                                      "key_block": plan.key_block,
+                                      "path": av.MERGED_PATHS[plan.path], "loads": loads})
+                    elif kernel == "forward_stacked":
+                        paths.append({"kernel": kernel, "L": L, "Dh": Dh, "dtype": tname,
+                                      "loads": loads})
                     fn, plain = _variant_call(kernel, qkv, m, g, H, bb, mode)
                     err, scale = _variant_err(kernel, mode, fn(), plain(), H * Dh)
                     check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
@@ -1547,8 +1617,8 @@ def ablation_edges():
             refused += 1
         check(read_counts() == before, "a refused ablation input launched")
     check(refused == 7, f"only {refused} of 7 unsupported ablation inputs raised")
-    say("edges", ablation_shapes=[list(s) for s in shapes],
-        ablation_worst_err_over_scale=worst, ablation_refusals=refused)
+    say("edges", ablation_shapes=[list(s) for s, _ in shapes_for],
+        ablation_worst_err_over_scale=worst, ablation_paths=paths, ablation_refusals=refused)
 
 
 # -------------------------------------------------------------------- phase 10

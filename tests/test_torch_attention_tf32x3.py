@@ -19,7 +19,10 @@ pass (``rna(a) . rna(b)``) breaks them: it keeps about three decimal
 digits, which is why the kernels do not use it.
 """
 
+import functools
+import importlib.util
 import math
+import os
 
 import numpy as np
 import pytest
@@ -31,7 +34,9 @@ import jax.numpy as jnp
 from ccmh.clip.model import causal_mask as jax_causal_mask
 from ccmh.ops.attention import fused_attention as jax_fused
 from ccmh_torch.clip.model import causal_mask
+from ccmh_torch.ops import attention_variants as av
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE = 1e-4          # chip_smoke.py's ATTN_TOL for fp32
 MARGIN = 10.0        # the emulated 3xTF32 error must sit this far under it
 
@@ -172,4 +177,151 @@ def test_3xtf32_sits_under_the_card_gate(shape, direction):
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_one_tf32_pass_breaks_the_card_gate(shape, direction):
     err, gate = _error(shape, direction, mm_1xtf32)
+    assert err > gate, (err, gate)
+
+
+# ---- the ablation kernels #7 (forward_stacked) and #9 (backward_merged)
+# of tools/bench_attn_bwd.py (csrc/attention_fwd_stacked.cu,
+# csrc/attention_merged.cu), held to the JAX tool's Pallas kernels in
+# interpret mode.  #7 takes #1's products.  #9 runs R = bb L merged rows
+# under the [R, R] block-diagonal mask, its fp32 products as 3xTF32 with a
+# split that rounds toward zero (hi = x with the low 13 mantissa bits
+# cleared, lo = x - hi the same way: no conversion instruction); a group of
+# G warps shares each 16-row tile (2 up to 128 rows, 4 above), each warp a
+# run of its 16-key blocks, and the group combines the warps' row max, sum
+# and sum_j e dP, which the emulation follows.
+
+MERGED = {
+    # (B, L, H, Dh, causal, bb)
+    "vision bb=2": (2, 50, 12, 64, False, 2),
+    "text bb=4": (4, 32, 8, 64, True, 4),
+    "vision bb=4, 4 warps a tile": (4, 50, 12, 64, False, 4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_attn_bwd", os.path.join(REPO, "tools", "bench_attn_bwd.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tf32_tz(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 rounded toward zero: the low 13 mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32_tz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, bh = tf32_tz(a), tf32_tz(b)
+    al, bl = tf32_tz(a - ah), tf32_tz(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def _key_shares(R):
+    """Each warp's keys of a 16-row tile: the 16-key blocks dealt out in
+    order over the group's G warps, the first n_t % G warps one more."""
+    n_t = _pad16(R) // 16
+    G = 2 if n_t <= 8 else 4
+    per, extra = divmod(n_t, G)
+    start, out = 0, []
+    for p in range(G):
+        n = per + (p < extra)
+        out.append(slice(16 * start, min(R, 16 * (start + n))))
+        start += n
+    return out
+
+
+def merged_backward_emulated(qkv, g, mask, H, bb, mm, shares=False):
+    """#9's fp32 chain over R = bb L merged rows -> dqkv [B, L, 3D]; the
+    softmax statistics per warp share, combined, when ``shares``."""
+    B, L, D3 = qkv.shape
+    Dh, R = D3 // 3 // H, bb * L
+    q, k, v = qkv.reshape(B // bb, R, 3, H, Dh).permute(2, 0, 3, 1, 4)
+    gh = g.reshape(B // bb, R, H, Dh).permute(0, 2, 1, 3)
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    logits = mm(q, k.transpose(-1, -2)) * scale + mask
+    dprobs = mm(gh, v.transpose(-1, -2))
+    if not shares:
+        probs = torch.softmax(logits, dim=-1)
+        dot = (dprobs * probs).sum(-1, keepdim=True)
+    else:
+        stats = []
+        for sl in _key_shares(R):
+            x, d = logits[..., sl], dprobs[..., sl]
+            m = x.amax(-1, keepdim=True)
+            e = torch.exp(x - m)
+            stats.append((m, e.sum(-1, keepdim=True), (e * d).sum(-1, keepdim=True)))
+        m = torch.stack([st[0] for st in stats]).amax(0)
+        total = sum(st[1] * torch.exp(st[0] - m) for st in stats)
+        u = sum(st[2] * torch.exp(st[0] - m) for st in stats)
+        probs = torch.exp(logits - m) * (1.0 / total)
+        dot = u / total
+    dlogits = probs * (dprobs - dot) * scale
+    dq = mm(dlogits, k)
+    dk = mm(dlogits.transpose(-1, -2), q)
+    dv = mm(probs.transpose(-1, -2), gh)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, L, D3)
+
+
+_TOOL = {}
+
+
+def _tool_merged(case):
+    """The JAX tool's #9 at ``case`` (cached: interpreted Pallas is slow)."""
+    if case not in _TOOL:
+        B, L, H, Dh, causal, bb = MERGED[case]
+        qkv, _, g = _inputs(B, L, H, Dh, seed=L + bb)
+        bias = np.triu(np.full((L, L), -1e9, np.float32), 1) if causal else None
+        want = jax_tool().backward_merged(jnp.asarray(qkv), None if bias is None else
+                                          jnp.asarray(bias), jnp.asarray(g), H, bb)
+        _TOOL[case] = (qkv, g, bias, np.asarray(want))
+    return _TOOL[case]
+
+
+def _merged_error(case, mm):
+    B, L, H, Dh, causal, bb = MERGED[case]
+    qkv, g, bias, want = _tool_merged(case)
+    mask = av.merged_mask(None if bias is None else torch.from_numpy(bias), L, bb)
+    got = merged_backward_emulated(torch.from_numpy(qkv), torch.from_numpy(g), mask, H, bb, mm,
+                                   shares=True).numpy()
+    return float(np.abs(got - want).max()), GATE * max(1.0, float(np.abs(want).max()))
+
+
+def _stacked_error(mm):
+    """#7 at vision (B=2, bb=2, no mask) against the tool's forward_stacked."""
+    B, L, H, Dh, _ = SHAPES["vision"]
+    if "stacked" not in _TOOL:
+        qkv, _, _ = _inputs(B, L, H, Dh, seed=7)
+        _TOOL["stacked"] = (qkv, np.asarray(jax_tool().forward_stacked(jnp.asarray(qkv), None,
+                                                                      H, 2)))
+    qkv, want = _TOOL["stacked"]
+    got = forward_emulated(torch.from_numpy(qkv), torch.zeros(3 * H * Dh), None, H, mm).numpy()
+    return float(np.abs(got - want).max()), GATE
+
+
+@pytest.mark.parametrize("case", list(MERGED))
+def test_3xtf32_merged_rows_sit_under_the_card_gate(case):
+    err, gate = _merged_error(case, mm_3xtf32_tz)
+    assert math.isfinite(err) and err * MARGIN <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("case", list(MERGED))
+def test_one_tf32_pass_breaks_the_card_gate_over_merged_rows(case):
+    err, gate = _merged_error(case, mm_1xtf32)
+    assert err > gate, (err, gate)
+
+
+def test_3xtf32_stacked_forward_sits_under_the_card_gate():
+    err, gate = _stacked_error(mm_3xtf32)
+    assert math.isfinite(err) and err * MARGIN <= gate, (err, gate)
+
+
+def test_one_tf32_pass_breaks_the_card_gate_in_the_stacked_forward():
+    err, gate = _stacked_error(mm_1xtf32)
     assert err > gate, (err, gate)

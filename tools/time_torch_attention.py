@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels #1 (forward) and #2 (backward) beside
-SDPA at the towers' shapes, for the ``ccmh_torch`` package of a checkout.
+"""Time the port's attention kernels #1 (forward) and #2 (backward), and
+the ablation bench's #7 (``forward_stacked``) and #9 (``backward_merged``),
+beside SDPA at the towers' shapes, for the ``ccmh_torch`` package of a
+checkout.
 
-    python3 tools/time_torch_attention.py [--root DIR]
+    python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,7,9] [--merged-plans]
 
 ``--root`` (default: this checkout) is the directory holding the
 ``ccmh_torch`` to time, so two versions compare inside one call on one
@@ -15,8 +17,19 @@ C entries (``fwd_ms``, ``bwd_ms``) and through their Python wrappers
 (``*_wrapper_ms``, host-bound where the kernel is short); SDPA runs on the
 same biased q, k, v (forward, and forward + backward minus forward).  One
 JSON line per shape and type, with each kernel's max abs error against
-its plain version; the card's name and power limit first.  Needs one CUDA
-card.
+its plain version; the card's name and power limit first.
+
+``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
+``7`` and ``9`` add one line per shape, type and case for #7 at bb=16
+and #9 at bb=2 and bb=4 (R = bb L merged rows under the block-diagonal
+mask), no projection bias, the text shape under the bench's -1e9 causal
+mask: ``entry_ms`` at the C entry, ``wrapper_ms``, and SDPA's forward
+(#7) or forward + backward minus forward (#9) on the same q, k, v.  A
+checkout whose #9 entry takes no tile plan (before ``_merged_plan``) is
+called with its own argument list; ``--merged-plans`` adds a line for
+every path #9's entry takes at each case (the [R, R] tiles kept,
+recomputed, or the operands streamed from device memory), each checked
+against the plain version.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ import sys
 LOOPS = (40, 240)
 REPEATS = 3
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
+KERNELS = ("1", "2", "7", "9")
+VARIANT_CASES = (("7", 16), ("9", 2), ("9", 4))   # (kernel, bb)
 
 
 def steady_ms(fn) -> float:
@@ -76,11 +91,117 @@ def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
     return call
 
 
+def variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan=None, out=None):
+    """A zero-argument call of #7 or #9 at its C entry, with the arguments
+    its wrapper passes (#9: its tile plan, or ``plan``, where the checkout
+    has one) and a preallocated output (or ``out``)."""
+    import torch
+
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    if kernel == "7":
+        out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device) if out is None \
+            else out
+        lib, name, ptrs, ints = ("attention_fwd_stacked", "ccmh_attention_fwd_stacked",
+                                 (qkv, mask, out), (bb,))
+    else:
+        out = torch.empty_like(qkv) if out is None else out
+        if plan is None:
+            plan = tuple(av._merged_plan(bb * L, Dh, qkv.element_size())) if hasattr(
+                av, "_merged_plan") else ()
+        lib, name, ptrs, ints = ("attention_merged" if plan else "attention_variants",
+                                 "ccmh_attention_bwd_merged", (qkv, mask, g, out), (bb, *plan))
+    _, fn = av._entry(lib, name, len(ptrs), 4 + len(ints))
+    args = (qkv.device.index, *(av._ptr(p) for p in ptrs), B, L, H, Dh, *ints,
+            1.0 / math.sqrt(Dh), av._DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+
+    def call():
+        if fn(*args):
+            raise RuntimeError(f"{name} refused the launch")
+    return call
+
+
+def time_plans(av, qkv, mask, g, H, bb, want, row) -> None:
+    """One line per plan #9's entry takes at this case: C entry ms and its
+    max abs error against the plain version."""
+    import torch
+
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    for path in av.MERGED_PATHS:
+        try:
+            plan = av._merged_plan(bb * L, Dh, qkv.element_size(), path=path)
+        except ValueError:       # does not fit shared memory
+            continue
+        out = torch.empty_like(qkv)
+        call = variant_entry_call(av, "9", qkv, mask, g, H, bb, tuple(plan), out)
+        try:
+            call()
+        except RuntimeError:     # a plan the entry does not take
+            continue
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        print(json.dumps({**row, "plan": {"key_block": plan.key_block, "path": path,
+                                          "smem_bytes": plan.smem_bytes},
+                          "entry_ms": steady_ms(call), "max_abs_err": err}), flush=True)
+
+
+def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False) -> None:
+    """#7 and #9 at one shape and type: one JSON line per case."""
+    import torch
+
+    from ccmh_torch.ops import attention_variants as av
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    dev = torch.device("cuda")
+    Dh = 64
+    D = H * Dh
+    gen = torch.Generator(device=dev).manual_seed(L * 1000 + H + 2)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+    bias = bench.causal_bias(L, dev) if causal else None
+    sdpa = bench.sdpa_yardstick(qkv, causal, H, LOOPS, REPEATS)
+    for kernel, bb in VARIANT_CASES:
+        if kernel not in kernels:
+            continue
+        with torch.no_grad():
+            if kernel == "7":
+                mask = bias
+                wrapper = lambda: av.forward_stacked(qkv, bias, H, bb)        # noqa: E731
+                want = av.forward_stacked_reference(qkv, bias, H).float()
+            else:
+                mask = av.merged_mask(bias, L, bb, device=dev)
+                wrapper = lambda: av.backward_merged(qkv, bias, g, H, bb, mask=mask)  # noqa: E731
+                want = av.backward_merged_reference(qkv, mask, g, H, bb).float()
+            err = (wrapper().float() - want).abs().max().item()
+            entry_ms = steady_ms(variant_entry_call(av, kernel, qkv, mask, g, H, bb))
+            wrapper_ms = steady_ms(wrapper)
+            if plans and kernel == "9":
+                time_plans(av, qkv, mask, g, H, bb, want,
+                           {"kernel": "#9", "bb": bb, "shape": tag,
+                            "dtype": str(dtype).split(".")[-1]})
+        print(json.dumps({
+            "kernel": f"#{kernel}", "bb": bb, "shape": tag, "dtype": str(dtype).split(".")[-1],
+            "B": B, "L": L, "H": H, "causal": causal, "entry_ms": entry_ms,
+            "wrapper_ms": wrapper_ms,
+            "sdpa": "fwd" if kernel == "7" else "fwd+bwd minus fwd",
+            "sdpa_ms": sdpa[0] if kernel == "7" else sdpa[1], "max_abs_err": err,
+            "output_scale": want.abs().max().item()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     help="checkout whose ccmh_torch is timed")
+    ap.add_argument("--kernels", default="1,2",
+                    help="comma-separated kernel numbers out of 1, 2, 7, 9 (default 1,2)")
+    ap.add_argument("--merged-plans", action="store_true",
+                    help="with 9: time every plan #9's entry takes")
     args = ap.parse_args(argv)
+    kernels = set(args.kernels.split(","))
+    if not kernels <= set(KERNELS):
+        ap.error(f"--kernels takes a comma-separated subset of {','.join(KERNELS)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -101,6 +222,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     for dtype in (torch.bfloat16, torch.float32):
         for tag, B, L, H, causal in SHAPES:
+            if kernels & {"7", "9"}:
+                time_variants(kernels, dtype, tag, B, L, H, causal, args.merged_plans)
+            if not kernels & {"1", "2"}:
+                continue
             Dh = 64
             D = H * Dh
             gen = torch.Generator(device=dev).manual_seed(L * 1000 + H)

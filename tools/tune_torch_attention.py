@@ -12,7 +12,10 @@ beside it are copied from ``srcdir`` (default: the checkout's csrc) into
 ``build/tune_attention/<name>/``, each substitution is applied to every
 file that holds its old text (it must match somewhere), and the variant is
 compiled with the port's nvcc flags, all variants at once.  A name that
-starts with ``fwd`` is the forward's entry, any other the backward's.
+starts with ``fwd`` is the forward's entry, one that starts with
+``stacked`` the ablation bench's #7 (``ccmh_attention_fwd_stacked`` of
+``attention_fwd_stacked.cu``, at bb=16 on the same q, k, v without the
+projection bias), any other the backward's.
 
 For vision B=256 L=50 H=12 and text B=256 L=32 H=8 causal (Dh=64, with
 the projection bias), bf16 and fp32, it prints one JSON line with each
@@ -79,12 +82,22 @@ def build(variants):
     return libs
 
 
-def entry(lib, fwd):
-    fn = lib.ccmh_attention_fwd if fwd else lib.ccmh_attention_bwd
+def entry(lib, kind):
+    if kind == "stacked":
+        fn = lib.ccmh_attention_fwd_stacked
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fwd = kind == "fwd"
+        fn = lib.ccmh_attention_fwd if fwd else lib.ccmh_attention_bwd
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (4 if fwd else 5) + [
+            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (4 if fwd else 5) + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
+
+
+def kind_of(name):
+    return next((k for k in ("fwd", "stacked") if name.startswith(k)), "bwd")
 
 
 def main(argv=None) -> int:
@@ -97,6 +110,7 @@ def main(argv=None) -> int:
         return 2
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
+    from ccmh_torch.ops import attention_variants as av
     from ccmh_torch.tools import bench_attn_bwd as bench
 
     specs = json.load(open(argv[0])) if argv else []
@@ -123,24 +137,31 @@ def main(argv=None) -> int:
             mask = causal_mask(L, device=dev) if causal else None
             want_f = attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
             want_b = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
+            want_s = av.forward_stacked_reference(qkv, mask, H).float()
             scale = max(1.0, want_b.abs().max().item())
             code = 0 if dtype == torch.float32 else 1
             stream = torch.cuda.current_stream().cuda_stream
             row = {"shape": tag, "dtype": str(dtype).split(".")[-1]}
             for name, _ in vs:
-                fwd = name.startswith("fwd")
-                fn = entry(libs[name], fwd)
+                kind = kind_of(name)
+                fwd = kind != "bwd"
+                fn = entry(libs[name], kind)
                 out = torch.empty((B, L, D) if fwd else (B, L, 3 * D), dtype=dtype, device=dev)
-                args = [0, qkv.data_ptr(), qkv_b.data_ptr(),
-                        None if mask is None else mask.data_ptr()]
-                args += ([] if fwd else [g.data_ptr()]) + [
-                    out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
+                mask_ptr = None if mask is None else mask.data_ptr()
+                if kind == "stacked":
+                    args = [0, qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, H, Dh, 16,
+                            1.0 / math.sqrt(Dh), code, stream]
+                else:
+                    args = [0, qkv.data_ptr(), qkv_b.data_ptr(), mask_ptr]
+                    args += ([] if fwd else [g.data_ptr()]) + [
+                        out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
                 err = fn(*args)
                 torch.cuda.synchronize()
                 if err:
                     row[name] = f"CUDA error {err}"
                     continue
-                e = (out.float() - (want_f if fwd else want_b)).abs().max().item()
+                want = {"fwd": want_f, "stacked": want_s, "bwd": want_b}[kind]
+                e = (out.float() - want).abs().max().item()
                 tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else scale)
                 row[name] = [1e3 * steady_ms(lambda: fn(*args)),
                              "ok" if e <= tol else f"BAD {e}"]
