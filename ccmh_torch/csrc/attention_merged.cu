@@ -36,8 +36,9 @@
 // two [16, 64] fp32 strips: a block of min(pad16(R) / 16, 16 / G) groups,
 // 14 warps at R = 100, 16 at R = 200, at most 128 registers a thread.  All
 // products on mma.sync (bf16 m16n8k16; fp32 as 3xTF32 m16n8k8, its split
-// rounding toward zero with no conversion instruction, MFrag below).  Two
-// [pad16(R)][ld] operand tiles live in shared memory at a time, loaded by
+// rounding toward zero with no conversion instruction, mma_tiles.cuh
+// FragTz).  Two [pad16(R)][ld] operand tiles live in shared memory at a
+// time, loaded by
 // 16-byte cp.async where Dh sizeof(T), the row stride and the pointers
 // allow (scalar loads otherwise):
 //   A. query-major, k and v in shared memory, each warp's q and g fragments
@@ -82,83 +83,10 @@ namespace {
 
 using namespace ccmh::mma;
 
-// fp32 products as 3xTF32 with a split that takes no conversion
-// instruction: hi = x with its low 13 mantissa bits cleared (rounded toward
-// zero) and lo = x - hi the same way, two integer ANDs and one add where
-// mma_tiles.cuh's split (cvt.rna, round to nearest) takes two conversions,
-// which run at a quarter of the integer rate; a.b = hi.hi' + hi.lo' +
-// lo.hi' then stays within about 2^-21 of a.b relative (2^-22 rounding to
-// nearest), far under the 1e-4 gates.  bf16 is Frag's as it is.
-__device__ __forceinline__ void split_tz(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
+// fp32 products as 3xTF32 with the split toward zero (mma_tiles.cuh
+// FragTz); bf16 is Frag's as it is
 template <typename T>
-struct MFrag : Frag<T> {};
-
-template <>
-struct MFrag<float> {
-  using T = float;
-  using A = Frag<float>::A;
-  using B = Frag<float>::B;
-  __device__ static void mma(float (&c)[4], const A& a, const B& b) { Frag<float>::mma(c, a, b); }
-  __device__ static void set_a(A& a, int s, float x0, float x1, float x2, float x3) {
-    split_tz(x0, a.hi[s][0], a.lo[s][0]);
-    split_tz(x1, a.hi[s][1], a.lo[s][1]);
-    split_tz(x2, a.hi[s][2], a.lo[s][2]);
-    split_tz(x3, a.hi[s][3], a.lo[s][3]);
-  }
-  __device__ static void set_b(B& b, int s, float x0, float x1) {
-    split_tz(x0, b.hi[s][0], b.lo[s][0]);
-    split_tz(x1, b.hi[s][1], b.lo[s][1]);
-  }
-  // the fragments of mma_tiles.cuh's Frag<float>, in its "rows" and "cols" orders
-  __device__ static A a_rows(const T* X, int ld, int m0, int k0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const T* x0 = X + (m0 + g) * ld + k0 + t;
-    const T* x1 = x0 + 8 * ld;
-    A a;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) set_a(a, s, x0[8 * s], x1[8 * s], x0[8 * s + 4], x1[8 * s + 4]);
-    return a;
-  }
-  __device__ static A a_cols(const T* X, int ld, int m0, int k0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    A a;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const T* x = X + (k0 + 8 * s + 2 * t) * ld + m0 + g;
-      set_a(a, s, x[0], x[8], x[ld], x[ld + 8]);
-    }
-    return a;
-  }
-  __device__ static A a_acc(const float (&c0)[4], const float (&c1)[4]) {
-    A a;
-    set_a(a, 0, c0[0], c0[2], c0[1], c0[3]);
-    set_a(a, 1, c1[0], c1[2], c1[1], c1[3]);
-    return a;
-  }
-  __device__ static void b_rows(B& b0, B& b1, const T* Y, int ld, int n0, int k0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const T* y0 = Y + (n0 + g) * ld + k0 + t;
-    const T* y1 = y0 + 8 * ld;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      set_b(b0, s, y0[8 * s], y0[8 * s + 4]);
-      set_b(b1, s, y1[8 * s], y1[8 * s + 4]);
-    }
-  }
-  __device__ static void b_cols(B& b0, B& b1, const T* Y, int ld, int k0, int n0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const T* y = Y + (k0 + 8 * s + 2 * t) * ld + n0 + g;
-      set_b(b0, s, y[0], y[ld]);
-      set_b(b1, s, y[8], y[ld + 8]);
-    }
-  }
-};
+using MFrag = FragTz<T>;
 
 constexpr int kMaxR = 256;
 constexpr int kMaxDh = 128;

@@ -1,5 +1,5 @@
-// Row helpers of the FMA attention-variant kernels (attention_variants.cu:
-// #6, #8, #10): the building blocks of kernel #2's two-phase design
+// Row helpers of the FMA attention-variant kernel (attention_variants.cu:
+// #8): the building blocks of kernel #2's two-phase design
 // (attention_bwd.cu), generalised to any number of key slots a lane (S, so
 // up to 32 S keys) and to global row indices, so that a block can walk
 // several batch elements.  Tensors are row-major [rows, 3D] (qkv, dqkv) and

@@ -3,21 +3,21 @@ kernels, each a wrapper with a plain PyTorch version beside it.
 
 Port of the five Pallas kernels of ``tools/bench_attn_bwd.py`` as CUDA C++
 for Hopper: ``backward_x`` (#6, eight ablation ``mode``\\ s of the
-attention backward at a forced batch block), ``backward_savedp`` (#8, the
-backward from saved probabilities), ``backward_merged`` (#9, bb batch
-elements as merged rows under a block-diagonal mask) and
-``backward_headpair`` (#10, two heads a program) as
-``ccmh_torch/csrc/attention_variants.cu``, except #9, which is
+attention backward at a forced batch block) and ``backward_headpair``
+(#10, two heads a program) as ``ccmh_torch/csrc/attention_bwd_x.cu``;
+``backward_savedp`` (#8, the backward from saved probabilities) as
+``ccmh_torch/csrc/attention_variants.cu``; ``backward_merged`` (#9, bb
+batch elements as merged rows under a block-diagonal mask) as
 ``ccmh_torch/csrc/attention_merged.cu``; ``forward_stacked`` (#7, the
 forward with all heads' logits stacked before one softmax) as
-``ccmh_torch/csrc/attention_fwd_stacked.cu``.  #7 and #9 run on the tensor
-cores; #9's tile plan (:func:`_merged_plan`) is made here and checked by
-its C entry.  Each computes kernel #2's (or #1's) function with no
-projection bias, apart from the changes its
-``mode`` makes (``*_reference`` spell each out step by step after the
-Pallas bodies).  ``savedp_probs`` and ``merged_mask`` build the setup
-inputs that the TPU tool builds outside its ``pallas_call``\\ s, and stay
-plain PyTorch.
+``ccmh_torch/csrc/attention_fwd_stacked.cu``.  #6, #7, #9 and #10 run on
+the tensor cores; the plans of #6/#10 (:func:`_bwd_x_plan`) and #9
+(:func:`_merged_plan`) are made here and checked by their C entries.  Each
+computes kernel #2's (or #1's) function with no projection bias, apart
+from the changes its ``mode`` makes (``*_reference`` spell each out step
+by step after the Pallas bodies).  ``savedp_probs`` and ``merged_mask``
+build the setup inputs that the TPU tool builds outside its
+``pallas_call``\\ s, and stay plain PyTorch.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Every wrapper counts its launches.  One departure from the TPU
@@ -43,11 +43,11 @@ backward_savedp_launches = 0     # #8
 backward_merged_launches = 0     # #9
 backward_headpair_launches = 0   # #10
 
-# #6's modes, in the order of their codes in csrc/attention_variants.cu
+# #6's modes, in the order of their codes in csrc/attention_bwd_x.cu
 MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
 # the modes that compute kernel #2's function (nomax: other rounding)
 SAME_FUNCTION_MODES = ("full", "stacked", "pair", "nomax")
-MAX_SEQ = 128          # keys a lane carries: 4 slots of 32
+MAX_SEQ = 128          # keys a unit takes (#8: 4 slots of 32 a lane; #6, #10: 8 16-key tiles)
 MAX_MERGED_ROWS = 256  # #9: R = bb L
 MAX_HEAD_DIM = 128
 SMEM_OPTIN = 232448    # shared memory a block may take on an H100 (bytes)
@@ -248,6 +248,90 @@ def _merged_plan(R: int, Dh: int, itemsize: int, smem_optin: int = SMEM_OPTIN,
     return MergedPlan(32 if _pad16(R) <= 64 else 64, MERGED_PATHS.index(path), smem)
 
 
+# ------------------------------------------------------------ #6's and #10's plan
+
+# the ways through csrc/attention_bwd_x.cu: the four operand tiles and the
+# two [L, L] tiles in shared memory, or (fp32 where they do not fit) two
+# operand tiles at a time with the probabilities recomputed key-major
+BWD_X_PATHS = ("tiles", "recompute")
+BWD_X_MAX_GROUPS = 4
+# Measured choices (tools/time_torch_attention.py --bwd-x-plans, PERF.md
+# §6) by (item size, warps a unit = pad16(L) / 16), where L and Dh
+# are at most 64 (one warp group a block otherwise): the warp groups of a
+# `pair` or #10 block (1: one head after the other; 2: both heads at once;
+# 4: two elements' head pairs), and the most steps a `stacked` block walks
+# (it works on E = ceil(bb / steps) elements at once; None: one element at
+# a time).  The four keys are the bench's shapes (vision and text, bf16 and
+# fp32); every other shape takes BWD_X_DEFAULT, one group and four steps,
+# which no run has timed (a guess that keeps stacked's steps bounded).
+BWD_X_TUNED = {(2, 2): (4, 2), (2, 4): (1, None), (4, 2): (2, 4), (4, 4): (2, 4)}
+BWD_X_DEFAULT = (1, 4)
+
+
+class BwdXPlan(NamedTuple):
+    """How ``csrc/attention_bwd_x.cu`` runs #6 or #10, in its C entries'
+    argument order after ``mode``: ``path`` (an index into
+    :data:`BWD_X_PATHS`), ``groups`` (warp groups a block, each on its own
+    (element, head) unit at a time) and the block's shared-memory bytes.  A
+    block covers two heads in ``pair`` and #10, one otherwise."""
+    path: int
+    groups: int
+    smem_bytes: int
+
+
+def _bwd_x_smem(L: int, Dh: int, itemsize: int, path: str, groups: int, mode: str) -> int:
+    """The block's shared-memory bytes (attention_bwd_x.cu tiles_smem,
+    recompute_smem)."""
+    Lp = _pad16(L)
+    if path == "recompute":
+        return (2 * Lp * _tile_ld(Dh, 4) + 3 * Lp) * 4
+    tiles = 0 if mode == "fewstores" else 2 * Lp * _tile_ld(L, itemsize)
+    return groups * (4 * Lp * _tile_ld(Dh, itemsize) + tiles) * itemsize
+
+
+def _bwd_x_plan(mode: str, L: int, Dh: int, itemsize: int, bb: int = 1,
+                groups: Optional[int] = None, path: Optional[str] = None,
+                smem_optin: int = SMEM_OPTIN) -> BwdXPlan:
+    """#6's plan for ``mode`` (or #10's, ``mode="headpair"``) at L keys,
+    head dim Dh and a batch block of ``bb``, in a type of ``itemsize``
+    bytes: where L and Dh are at most 64, the warp groups of
+    :data:`BWD_X_TUNED` for ``pair`` and #10, and for ``stacked`` the
+    elements its steps call for (at most 4 warp groups, fewer where they do
+    not fit); the tile path where its tiles fit ``smem_optin``, else (fp32)
+    the recompute path.  ``groups`` and ``path`` override the rules (for
+    timing the others); a plan that does not fit raises."""
+    small = _pad16(L) <= 64 and _pad16(Dh) <= 64
+    pair_groups, steps = BWD_X_TUNED.get((itemsize, _pad16(L) // 16), BWD_X_DEFAULT)
+    if groups is None:
+        groups = 1
+        if small and mode in ("pair", "headpair"):
+            groups = pair_groups
+        elif small and mode == "stacked" and steps is not None:
+            groups = min(-(-bb // steps), BWD_X_MAX_GROUPS)
+        while groups > 1 and _bwd_x_smem(L, Dh, itemsize, "tiles", groups, mode) > smem_optin:
+            groups = groups // 2 if mode != "stacked" else groups - 1
+    if path is None:
+        fits = _bwd_x_smem(L, Dh, itemsize, "tiles", groups, mode) <= smem_optin
+        path = "tiles" if fits or itemsize != 4 or groups > 1 else "recompute"
+    smem = _bwd_x_smem(L, Dh, itemsize, path, groups, mode)
+    if smem > smem_optin:
+        raise ValueError(f"#6's {path} plan for {mode} at L={L}, Dh={Dh} with {groups} warp "
+                         f"groups takes {smem} bytes of shared memory, over {smem_optin}")
+    return BwdXPlan(BWD_X_PATHS.index(path), groups, smem)
+
+
+def _bwd_x_entry(mode: str, L: int, Dh: int, itemsize: int, bb: int,
+                 plan: Optional[BwdXPlan] = None):
+    """(library, C entry, its int arguments after B, L, H, Dh) of #6 in
+    ``mode``, or of #10 for ``mode="headpair"``: bb, #6's mode code, then
+    ``plan`` (default :func:`_bwd_x_plan`'s)."""
+    if plan is None:
+        plan = _bwd_x_plan(mode, L, Dh, itemsize, bb)
+    if mode == "headpair":
+        return "attention_bwd_x", "ccmh_attention_bwd_headpair", (bb, *plan)
+    return "attention_bwd_x", "ccmh_attention_bwd_x", (bb, MODES.index(mode), *plan)
+
+
 # ------------------------------------------------------------ checks
 
 def _check_mode(mode: str, n_head: int) -> None:
@@ -328,7 +412,8 @@ def backward_x(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
     """#6: the attention backward of ``qkv`` [B, L, 3D] for the cotangent
     ``g`` [B, L, D] under the fp32 [L, L] ``bias`` (or None), a block
     walking ``bb`` batch elements, in one of :data:`MODES` (see
-    :func:`backward_x_reference`) -> dqkv [B, L, 3D] in qkv's type."""
+    :func:`backward_x_reference`) -> dqkv [B, L, 3D] in qkv's type.  The
+    kernel runs :func:`_bwd_x_plan`'s plan, which it checks."""
     global backward_x_launches
     _check(qkv, bias, g, n_head, bb, "backward_x")
     _check_mode(mode, n_head)
@@ -337,10 +422,17 @@ def backward_x(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
     _check_kernel(qkv, n_head, "backward_x", fp32=(("bias", bias),))
     g = _g(g, qkv)
     dqkv = torch.empty_like(qkv)
-    _launch("attention_variants", "ccmh_attention_bwd_x", qkv, (qkv, bias, g, dqkv),
-            (bb, MODES.index(mode)), n_head)
+    _launch_bwd_x(qkv, bias, g, dqkv, n_head, bb, mode)
     backward_x_launches += 1
     return dqkv
+
+
+def _launch_bwd_x(qkv, bias, g, dqkv, n_head, bb, mode) -> None:
+    """#6's C entry (or #10's, ``mode="headpair"``), as :func:`_bwd_x_entry`
+    gives it."""
+    lib, name, ints = _bwd_x_entry(mode, qkv.shape[1], qkv.shape[2] // 3 // n_head,
+                                   qkv.element_size(), bb)
+    _launch(lib, name, qkv, (qkv, bias, g, dqkv), ints, n_head)
 
 
 def forward_stacked(qkv: torch.Tensor, bias: Optional[torch.Tensor], n_head: int,
@@ -427,7 +519,8 @@ def _launch_merged(qkv, mask, g, dqkv, n_head, bb) -> None:
 def backward_headpair(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
                       n_head: int, bb: int) -> torch.Tensor:
     """#10: the backward on a (B / bb, H / 2) grid, two heads a block
-    (``qkv`` seen as [B, L, 3, H, Dh], the same memory); H even."""
+    (``qkv`` seen as [B, L, 3, H, Dh], the same memory); H even.  The
+    kernel runs :func:`_bwd_x_plan`'s plan for ``"headpair"``."""
     global backward_headpair_launches
     _check(qkv, bias, g, n_head, bb, "backward_headpair")
     _check_mode("pair", n_head)
@@ -436,7 +529,6 @@ def backward_headpair(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.
     _check_kernel(qkv, n_head, "backward_headpair", fp32=(("bias", bias),))
     g = _g(g, qkv)
     dqkv = torch.empty_like(qkv)
-    _launch("attention_variants", "ccmh_attention_bwd_headpair", qkv, (qkv, bias, g, dqkv),
-            (bb,), n_head)
+    _launch_bwd_x(qkv, bias, g, dqkv, n_head, bb, "headpair")
     backward_headpair_launches += 1
     return dqkv

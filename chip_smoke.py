@@ -80,11 +80,13 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    against its plain version at those shapes (#6 in all eight modes,
    fewstores on its dk slot; fp32 within 1e-4 and bf16 within 2e-2 of the
    output scale), with ms per call beside its bound, the plain version's
-   ms and SDPA's where it computes the same function (#7 and #9, on the
-   tensor cores, at their C entries as min over 3 of (t_240 - t_40) / 200
-   chained calls, the wrapper and #9's tile plan beside); edge shapes (L=77
-   causal, Dh=30 at an odd bb, L=1 at bb=B; #9 at R = 256, 112 and 256
-   with Dh=128, #7 at L=77 with Dh=30, each with its path) and the
+   ms and SDPA's where it computes the same function (all five on the
+   tensor cores but #8, timed at their C entries as min over 3 of (t_240 -
+   t_40) / 200 chained calls, the wrapper and the plan of #6, #9 and #10
+   beside; #8 through its wrapper, 10 calls); edge shapes (L=77 causal,
+   Dh=30 at an odd bb, L=1 at bb=B; #9 at R = 256, 112 and 256 with
+   Dh=128, #7 at L=77 with Dh=30, #6 ``full`` and #10 at fp32 L=Dh=128,
+   each with its path) and the
    refusals (odd H for ``pair`` and #10, R > 256 for #9, a bb that does
    not divide B, fp16);
 10. the token-level path with ``set_ln_impl("fused")``: ``ccmh_torch.cli.main``
@@ -1341,13 +1343,12 @@ def beside_linear_hash(state):
 ABLATION = ("backward_x", "forward_stacked", "backward_savedp", "backward_merged",
             "backward_headpair")
 ABLATION_SOURCES = {   # (source, the TPU kernel it replaces)
-    "backward_x": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:202"),
+    "backward_x": ("ccmh_torch/csrc/attention_bwd_x.cu", "tools/bench_attn_bwd.py:202"),
     "forward_stacked": ("ccmh_torch/csrc/attention_fwd_stacked.cu",
                         "tools/bench_attn_bwd.py:258"),
     "backward_savedp": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:322"),
     "backward_merged": ("ccmh_torch/csrc/attention_merged.cu", "tools/bench_attn_bwd.py:404"),
-    "backward_headpair": ("ccmh_torch/csrc/attention_variants.cu",
-                          "tools/bench_attn_bwd.py:470"),
+    "backward_headpair": ("ccmh_torch/csrc/attention_bwd_x.cu", "tools/bench_attn_bwd.py:470"),
 }
 
 
@@ -1412,11 +1413,12 @@ def _variant_call(kernel, qkv, mask, g, H, bb, mode):
             lambda: av.backward_headpair_reference(qkv, mask, g, H))
 
 
-def variant_entry(kernel, qkv, mask, g, H, bb):
-    """A zero-argument call of #7 or #9 through its C entry, with the
-    arguments its wrapper passes (#9: ``mask`` is the [R, R] merged mask,
-    and the plan ``_merged_plan`` makes) and a preallocated output: the
-    kernel's own time, without the wrapper's Python checks."""
+def variant_entry(kernel, qkv, mask, g, H, bb, mode=None):
+    """A zero-argument call of #6 (in ``mode``), #7, #9 or #10 through its
+    C entry, with the arguments its wrapper passes (#9: ``mask`` is the
+    [R, R] merged mask, and the plan ``_merged_plan`` makes; #6 and #10:
+    the entry and arguments ``_bwd_x_entry`` gives) and a preallocated output: the kernel's
+    own time, without the wrapper's Python checks."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1427,11 +1429,15 @@ def variant_entry(kernel, qkv, mask, g, H, bb):
         out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
         lib, name, ptrs, ints = ("attention_fwd_stacked", "ccmh_attention_fwd_stacked",
                                  (qkv, mask, out), (bb,))
-    else:
+    elif kernel == "backward_merged":
         out = torch.empty_like(qkv)
         lib, name, ptrs, ints = ("attention_merged", "ccmh_attention_bwd_merged",
                                  (qkv, mask, g, out),
                                  (bb, *av._merged_plan(bb * L, Dh, qkv.element_size())))
+    else:
+        out = torch.empty_like(qkv)
+        lib, name, ints = av._bwd_x_entry(mode or "headpair", L, Dh, qkv.element_size(), bb)
+        ptrs = (qkv, mask, g, out)
     _, fn = av._entry(lib, name, len(ptrs), 4 + len(ints))
     args = (qkv.device.index, *(av._ptr(p) for p in ptrs), B, L, H, Dh, *ints,
             1.0 / math.sqrt(Dh), av._DTYPE_CODES[qkv.dtype],
@@ -1458,10 +1464,10 @@ def _variant_err(kernel, mode, got, want, D):
 def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     """One ablation kernel against its plain version at a bench shape
     (B=256, Dh=64), with ms per call beside its bound, the plain version's
-    ms and SDPA's where it computes the same function.  #7 and #9 (on the
-    tensor cores) are timed at their C entries as min over 3 of (t_240 -
-    t_40) / 200 chained calls, the wrapper beside; the FMA kernels #6, #8
-    and #10 through their wrappers, 10 calls."""
+    ms and SDPA's where it computes the same function.  #6, #7, #9 and #10
+    (on the tensor cores) are timed at their C entries as min over 3 of
+    (t_240 - t_40) / 200 chained calls, the wrapper beside; the FMA kernel
+    #8 through its wrapper, 10 calls."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1485,15 +1491,17 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
               f"{kernel} {mode or ''} bb={bb} {name} {tname}: max abs err {err} > "
               f"{ATTN_TOL[tname]} x {scale}")
         timing = {}
-        if kernel in ("forward_stacked", "backward_merged"):
-            m = mask if kernel == "forward_stacked" else av.merged_mask(mask, L, bb, device=dev)
-            ms = steady_ms(variant_entry(kernel, qkv, m, g, H, bb))
+        if kernel != "backward_savedp":
+            m = av.merged_mask(mask, L, bb, device=dev) if kernel == "backward_merged" else mask
+            ms = steady_ms(variant_entry(kernel, qkv, m, g, H, bb, mode))
             timing = {"wrapper_ms": steady_ms(fn), "timed": "C entry, steady"}
             if kernel == "backward_merged":
                 plan = av._merged_plan(bb * L, Dh, qkv.element_size())
                 timing["plan"] = {"key_block": plan.key_block,
                                   "path": av.MERGED_PATHS[plan.path],
                                   "smem_bytes": plan.smem_bytes}
+            elif kernel != "forward_stacked":
+                timing["plan"] = bwd_x_plan(mode, L, Dh, qkv.element_size(), bb)
         else:
             ms = cuda_ms(fn, iters=10)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
@@ -1518,10 +1526,21 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     return case
 
 
+def bwd_x_plan(mode, L, Dh, itemsize, bb) -> dict:
+    """The plan #6 (in ``mode``) or #10 (``mode`` None) takes, as its
+    wrapper makes it."""
+    from ccmh_torch.ops import attention_variants as av
+
+    plan = av._bwd_x_plan(mode or "headpair", L, Dh, itemsize, bb)
+    return {"path": av.BWD_X_PATHS[plan.path], "groups": plan.groups,
+            "smem_bytes": plan.smem_bytes}
+
+
 def ablation_kernel_cases():
     """Each of #6-#10 against its plain version at the bench's shapes,
-    fp32 and bf16: #6 in all eight modes at bb=4, #7 at bb=16, #8 and #10
-    at bb=4, #9 at bb=2 and 4 (R = 100 / 200 vision, 64 / 128 text)."""
+    fp32 and bf16: #6 in all eight modes at bb=4 and ``stacked`` at bb=8,
+    #7 at bb=16, #8 and #10 at bb=4, #9 at bb=2 and 4 (R = 100 / 200
+    vision, 64 / 128 text)."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1533,9 +1552,9 @@ def ablation_kernel_cases():
             x = torch.randn((256, L, 3 * H * 64), device="cuda").to(dt)
             sdpa = bench.sdpa_yardstick(x, causal, H, (3, 23), 3)   # (fwd, bwd) ms
             del x
-            for mode in av.MODES:
+            for mode, bb in [(m, 4) for m in av.MODES] + [("stacked", 8)]:
                 cases["backward_x"].append(
-                    variant_case("backward_x", name, L, H, causal, dt, 4, mode, sdpa))
+                    variant_case("backward_x", name, L, H, causal, dt, bb, mode, sdpa))
             for kernel, bbs in (("forward_stacked", (16,)), ("backward_savedp", (4,)),
                                 ("backward_merged", (2, 4)), ("backward_headpair", (4,))):
                 for bb in bbs:
@@ -1550,8 +1569,9 @@ def ablation_edges():
     L=1 at bb=B), every mode of #6, fp32 and bf16; #9 at R = 256 (L=32
     causal, bb=8: four warps a tile, recomputed), R = 112 (L=56, bb=2: kept
     tiles) and R = 256 with Dh=128 (fp32: the operands streamed from device
-    memory), #7 at L=77 with Dh=30 (the 128-row class on scalar loads), each
-    with the path it took; and the refusals: odd H for #10 and ``pair``,
+    memory), #7 at L=77 with Dh=30 (the 128-row class on scalar loads), #6
+    in every mode and #10 at L = Dh = 128 and at L=120 causal (fp32: the
+    recompute path), each with the path it took; and the refusals: odd H for #10 and ``pair``,
     R > 256 for #9, a bb that does not divide B, and fp16 raise and launch
     nothing."""
     import torch
@@ -1564,11 +1584,14 @@ def ablation_edges():
     shapes = ((4, 77, 8, 64, True, 2), (6, 13, 4, 30, False, 3), (5, 1, 2, 64, False, 5))
     calls = [("backward_x", m) for m in av.MODES] + [(k, None) for k in ABLATION[1:]]
     # (shape, the kernels it runs): #9's largest R, a kept R of 112 and the
-    # largest R at Dh=128, #7 at L=77 on scalar loads
+    # largest R at Dh=128, #7 at L=77 on scalar loads, #6 and #10 where fp32
+    # recomputes (L = Dh = 128, L = 120)
+    bwd_x = [("backward_x", m) for m in av.MODES] + [("backward_headpair", None)]
     shapes_for = [(s, calls) for s in shapes] + [
         ((8, 32, 8, 64, True, 8), [("backward_merged", None)]),
         ((4, 56, 4, 64, False, 2), [("backward_merged", None)]),
-        ((2, 128, 2, 128, False, 2), [("backward_merged", None)]),
+        ((2, 128, 2, 128, False, 2), [("backward_merged", None)] + bwd_x),
+        ((4, 120, 2, 64, True, 2), bwd_x),
         ((4, 77, 4, 30, True, 2), [("forward_stacked", None)])]
     worst, paths = {}, []
     with torch.no_grad():
@@ -1587,6 +1610,10 @@ def ablation_edges():
                                       "path": av.MERGED_PATHS[plan.path], "loads": loads})
                     elif kernel == "forward_stacked":
                         paths.append({"kernel": kernel, "L": L, "Dh": Dh, "dtype": tname,
+                                      "loads": loads})
+                    elif kernel == "backward_headpair" or mode == "full":
+                        paths.append({"kernel": kernel, "L": L, "Dh": Dh, "dtype": tname,
+                                      **bwd_x_plan(mode, L, Dh, qkv.element_size(), bb),
                                       "loads": loads})
                     fn, plain = _variant_call(kernel, qkv, m, g, H, bb, mode)
                     err, scale = _variant_err(kernel, mode, fn(), plain(), H * Dh)

@@ -325,3 +325,89 @@ def test_3xtf32_stacked_forward_sits_under_the_card_gate():
 def test_one_tf32_pass_breaks_the_card_gate_in_the_stacked_forward():
     err, gate = _stacked_error(mm_1xtf32)
     assert err > gate, (err, gate)
+
+
+# ---- the ablation kernels #6 (backward_x) and #10 (backward_headpair)
+# of tools/bench_attn_bwd.py (csrc/attention_bwd_x.cu), held to the JAX
+# tool's Pallas kernels in interpret mode.  Kernel #2's tile design with
+# no projection bias, its fp32 products as 3xTF32 with the split toward
+# zero; each mode changes one step of the chain (``nosoftmax`` takes
+# probs = logits * 0.01, ``novjp`` dlogits = dprobs, ``fewstores`` writes
+# dq alone, into the dk slot), #10 is kernel #2's function.
+
+BWD_X = {
+    # (B, L, H, Dh, causal, bb): the tool's grid is B // bb
+    "vision": (2, 50, 12, 64, False, 2),
+    "text": (2, 32, 8, 64, True, 2),
+}
+BWD_X_CASES = ["full", "nosoftmax", "novjp", "fewstores", "headpair"]
+
+
+def bwd_x_emulated(qkv, g, mask, H, mode, mm):
+    """#6's fp32 chain in ``mode`` (#10: ``"headpair"``, the full chain) ->
+    dqkv [B, L, 3D]; ``fewstores`` -> its dq [B, L, D], which the kernel
+    writes into the dk slot."""
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    q, k, v = qkv.reshape(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
+    gh = g.reshape(B, L, H, Dh).permute(0, 2, 1, 3)
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    logits = mm(q, k.transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask
+    dprobs = mm(gh, v.transpose(-1, -2))
+    probs = logits * 0.01 if mode == "nosoftmax" else torch.softmax(logits, dim=-1)
+    if mode == "novjp":
+        dlogits = dprobs * scale
+    else:
+        dlogits = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True)) * scale
+    dq = mm(dlogits, k)
+    if mode == "fewstores":
+        return dq.permute(0, 2, 1, 3).reshape(B, L, D3 // 3)
+    dk = mm(dlogits.transpose(-1, -2), q)
+    dv = mm(probs.transpose(-1, -2), gh)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, L, D3)
+
+
+def _tool_bwd_x(shape, mode):
+    """The JAX tool's #6 in ``mode`` (or #10) at ``shape`` (cached); the
+    fewstores case as the dk slot it writes."""
+    key = ("bwd_x", shape, mode)
+    if key not in _TOOL:
+        B, L, H, Dh, causal, bb = BWD_X[shape]
+        qkv, _, g = _inputs(B, L, H, Dh, seed=L + H + 6)
+        bias = np.triu(np.full((L, L), -1e9, np.float32), 1) if causal else None
+        jb = None if bias is None else jnp.asarray(bias)
+        tool = jax_tool()
+        if mode == "headpair":
+            want = tool.backward_headpair(jnp.asarray(qkv), jb, jnp.asarray(g), H, bb)
+        else:
+            want = tool.backward_x(jnp.asarray(qkv), jb, jnp.asarray(g), H, bb, mode)
+        want = np.asarray(want)
+        if mode == "fewstores":
+            D = H * Dh
+            want = want[..., D:2 * D]
+        _TOOL[key] = (qkv, g, bias, want)
+    return _TOOL[key]
+
+
+def _bwd_x_error(shape, mode, mm):
+    H = BWD_X[shape][2]
+    qkv, g, bias, want = _tool_bwd_x(shape, mode)
+    mask = None if bias is None else torch.from_numpy(bias)
+    got = bwd_x_emulated(torch.from_numpy(qkv), torch.from_numpy(g), mask, H, mode, mm).numpy()
+    return float(np.abs(got - want).max()), GATE * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("mode", BWD_X_CASES)
+@pytest.mark.parametrize("shape", list(BWD_X))
+def test_3xtf32_ablation_backward_sits_under_the_card_gate(shape, mode):
+    err, gate = _bwd_x_error(shape, mode, mm_3xtf32_tz)
+    assert math.isfinite(err) and err * MARGIN <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("mode", BWD_X_CASES)
+@pytest.mark.parametrize("shape", list(BWD_X))
+def test_one_tf32_pass_breaks_the_card_gate_in_the_ablation_backward(shape, mode):
+    err, gate = _bwd_x_error(shape, mode, mm_1xtf32)
+    assert err > gate, (err, gate)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels #1 (forward) and #2 (backward), and
-the ablation bench's #7 (``forward_stacked``) and #9 (``backward_merged``),
-beside SDPA at the towers' shapes, for the ``ccmh_torch`` package of a
-checkout.
+the ablation bench's #6 (``backward_x``), #7 (``forward_stacked``), #9
+(``backward_merged``) and #10 (``backward_headpair``), beside SDPA at the
+towers' shapes, for the ``ccmh_torch`` package of a checkout.
 
-    python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,7,9] [--merged-plans]
+    python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,6,7,9,10]
+                                          [--merged-plans] [--bwd-x-plans]
 
 ``--root`` (default: this checkout) is the directory holding the
 ``ccmh_torch`` to time, so two versions compare inside one call on one
@@ -20,15 +21,21 @@ JSON line per shape and type, with each kernel's max abs error against
 its plain version; the card's name and power limit first.
 
 ``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
-``7`` and ``9`` add one line per shape, type and case for #7 at bb=16
-and #9 at bb=2 and bb=4 (R = bb L merged rows under the block-diagonal
-mask), no projection bias, the text shape under the bench's -1e9 causal
-mask: ``entry_ms`` at the C entry, ``wrapper_ms``, and SDPA's forward
-(#7) or forward + backward minus forward (#9) on the same q, k, v.  A
-checkout whose #9 entry takes no tile plan (before ``_merged_plan``) is
-called with its own argument list; ``--merged-plans`` adds a line for
-every path #9's entry takes at each case (the [R, R] tiles kept,
-recomputed, or the operands streamed from device memory), each checked
+``6``, ``7``, ``9`` and ``10`` add one line per shape, type and case for
+#6 in each of its eight modes at bb=4 and ``stacked`` at bb=8, #7 at
+bb=16, #9 at bb=2 and bb=4 (R = bb L merged rows under the
+block-diagonal mask) and #10 at bb=4, no projection bias, the text shape
+under the bench's -1e9 causal mask: ``entry_ms`` at the C entry,
+``wrapper_ms``, the max abs error against the plain version (#6
+``fewstores`` on the dk slot it writes), and SDPA's forward (#7) or
+forward + backward minus forward (the backwards that compute its
+function) on the same q, k, v.  A checkout whose entries take no plan
+(#9 before ``_merged_plan``, #6 and #10 before ``_bwd_x_plan``, then in
+``attention_variants``) is called with its own argument list and library;
+``--merged-plans`` adds a line for every path #9's entry takes at each
+case (the [R, R] tiles kept, recomputed, or the operands streamed from
+device memory), ``--bwd-x-plans`` one for every plan #6's and #10's entry
+takes (the warp groups of ``pair``, #10 and ``stacked``), each checked
 against the plain version.  Needs one CUDA card.
 """
 
@@ -44,8 +51,11 @@ import sys
 LOOPS = (40, 240)
 REPEATS = 3
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
-KERNELS = ("1", "2", "7", "9")
-VARIANT_CASES = (("7", 16), ("9", 2), ("9", 4))   # (kernel, bb)
+KERNELS = ("1", "2", "6", "7", "9", "10")
+BWD_X_MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
+# (kernel, bb, #6's mode)
+VARIANT_CASES = tuple(("6", 4, m) for m in BWD_X_MODES) + (
+    ("6", 8, "stacked"), ("7", 16, None), ("9", 2, None), ("9", 4, None), ("10", 4, None))
 
 
 def steady_ms(fn) -> float:
@@ -91,15 +101,26 @@ def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
     return call
 
 
-def variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan=None, out=None):
-    """A zero-argument call of #7 or #9 at its C entry, with the arguments
-    its wrapper passes (#9: its tile plan, or ``plan``, where the checkout
-    has one) and a preallocated output (or ``out``)."""
+def variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan=None, out=None, mode=None):
+    """A zero-argument call of #6 (in ``mode``), #7, #9 or #10 at its C
+    entry, with the arguments its wrapper passes (#6, #9, #10: its plan, or
+    ``plan``, where the checkout has one) and a preallocated output (or
+    ``out``)."""
     import torch
 
     B, L, D3 = qkv.shape
     Dh = D3 // 3 // H
-    if kernel == "7":
+    if kernel in ("6", "10"):
+        out = torch.empty_like(qkv) if out is None else out
+        ptrs = (qkv, mask, g, out)
+        if hasattr(av, "_bwd_x_entry"):
+            lib, name, ints = av._bwd_x_entry(mode if kernel == "6" else "headpair", L, Dh,
+                                              qkv.element_size(), bb, plan)
+        else:   # a checkout from before the plan: #6 and #10 in attention_variants
+            lib = "attention_variants"
+            name = "ccmh_attention_bwd_x" if kernel == "6" else "ccmh_attention_bwd_headpair"
+            ints = (bb, av.MODES.index(mode)) if kernel == "6" else (bb,)
+    elif kernel == "7":
         out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device) if out is None \
             else out
         lib, name, ptrs, ints = ("attention_fwd_stacked", "ccmh_attention_fwd_stacked",
@@ -147,8 +168,51 @@ def time_plans(av, qkv, mask, g, H, bb, want, row) -> None:
                           "entry_ms": steady_ms(call), "max_abs_err": err}), flush=True)
 
 
-def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False) -> None:
-    """#7 and #9 at one shape and type: one JSON line per case."""
+def bwd_x_candidates(av, mode, L, Dh, itemsize, bb):
+    """Every plan #6's (or #10's, ``mode="headpair"``) entry may take here:
+    the warp groups its mode allows (``pair`` and #10: 1, 2 or 4;
+    ``stacked``: 1-4 elements), those that fit shared memory."""
+    if mode == "stacked":
+        choices = (1, 2, 3, 4)
+    elif mode in ("pair", "headpair"):
+        choices = (1, 2, 4)
+    else:
+        choices = (1,)
+    out = []
+    for groups in choices:
+        try:
+            out.append(av._bwd_x_plan(mode, L, Dh, itemsize, bb, groups=groups))
+        except ValueError:   # does not fit shared memory
+            pass
+    return out
+
+
+def time_bwd_x_plans(av, kernel, mode, qkv, mask, g, H, bb, want, row) -> None:
+    """One line per plan #6's or #10's entry takes at this case: C entry ms
+    and its max abs error against the plain version."""
+    import torch
+
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    cols = slice(D, 2 * D) if mode == "fewstores" else slice(None)
+    for plan in bwd_x_candidates(av, mode if kernel == "6" else "headpair", L, D // H,
+                                 qkv.element_size(), bb):
+        out = torch.empty_like(qkv)
+        call = variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan, out, mode)
+        try:
+            call()
+        except RuntimeError:     # a plan the entry does not take
+            continue
+        torch.cuda.synchronize()
+        err = (out[..., cols].float() - want[..., cols]).abs().max().item()
+        print(json.dumps({**row, "plan": {"path": av.BWD_X_PATHS[plan.path],
+                                          "groups": plan.groups,
+                                          "smem_bytes": plan.smem_bytes},
+                          "entry_ms": steady_ms(call), "max_abs_err": err}), flush=True)
+
+
+def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False, bwd_x_plans=False) -> None:
+    """#6, #7, #9 and #10 at one shape and type: one JSON line per case."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -162,32 +226,41 @@ def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False) -> None:
     g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
     bias = bench.causal_bias(L, dev) if causal else None
     sdpa = bench.sdpa_yardstick(qkv, causal, H, LOOPS, REPEATS)
-    for kernel, bb in VARIANT_CASES:
+    for kernel, bb, mode in VARIANT_CASES:
         if kernel not in kernels:
             continue
+        mask = bias
+        cols = slice(D, 2 * D) if mode == "fewstores" else slice(None)
         with torch.no_grad():
-            if kernel == "7":
-                mask = bias
+            if kernel == "6":
+                wrapper = lambda: av.backward_x(qkv, bias, g, H, bb, mode)          # noqa: E731
+                want = av.backward_x_reference(qkv, bias, g, H, mode).float()
+            elif kernel == "10":
+                wrapper = lambda: av.backward_headpair(qkv, bias, g, H, bb)         # noqa: E731
+                want = av.backward_headpair_reference(qkv, bias, g, H).float()
+            elif kernel == "7":
                 wrapper = lambda: av.forward_stacked(qkv, bias, H, bb)        # noqa: E731
                 want = av.forward_stacked_reference(qkv, bias, H).float()
             else:
                 mask = av.merged_mask(bias, L, bb, device=dev)
                 wrapper = lambda: av.backward_merged(qkv, bias, g, H, bb, mask=mask)  # noqa: E731
                 want = av.backward_merged_reference(qkv, mask, g, H, bb).float()
-            err = (wrapper().float() - want).abs().max().item()
-            entry_ms = steady_ms(variant_entry_call(av, kernel, qkv, mask, g, H, bb))
+            err = (wrapper()[..., cols].float() - want[..., cols]).abs().max().item()
+            entry_ms = steady_ms(variant_entry_call(av, kernel, qkv, mask, g, H, bb, mode=mode))
             wrapper_ms = steady_ms(wrapper)
+            row = {"kernel": f"#{kernel}", **({"mode": mode} if mode else {}), "bb": bb,
+                   "shape": tag, "dtype": str(dtype).split(".")[-1]}
             if plans and kernel == "9":
-                time_plans(av, qkv, mask, g, H, bb, want,
-                           {"kernel": "#9", "bb": bb, "shape": tag,
-                            "dtype": str(dtype).split(".")[-1]})
+                time_plans(av, qkv, mask, g, H, bb, want, row)
+            if bwd_x_plans and kernel in ("6", "10"):
+                time_bwd_x_plans(av, kernel, mode, qkv, mask, g, H, bb, want, row)
         print(json.dumps({
-            "kernel": f"#{kernel}", "bb": bb, "shape": tag, "dtype": str(dtype).split(".")[-1],
-            "B": B, "L": L, "H": H, "causal": causal, "entry_ms": entry_ms,
+            **row, "B": B, "L": L, "H": H, "causal": causal, "entry_ms": entry_ms,
             "wrapper_ms": wrapper_ms,
             "sdpa": "fwd" if kernel == "7" else "fwd+bwd minus fwd",
-            "sdpa_ms": sdpa[0] if kernel == "7" else sdpa[1], "max_abs_err": err,
-            "output_scale": want.abs().max().item()}), flush=True)
+            "sdpa_ms": (sdpa[0] if kernel == "7" else sdpa[1])
+            if mode is None or mode in av.SAME_FUNCTION_MODES else None, "max_abs_err": err,
+            "output_scale": want[..., cols].abs().max().item()}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -195,9 +268,11 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     help="checkout whose ccmh_torch is timed")
     ap.add_argument("--kernels", default="1,2",
-                    help="comma-separated kernel numbers out of 1, 2, 7, 9 (default 1,2)")
+                    help="comma-separated kernel numbers out of 1, 2, 6, 7, 9, 10 (default 1,2)")
     ap.add_argument("--merged-plans", action="store_true",
                     help="with 9: time every plan #9's entry takes")
+    ap.add_argument("--bwd-x-plans", action="store_true",
+                    help="with 6 or 10: time every plan their entries take")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not kernels <= set(KERNELS):
@@ -222,8 +297,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     for dtype in (torch.bfloat16, torch.float32):
         for tag, B, L, H, causal in SHAPES:
-            if kernels & {"7", "9"}:
-                time_variants(kernels, dtype, tag, B, L, H, causal, args.merged_plans)
+            if kernels & {"6", "7", "9", "10"}:
+                time_variants(kernels, dtype, tag, B, L, H, causal, args.merged_plans,
+                              args.bwd_x_plans)
             if not kernels & {"1", "2"}:
                 continue
             Dh = 64

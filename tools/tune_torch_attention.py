@@ -15,7 +15,12 @@ compiled with the port's nvcc flags, all variants at once.  A name that
 starts with ``fwd`` is the forward's entry, one that starts with
 ``stacked`` the ablation bench's #7 (``ccmh_attention_fwd_stacked`` of
 ``attention_fwd_stacked.cu``, at bb=16 on the same q, k, v without the
-projection bias), any other the backward's.
+projection bias), one that starts with ``bwd_x`` the bench's #6
+(``ccmh_attention_bwd_x`` of ``attention_bwd_x.cu``, without the
+projection bias, the text shape under the bench's -1e9 causal mask) in
+its spec's ``"mode"`` (default ``full``) at its ``"bb"`` (default 4),
+with ``_bwd_x_plan``'s plan or the spec's ``"groups"`` in its place, any
+other the backward's.
 
 For vision B=256 L=50 H=12 and text B=256 L=32 H=8 causal (Dh=64, with
 the projection bias), bf16 and fp32, it prints one JSON line with each
@@ -82,8 +87,14 @@ def build(variants):
     return libs
 
 
-def entry(lib, kind):
-    if kind == "stacked":
+def entry(lib, kind, n_ints=0):
+    """The kind's C entry in ``lib``; #6's takes ``n_ints`` ints after its
+    pointers (B, L, H, Dh and ``_bwd_x_entry``'s)."""
+    if kind == "bwd_x":
+        fn = lib.ccmh_attention_bwd_x
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    elif kind == "stacked":
         fn = lib.ccmh_attention_fwd_stacked
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -97,7 +108,7 @@ def entry(lib, kind):
 
 
 def kind_of(name):
-    return next((k for k in ("fwd", "stacked") if name.startswith(k)), "bwd")
+    return next((k for k in ("fwd", "stacked", "bwd_x") if name.startswith(k)), "bwd")
 
 
 def main(argv=None) -> int:
@@ -118,6 +129,7 @@ def main(argv=None) -> int:
     vs += [variant(sp["name"], sp["src"], [tuple(x) for x in sp.get("subs", [])],
                    sp.get("srcdir", CSRC)) for sp in specs]
     libs = build(vs)
+    plans = {sp["name"]: sp for sp in specs}
     dev = torch.device("cuda")
 
     def steady_ms(fn):
@@ -142,27 +154,45 @@ def main(argv=None) -> int:
             code = 0 if dtype == torch.float32 else 1
             stream = torch.cuda.current_stream().cuda_stream
             row = {"shape": tag, "dtype": str(dtype).split(".")[-1]}
+            bench_mask = bench.causal_bias(L, dev) if causal else None
             for name, _ in vs:
                 kind = kind_of(name)
-                fwd = kind != "bwd"
-                fn = entry(libs[name], kind)
+                fwd = kind in ("fwd", "stacked")
                 out = torch.empty((B, L, D) if fwd else (B, L, 3 * D), dtype=dtype, device=dev)
                 mask_ptr = None if mask is None else mask.data_ptr()
-                if kind == "stacked":
+                cols = slice(None)
+                ints = ()
+                if kind == "bwd_x":
+                    sp = plans[name]
+                    mode, bb = sp.get("mode", "full"), sp.get("bb", 4)
+                    plan = av._bwd_x_plan(mode, L, Dh, qkv.element_size(), bb,
+                                          groups=sp.get("groups"))
+                    _, _, ints = av._bwd_x_entry(mode, L, Dh, qkv.element_size(), bb, plan)
+                    bm = None if bench_mask is None else bench_mask.data_ptr()
+                    args = [0, qkv.data_ptr(), bm, g.data_ptr(), out.data_ptr(), B, L, H, Dh,
+                            *ints, 1.0 / math.sqrt(Dh), code, stream]
+                    want_x = av.backward_x_reference(qkv, bench_mask, g, H, mode).float()
+                    if mode == "fewstores":
+                        cols = slice(D, 2 * D)
+                elif kind == "stacked":
                     args = [0, qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, H, Dh, 16,
                             1.0 / math.sqrt(Dh), code, stream]
                 else:
                     args = [0, qkv.data_ptr(), qkv_b.data_ptr(), mask_ptr]
                     args += ([] if fwd else [g.data_ptr()]) + [
                         out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
+                fn = entry(libs[name], kind, 4 + len(ints))
                 err = fn(*args)
                 torch.cuda.synchronize()
                 if err:
                     row[name] = f"CUDA error {err}"
                     continue
-                want = {"fwd": want_f, "stacked": want_s, "bwd": want_b}[kind]
-                e = (out.float() - want).abs().max().item()
-                tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else scale)
+                want = want_x if kind == "bwd_x" else {"fwd": want_f, "stacked": want_s,
+                                                        "bwd": want_b}[kind]
+                e = (out[..., cols].float() - want[..., cols]).abs().max().item()
+                out_scale = max(1.0, want[..., cols].abs().max().item()) if kind == "bwd_x" \
+                    else scale
+                tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else out_scale)
                 row[name] = [1e3 * steady_ms(lambda: fn(*args)),
                              "ok" if e <= tol else f"BAD {e}"]
             f, b = bench.sdpa_yardstick(qkv + qkv_b, causal, H, (40, 240), 3)
