@@ -6,13 +6,14 @@ for Hopper: ``backward_x`` (#6, eight ablation ``mode``\\ s of the
 attention backward at a forced batch block) and ``backward_headpair``
 (#10, two heads a program) as ``ccmh_torch/csrc/attention_bwd_x.cu``;
 ``backward_savedp`` (#8, the backward from saved probabilities) as
-``ccmh_torch/csrc/attention_variants.cu``; ``backward_merged`` (#9, bb
+``ccmh_torch/csrc/attention_savedp.cu``; ``backward_merged`` (#9, bb
 batch elements as merged rows under a block-diagonal mask) as
 ``ccmh_torch/csrc/attention_merged.cu``; ``forward_stacked`` (#7, the
 forward with all heads' logits stacked before one softmax) as
-``ccmh_torch/csrc/attention_fwd_stacked.cu``.  #6, #7, #9 and #10 run on
-the tensor cores; the plans of #6/#10 (:func:`_bwd_x_plan`) and #9
-(:func:`_merged_plan`) are made here and checked by their C entries.  Each
+``ccmh_torch/csrc/attention_fwd_stacked.cu``.  All five run on the
+tensor cores; the plans of #6/#10 (:func:`_bwd_x_plan`), #8
+(:func:`_savedp_plan`) and #9 (:func:`_merged_plan`) are made here and
+checked by their C entries.  Each
 computes kernel #2's (or #1's) function with no projection bias, apart
 from the changes its ``mode`` makes (``*_reference`` spell each out step
 by step after the Pallas bodies).  ``savedp_probs`` and ``merged_mask``
@@ -47,7 +48,7 @@ backward_headpair_launches = 0   # #10
 MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
 # the modes that compute kernel #2's function (nomax: other rounding)
 SAME_FUNCTION_MODES = ("full", "stacked", "pair", "nomax")
-MAX_SEQ = 128          # keys a unit takes (#8: 4 slots of 32 a lane; #6, #10: 8 16-key tiles)
+MAX_SEQ = 128          # keys a unit takes (#6, #8, #10: 8 16-key tiles)
 MAX_MERGED_ROWS = 256  # #9: R = bb L
 MAX_HEAD_DIM = 128
 SMEM_OPTIN = 232448    # shared memory a block may take on an H100 (bytes)
@@ -332,6 +333,70 @@ def _bwd_x_entry(mode: str, L: int, Dh: int, itemsize: int, bb: int,
     return "attention_bwd_x", "ccmh_attention_bwd_x", (bb, MODES.index(mode), *plan)
 
 
+# ------------------------------------------------------------ #8's plan
+
+# the ways through csrc/attention_savedp.cu: the four operand tiles and the
+# two [L, L] tiles (the saved probabilities and dS) in shared memory, or
+# (fp32 where they do not fit) two operand tiles at a time and the dS tile,
+# the probabilities' fragments read from device memory
+SAVEDP_PATHS = ("tiles", "stream")
+
+
+class SavedpPlan(NamedTuple):
+    """How ``csrc/attention_savedp.cu`` runs #8, in its C entry's argument
+    order after bb: ``path`` (an index into :data:`SAVEDP_PATHS`),
+    ``width`` (the bytes of each copy of probability rows into shared
+    memory: 16, 8 or 4 by ``cp.async``, 2 by scalar copies of bf16) and the
+    block's shared-memory bytes."""
+    path: int
+    width: int
+    smem_bytes: int
+
+
+def _savedp_smem(L: int, Dh: int, itemsize: int, path: str) -> int:
+    """The block's shared-memory bytes (attention_savedp.cu tiles_smem,
+    stream_smem)."""
+    Lp = _pad16(L)
+    if path == "stream":
+        return (2 * Lp * _tile_ld(Dh, 4) + Lp * _tile_ld(L, 4)) * 4
+    return (4 * Lp * _tile_ld(Dh, itemsize) + 2 * Lp * _tile_ld(L, itemsize)) * itemsize
+
+
+def _savedp_width(L: int, itemsize: int, probs_ptr: int) -> int:
+    """The widest copy (bytes) that divides both the probabilities' start
+    address and a row of L values, 16, 8 or 4, else (bf16) 2: every unit's
+    [L, L] block starts a whole number of rows in, so each of its rows
+    takes the same copies (attention_savedp.cu probs_width)."""
+    return next((w for w in (16, 8, 4) if (L * itemsize) % w == 0 and probs_ptr % w == 0),
+                itemsize)
+
+
+def _savedp_plan(L: int, Dh: int, itemsize: int, probs_ptr: int = 0) -> SavedpPlan:
+    """#8's plan at L keys and head dim Dh in a type of ``itemsize`` bytes,
+    its probabilities starting at address ``probs_ptr``: the tile path
+    where its tiles fit a block's shared memory (always in bf16), else
+    (fp32 from L = 113 at Dh = 64, from L = 81 at Dh = 128) the stream
+    path.  A plan that does not fit raises."""
+    path = "tiles"
+    if itemsize == 4 and _savedp_smem(L, Dh, itemsize, path) > SMEM_OPTIN:
+        path = "stream"
+    smem = _savedp_smem(L, Dh, itemsize, path)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"#8's {path} plan for L={L}, Dh={Dh} takes {smem} bytes of shared "
+                         f"memory, over {SMEM_OPTIN}")
+    return SavedpPlan(SAVEDP_PATHS.index(path), _savedp_width(L, itemsize, probs_ptr), smem)
+
+
+def _savedp_entry(L: int, Dh: int, itemsize: int, bb: int, probs_ptr: int,
+                  plan: Optional[SavedpPlan] = None):
+    """(library, C entry, its int arguments after B, L, H, Dh) of #8: bb,
+    then ``plan`` (default :func:`_savedp_plan`'s for probabilities at
+    ``probs_ptr``)."""
+    if plan is None:
+        plan = _savedp_plan(L, Dh, itemsize, probs_ptr)
+    return "attention_savedp", "ccmh_attention_bwd_savedp", (bb, *plan)
+
+
 # ------------------------------------------------------------ checks
 
 def _check_mode(mode: str, n_head: int) -> None:
@@ -459,7 +524,8 @@ def backward_savedp(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Te
     """#8: the backward from saved probabilities.  ``probs`` [B, H, L, L]
     in qkv's type is :func:`savedp_probs` of ``qkv`` and ``bias``, built
     here when not given (a caller timing the kernel builds it once, as the
-    TPU tool's jit hoists it out of its loop); the kernel reads no mask."""
+    TPU tool's jit hoists it out of its loop); the kernel reads no mask
+    and runs :func:`_savedp_plan`'s plan, which it checks."""
     global backward_savedp_launches
     _check(qkv, bias, g, n_head, bb, "backward_savedp")
     if probs is None:
@@ -475,10 +541,16 @@ def backward_savedp(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Te
         raise ValueError("probs must be contiguous, on qkv's device")
     g = _g(g, qkv)
     dqkv = torch.empty_like(qkv)
-    _launch("attention_variants", "ccmh_attention_bwd_savedp", qkv, (qkv, probs, g, dqkv),
-            (bb,), n_head)
+    _launch_savedp(qkv, probs, g, dqkv, n_head, bb)
     backward_savedp_launches += 1
     return dqkv
+
+
+def _launch_savedp(qkv, probs, g, dqkv, n_head, bb) -> None:
+    """#8's C entry, as :func:`_savedp_entry` gives it for ``probs``."""
+    lib, name, ints = _savedp_entry(qkv.shape[1], qkv.shape[2] // 3 // n_head,
+                                    qkv.element_size(), bb, probs.data_ptr())
+    _launch(lib, name, qkv, (qkv, probs, g, dqkv), ints, n_head)
 
 
 def backward_merged(qkv: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,

@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ccmh_torch_kernels")
 
-KERNELS = ("attention", "attention_bwd", "hamming", "layernorm", "attention_variants",
+KERNELS = ("attention", "attention_bwd", "hamming", "layernorm", "attention_savedp",
            "attention_fwd_stacked", "attention_merged", "attention_bwd_x")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -32,9 +32,8 @@ plain version on one call, and each that computes kernel #2's function
 against v0 (the forwards against #1), within 3e-2 of the output scale.
 One JSON line per variant: its device time per call beside the bound (the
 bytes read once and written once at 3.35 TB/s, the operations at 989
-TFLOP/s bf16; fp32 at 495/3 TFLOP/s for the kernels that take their fp32
-products on the tensor cores as 3xTF32, #1, #2, #6, #7, #9 and #10, and at
-the 67 TFLOP/s of the CUDA cores for #8; the larger), both errors, its
+TFLOP/s bf16; fp32 at 495/3 TFLOP/s, the kernels taking their fp32
+products on the tensor cores as 3xTF32; the larger), both errors, its
 kernel's launches,
 and SDPA forward + backward minus SDPA forward (the forwards: SDPA
 forward) as the library yardstick, which the port never calls.
@@ -66,7 +65,8 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the kernels whose fp32 products run on the tensor cores as 3xTF32 (three
 # TF32 products each): a third of the 495 TFLOP/s TF32 peak
 TENSOR_CORE_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "backward_x",
-                       "forward_stacked", "backward_merged", "backward_headpair")
+                       "forward_stacked", "backward_savedp", "backward_merged",
+                       "backward_headpair")
 PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 CHECK_TOL = 3e-2
 SHAPES = (("vision ViT-B/32", 256, 50, 768, 12, False), ("text", 256, 32, 512, 8, True))

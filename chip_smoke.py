@@ -81,12 +81,12 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    fewstores on its dk slot; fp32 within 1e-4 and bf16 within 2e-2 of the
    output scale), with ms per call beside its bound, the plain version's
    ms and SDPA's where it computes the same function (all five on the
-   tensor cores but #8, timed at their C entries as min over 3 of (t_240 -
-   t_40) / 200 chained calls, the wrapper and the plan of #6, #9 and #10
-   beside; #8 through its wrapper, 10 calls); edge shapes (L=77 causal,
-   Dh=30 at an odd bb, L=1 at bb=B; #9 at R = 256, 112 and 256 with
-   Dh=128, #7 at L=77 with Dh=30, #6 ``full`` and #10 at fp32 L=Dh=128,
-   each with its path) and the
+   tensor cores, timed at their C entries as min over 3 of (t_240 -
+   t_40) / 200 chained calls, the wrapper and the plan of #6, #8, #9 and
+   #10 beside); edge shapes (L=77 causal, Dh=30 at an odd bb, L=1 at bb=B;
+   #9 at R = 256, 112 and 256 with Dh=128, #7 at L=77 with Dh=30, #6
+   ``full``, #8 and #10 at L=Dh=128 and L=120 causal, each with its path,
+   #8 with its probability copy width) and the
    refusals (odd H for ``pair`` and #10, R > 256 for #9, a bb that does
    not divide B, fp16);
 10. the token-level path with ``set_ln_impl("fused")``: ``ccmh_torch.cli.main``
@@ -1346,7 +1346,7 @@ ABLATION_SOURCES = {   # (source, the TPU kernel it replaces)
     "backward_x": ("ccmh_torch/csrc/attention_bwd_x.cu", "tools/bench_attn_bwd.py:202"),
     "forward_stacked": ("ccmh_torch/csrc/attention_fwd_stacked.cu",
                         "tools/bench_attn_bwd.py:258"),
-    "backward_savedp": ("ccmh_torch/csrc/attention_variants.cu", "tools/bench_attn_bwd.py:322"),
+    "backward_savedp": ("ccmh_torch/csrc/attention_savedp.cu", "tools/bench_attn_bwd.py:322"),
     "backward_merged": ("ccmh_torch/csrc/attention_merged.cu", "tools/bench_attn_bwd.py:404"),
     "backward_headpair": ("ccmh_torch/csrc/attention_bwd_x.cu", "tools/bench_attn_bwd.py:470"),
 }
@@ -1391,8 +1391,9 @@ def ablation_path():
     return launches
 
 
-def _variant_call(kernel, qkv, mask, g, H, bb, mode):
-    """(kernel call, plain call) of one ablation kernel on these inputs."""
+def _variant_call(kernel, qkv, mask, g, H, bb, mode, probs=None):
+    """(kernel call, plain call) of one ablation kernel on these inputs
+    (#8: from ``probs``, or the probabilities ``savedp_probs`` saves)."""
     from ccmh_torch.ops import attention_variants as av
 
     if kernel == "backward_x":
@@ -1402,7 +1403,8 @@ def _variant_call(kernel, qkv, mask, g, H, bb, mode):
         return (lambda: av.forward_stacked(qkv, mask, H, bb),
                 lambda: av.forward_stacked_reference(qkv, mask, H))
     if kernel == "backward_savedp":
-        probs = av.savedp_probs(qkv, mask, H)
+        if probs is None:
+            probs = av.savedp_probs(qkv, mask, H)
         return (lambda: av.backward_savedp(qkv, mask, g, H, bb, probs=probs),
                 lambda: av.backward_savedp_reference(qkv, probs, g, H))
     if kernel == "backward_merged":
@@ -1414,11 +1416,12 @@ def _variant_call(kernel, qkv, mask, g, H, bb, mode):
 
 
 def variant_entry(kernel, qkv, mask, g, H, bb, mode=None):
-    """A zero-argument call of #6 (in ``mode``), #7, #9 or #10 through its
+    """A zero-argument call of one of #6 (in ``mode``) - #10 through its
     C entry, with the arguments its wrapper passes (#9: ``mask`` is the
-    [R, R] merged mask, and the plan ``_merged_plan`` makes; #6 and #10:
-    the entry and arguments ``_bwd_x_entry`` gives) and a preallocated output: the kernel's
-    own time, without the wrapper's Python checks."""
+    [R, R] merged mask, and the plan ``_merged_plan`` makes; #8: ``mask``
+    is the saved probabilities; #6, #8 and #10: the entry and arguments
+    ``_bwd_x_entry`` or ``_savedp_entry`` gives) and a preallocated output:
+    the kernel's own time, without the wrapper's Python checks."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1434,6 +1437,10 @@ def variant_entry(kernel, qkv, mask, g, H, bb, mode=None):
         lib, name, ptrs, ints = ("attention_merged", "ccmh_attention_bwd_merged",
                                  (qkv, mask, g, out),
                                  (bb, *av._merged_plan(bb * L, Dh, qkv.element_size())))
+    elif kernel == "backward_savedp":
+        out = torch.empty_like(qkv)
+        lib, name, ints = av._savedp_entry(L, Dh, qkv.element_size(), bb, mask.data_ptr())
+        ptrs = (qkv, mask, g, out)
     else:
         out = torch.empty_like(qkv)
         lib, name, ints = av._bwd_x_entry(mode or "headpair", L, Dh, qkv.element_size(), bb)
@@ -1464,10 +1471,9 @@ def _variant_err(kernel, mode, got, want, D):
 def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     """One ablation kernel against its plain version at a bench shape
     (B=256, Dh=64), with ms per call beside its bound, the plain version's
-    ms and SDPA's where it computes the same function.  #6, #7, #9 and #10
-    (on the tensor cores) are timed at their C entries as min over 3 of
-    (t_240 - t_40) / 200 chained calls, the wrapper beside; the FMA kernel
-    #8 through its wrapper, 10 calls."""
+    ms and SDPA's where it computes the same function.  Each is timed at
+    its C entry as min over 3 of (t_240 - t_40) / 200 chained calls, the
+    wrapper and the plan of #6, #8, #9 and #10 beside."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -1481,7 +1487,8 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
     g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
     mask = causal_bias(L, dev) if causal else None
     tname = "float32" if dtype == torch.float32 else "bfloat16"
-    fn, plain = _variant_call(kernel, qkv, mask, g, H, bb, mode)
+    probs = av.savedp_probs(qkv, mask, H) if kernel == "backward_savedp" else None
+    fn, plain = _variant_call(kernel, qkv, mask, g, H, bb, mode, probs)
     with torch.no_grad():
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -1490,20 +1497,22 @@ def variant_case(kernel, name, L, H, causal, dtype, bb, mode, sdpa):
         check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
               f"{kernel} {mode or ''} bb={bb} {name} {tname}: max abs err {err} > "
               f"{ATTN_TOL[tname]} x {scale}")
-        timing = {}
-        if kernel != "backward_savedp":
-            m = av.merged_mask(mask, L, bb, device=dev) if kernel == "backward_merged" else mask
-            ms = steady_ms(variant_entry(kernel, qkv, m, g, H, bb, mode))
-            timing = {"wrapper_ms": steady_ms(fn), "timed": "C entry, steady"}
-            if kernel == "backward_merged":
-                plan = av._merged_plan(bb * L, Dh, qkv.element_size())
-                timing["plan"] = {"key_block": plan.key_block,
-                                  "path": av.MERGED_PATHS[plan.path],
-                                  "smem_bytes": plan.smem_bytes}
-            elif kernel != "forward_stacked":
-                timing["plan"] = bwd_x_plan(mode, L, Dh, qkv.element_size(), bb)
-        else:
-            ms = cuda_ms(fn, iters=10)
+        m = mask
+        if kernel == "backward_merged":
+            m = av.merged_mask(mask, L, bb, device=dev)
+        elif kernel == "backward_savedp":
+            m = probs
+        ms = steady_ms(variant_entry(kernel, qkv, m, g, H, bb, mode))
+        timing = {"wrapper_ms": steady_ms(fn), "timed": "C entry, steady"}
+        if kernel == "backward_merged":
+            plan = av._merged_plan(bb * L, Dh, qkv.element_size())
+            timing["plan"] = {"key_block": plan.key_block,
+                              "path": av.MERGED_PATHS[plan.path],
+                              "smem_bytes": plan.smem_bytes}
+        elif kernel == "backward_savedp":
+            timing["plan"] = savedp_plan(qkv, probs, H)
+        elif kernel != "forward_stacked":
+            timing["plan"] = bwd_x_plan(mode, L, Dh, qkv.element_size(), bb)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
     forward = kernel == "forward_stacked"
     n_bytes, n_ops = cost(kernel, B, L, H, Dh, qkv.element_size(), causal, bb, mode or "full")
@@ -1533,6 +1542,16 @@ def bwd_x_plan(mode, L, Dh, itemsize, bb) -> dict:
 
     plan = av._bwd_x_plan(mode or "headpair", L, Dh, itemsize, bb)
     return {"path": av.BWD_X_PATHS[plan.path], "groups": plan.groups,
+            "smem_bytes": plan.smem_bytes}
+
+
+def savedp_plan(qkv, probs, H) -> dict:
+    """The plan #8 takes for these probabilities, as its wrapper makes it."""
+    from ccmh_torch.ops import attention_variants as av
+
+    L, Dh = qkv.shape[1], qkv.shape[2] // 3 // H
+    plan = av._savedp_plan(L, Dh, qkv.element_size(), probs.data_ptr())
+    return {"path": av.SAVEDP_PATHS[plan.path], "width": plan.width,
             "smem_bytes": plan.smem_bytes}
 
 
@@ -1570,8 +1589,10 @@ def ablation_edges():
     causal, bb=8: four warps a tile, recomputed), R = 112 (L=56, bb=2: kept
     tiles) and R = 256 with Dh=128 (fp32: the operands streamed from device
     memory), #7 at L=77 with Dh=30 (the 128-row class on scalar loads), #6
-    in every mode and #10 at L = Dh = 128 and at L=120 causal (fp32: the
-    recompute path), each with the path it took; and the refusals: odd H for #10 and ``pair``,
+    in every mode, #8 and #10 at L = Dh = 128 and at L=120 causal (fp32:
+    #6's and #10's recompute path, #8's stream path), each with the path it
+    took (#8 at every shape, with its probability copy width); and the
+    refusals: odd H for #10 and ``pair``,
     R > 256 for #9, a bb that does not divide B, and fp16 raise and launch
     nothing."""
     import torch
@@ -1584,9 +1605,10 @@ def ablation_edges():
     shapes = ((4, 77, 8, 64, True, 2), (6, 13, 4, 30, False, 3), (5, 1, 2, 64, False, 5))
     calls = [("backward_x", m) for m in av.MODES] + [(k, None) for k in ABLATION[1:]]
     # (shape, the kernels it runs): #9's largest R, a kept R of 112 and the
-    # largest R at Dh=128, #7 at L=77 on scalar loads, #6 and #10 where fp32
-    # recomputes (L = Dh = 128, L = 120)
-    bwd_x = [("backward_x", m) for m in av.MODES] + [("backward_headpair", None)]
+    # largest R at Dh=128, #7 at L=77 on scalar loads, #6, #8 and #10 where
+    # fp32 leaves the tiles (L = Dh = 128, L = 120)
+    bwd_x = [("backward_x", m) for m in av.MODES] + [("backward_headpair", None),
+                                                     ("backward_savedp", None)]
     shapes_for = [(s, calls) for s in shapes] + [
         ((8, 32, 8, 64, True, 8), [("backward_merged", None)]),
         ((4, 56, 4, 64, False, 2), [("backward_merged", None)]),
@@ -1615,7 +1637,12 @@ def ablation_edges():
                         paths.append({"kernel": kernel, "L": L, "Dh": Dh, "dtype": tname,
                                       **bwd_x_plan(mode, L, Dh, qkv.element_size(), bb),
                                       "loads": loads})
-                    fn, plain = _variant_call(kernel, qkv, m, g, H, bb, mode)
+                    probs = None
+                    if kernel == "backward_savedp":
+                        probs = av.savedp_probs(qkv, m, H)
+                        paths.append({"kernel": kernel, "L": L, "Dh": Dh, "dtype": tname,
+                                      **savedp_plan(qkv, probs, H), "loads": loads})
+                    fn, plain = _variant_call(kernel, qkv, m, g, H, bb, mode, probs)
                     err, scale = _variant_err(kernel, mode, fn(), plain(), H * Dh)
                     check(math.isfinite(err) and err <= ATTN_TOL[tname] * scale,
                           f"{kernel} {mode} at {(B, L, H, Dh, causal, bb)} {tname}: "

@@ -411,3 +411,57 @@ def test_3xtf32_ablation_backward_sits_under_the_card_gate(shape, mode):
 def test_one_tf32_pass_breaks_the_card_gate_in_the_ablation_backward(shape, mode):
     err, gate = _bwd_x_error(shape, mode, mm_1xtf32)
     assert err > gate, (err, gate)
+
+
+# ---- the ablation kernel #8 (backward_savedp) of tools/bench_attn_bwd.py
+# (csrc/attention_savedp.cu), held to the JAX tool's Pallas kernel in
+# interpret mode.  #6 `full`'s tiles with the saved probabilities in place
+# of the S product and the softmax: dP = g v^T, dS = p (dP - sum_j dP p)
+# scale, dq = dS k, dk = dS^T q, dv = P^T g, its fp32 products as 3xTF32
+# with the split toward zero.  The probabilities are the setup input the
+# tool builds outside its pallas_call (``savedp_probs``), not the kernel's.
+
+
+def savedp_emulated(qkv, g, probs, H, mm):
+    """#8's fp32 chain from the saved ``probs`` [B, H, L, L] -> dqkv."""
+    B, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    q, k, v = qkv.reshape(B, L, 3, H, Dh).permute(2, 0, 3, 1, 4)
+    gh = g.reshape(B, L, H, Dh).permute(0, 2, 1, 3)
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    dprobs = mm(gh, v.transpose(-1, -2))
+    dlogits = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True)) * scale
+    dq = mm(dlogits, k)
+    dk = mm(dlogits.transpose(-1, -2), q)
+    dv = mm(probs.transpose(-1, -2), gh)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, L, D3)
+
+
+def _savedp_error(shape, mm):
+    """#8 at ``shape`` (BWD_X's vision and text causal widths) against the
+    tool's backward_savedp (cached)."""
+    B, L, H, Dh, causal, bb = BWD_X[shape]
+    key = ("savedp", shape)
+    if key not in _TOOL:
+        qkv, _, g = _inputs(B, L, H, Dh, seed=L + H + 8)
+        bias = np.triu(np.full((L, L), -1e9, np.float32), 1) if causal else None
+        want = jax_tool().backward_savedp(jnp.asarray(qkv), None if bias is None else
+                                          jnp.asarray(bias), jnp.asarray(g), H, bb)
+        _TOOL[key] = (qkv, g, bias, np.asarray(want))
+    qkv, g, bias, want = _TOOL[key]
+    tq = torch.from_numpy(qkv)
+    probs = av.savedp_probs(tq, None if bias is None else torch.from_numpy(bias), H)
+    got = savedp_emulated(tq, torch.from_numpy(g), probs, H, mm).numpy()
+    return float(np.abs(got - want).max()), GATE * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("shape", list(BWD_X))
+def test_3xtf32_savedp_backward_sits_under_the_card_gate(shape):
+    err, gate = _savedp_error(shape, mm_3xtf32_tz)
+    assert math.isfinite(err) and err * MARGIN <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("shape", list(BWD_X))
+def test_one_tf32_pass_breaks_the_card_gate_in_the_savedp_backward(shape):
+    err, gate = _savedp_error(shape, mm_1xtf32)
+    assert err > gate, (err, gate)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels #1 (forward) and #2 (backward), and
-the ablation bench's #6 (``backward_x``), #7 (``forward_stacked``), #9
-(``backward_merged``) and #10 (``backward_headpair``), beside SDPA at the
-towers' shapes, for the ``ccmh_torch`` package of a checkout.
+the ablation bench's #6 (``backward_x``), #7 (``forward_stacked``), #8
+(``backward_savedp``), #9 (``backward_merged``) and #10
+(``backward_headpair``), beside SDPA at the towers' shapes, for the
+``ccmh_torch`` package of a checkout.
 
-    python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,6,7,9,10]
+    python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,6,7,8,9,10]
                                           [--merged-plans] [--bwd-x-plans]
 
 ``--root`` (default: this checkout) is the directory holding the
@@ -21,17 +22,20 @@ JSON line per shape and type, with each kernel's max abs error against
 its plain version; the card's name and power limit first.
 
 ``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
-``6``, ``7``, ``9`` and ``10`` add one line per shape, type and case for
-#6 in each of its eight modes at bb=4 and ``stacked`` at bb=8, #7 at
-bb=16, #9 at bb=2 and bb=4 (R = bb L merged rows under the
+``6``, ``7``, ``8``, ``9`` and ``10`` add one line per shape, type and
+case for #6 in each of its eight modes at bb=4 and ``stacked`` at bb=8,
+#7 at bb=16, #8 at bb=4 (from the probabilities ``savedp_probs`` saves,
+built once), #9 at bb=2 and bb=4 (R = bb L merged rows under the
 block-diagonal mask) and #10 at bb=4, no projection bias, the text shape
 under the bench's -1e9 causal mask: ``entry_ms`` at the C entry,
 ``wrapper_ms``, the max abs error against the plain version (#6
 ``fewstores`` on the dk slot it writes), and SDPA's forward (#7) or
 forward + backward minus forward (the backwards that compute its
-function) on the same q, k, v.  A checkout whose entries take no plan
-(#9 before ``_merged_plan``, #6 and #10 before ``_bwd_x_plan``, then in
-``attention_variants``) is called with its own argument list and library;
+function; none for #8, which no PyTorch call computes from saved
+probabilities) on the same q, k, v.  A checkout whose entries take no
+plan (#9 before ``_merged_plan``, #6 and #10 before ``_bwd_x_plan``, #8
+before ``_savedp_plan``, each then in ``attention_variants``) is called
+with its own argument list and library;
 ``--merged-plans`` adds a line for every path #9's entry takes at each
 case (the [R, R] tiles kept, recomputed, or the operands streamed from
 device memory), ``--bwd-x-plans`` one for every plan #6's and #10's entry
@@ -51,11 +55,12 @@ import sys
 LOOPS = (40, 240)
 REPEATS = 3
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
-KERNELS = ("1", "2", "6", "7", "9", "10")
+KERNELS = ("1", "2", "6", "7", "8", "9", "10")
 BWD_X_MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
 # (kernel, bb, #6's mode)
 VARIANT_CASES = tuple(("6", 4, m) for m in BWD_X_MODES) + (
-    ("6", 8, "stacked"), ("7", 16, None), ("9", 2, None), ("9", 4, None), ("10", 4, None))
+    ("6", 8, "stacked"), ("7", 16, None), ("8", 4, None), ("9", 2, None), ("9", 4, None),
+    ("10", 4, None))
 
 
 def steady_ms(fn) -> float:
@@ -102,10 +107,10 @@ def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
 
 
 def variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan=None, out=None, mode=None):
-    """A zero-argument call of #6 (in ``mode``), #7, #9 or #10 at its C
-    entry, with the arguments its wrapper passes (#6, #9, #10: its plan, or
-    ``plan``, where the checkout has one) and a preallocated output (or
-    ``out``)."""
+    """A zero-argument call of #6 (in ``mode``), #7, #8, #9 or #10 at its
+    C entry, with the arguments its wrapper passes (#6, #8, #9, #10: its
+    plan, or ``plan``, where the checkout has one; #8: ``mask`` is the saved
+    probabilities) and a preallocated output (or ``out``)."""
     import torch
 
     B, L, D3 = qkv.shape
@@ -120,6 +125,14 @@ def variant_entry_call(av, kernel, qkv, mask, g, H, bb, plan=None, out=None, mod
             lib = "attention_variants"
             name = "ccmh_attention_bwd_x" if kernel == "6" else "ccmh_attention_bwd_headpair"
             ints = (bb, av.MODES.index(mode)) if kernel == "6" else (bb,)
+    elif kernel == "8":
+        out = torch.empty_like(qkv) if out is None else out
+        ptrs = (qkv, mask, g, out)
+        if hasattr(av, "_savedp_entry"):
+            lib, name, ints = av._savedp_entry(L, Dh, qkv.element_size(), bb, mask.data_ptr(),
+                                               plan)
+        else:   # a checkout from before the plan: the CUDA-core #8 in attention_variants
+            lib, name, ints = "attention_variants", "ccmh_attention_bwd_savedp", (bb,)
     elif kernel == "7":
         out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device) if out is None \
             else out
@@ -212,7 +225,7 @@ def time_bwd_x_plans(av, kernel, mode, qkv, mask, g, H, bb, want, row) -> None:
 
 
 def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False, bwd_x_plans=False) -> None:
-    """#6, #7, #9 and #10 at one shape and type: one JSON line per case."""
+    """#6, #7, #8, #9 and #10 at one shape and type: one JSON line per case."""
     import torch
 
     from ccmh_torch.ops import attention_variants as av
@@ -238,6 +251,10 @@ def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False, bwd_x_plans
             elif kernel == "10":
                 wrapper = lambda: av.backward_headpair(qkv, bias, g, H, bb)         # noqa: E731
                 want = av.backward_headpair_reference(qkv, bias, g, H).float()
+            elif kernel == "8":
+                mask = av.savedp_probs(qkv, bias, H)
+                wrapper = lambda: av.backward_savedp(qkv, bias, g, H, bb, probs=mask)  # noqa: E731
+                want = av.backward_savedp_reference(qkv, mask, g, H).float()
             elif kernel == "7":
                 wrapper = lambda: av.forward_stacked(qkv, bias, H, bb)        # noqa: E731
                 want = av.forward_stacked_reference(qkv, bias, H).float()
@@ -257,9 +274,10 @@ def time_variants(kernels, dtype, tag, B, L, H, causal, plans=False, bwd_x_plans
         print(json.dumps({
             **row, "B": B, "L": L, "H": H, "causal": causal, "entry_ms": entry_ms,
             "wrapper_ms": wrapper_ms,
-            "sdpa": "fwd" if kernel == "7" else "fwd+bwd minus fwd",
+            "sdpa": None if kernel == "8" else "fwd" if kernel == "7" else "fwd+bwd minus fwd",
             "sdpa_ms": (sdpa[0] if kernel == "7" else sdpa[1])
-            if mode is None or mode in av.SAME_FUNCTION_MODES else None, "max_abs_err": err,
+            if kernel != "8" and (mode is None or mode in av.SAME_FUNCTION_MODES) else None,
+            "max_abs_err": err,
             "output_scale": want[..., cols].abs().max().item()}), flush=True)
 
 
@@ -268,7 +286,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     help="checkout whose ccmh_torch is timed")
     ap.add_argument("--kernels", default="1,2",
-                    help="comma-separated kernel numbers out of 1, 2, 6, 7, 9, 10 (default 1,2)")
+                    help="comma-separated kernel numbers out of 1, 2, 6, 7, 8, 9, 10 "
+                         "(default 1,2)")
     ap.add_argument("--merged-plans", action="store_true",
                     help="with 9: time every plan #9's entry takes")
     ap.add_argument("--bwd-x-plans", action="store_true",
@@ -297,7 +316,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     for dtype in (torch.bfloat16, torch.float32):
         for tag, B, L, H, causal in SHAPES:
-            if kernels & {"6", "7", "9", "10"}:
+            if kernels & {"6", "7", "8", "9", "10"}:
                 time_variants(kernels, dtype, tag, B, L, H, causal, args.merged_plans,
                               args.bwd_x_plans)
             if not kernels & {"1", "2"}:

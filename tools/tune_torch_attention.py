@@ -19,8 +19,12 @@ projection bias), one that starts with ``bwd_x`` the bench's #6
 (``ccmh_attention_bwd_x`` of ``attention_bwd_x.cu``, without the
 projection bias, the text shape under the bench's -1e9 causal mask) in
 its spec's ``"mode"`` (default ``full``) at its ``"bb"`` (default 4),
-with ``_bwd_x_plan``'s plan or the spec's ``"groups"`` in its place, any
-other the backward's.
+with ``_bwd_x_plan``'s plan or the spec's ``"groups"`` in its place, one
+that starts with ``savedp`` the bench's #8 (``ccmh_attention_bwd_savedp``
+of ``attention_savedp.cu``, at bb=4 from the probabilities
+``savedp_probs`` saves, under the same mask) with ``_savedp_plan``'s plan,
+its shared memory grown by the spec's ``"extra_ll_tiles"`` [L, L] tiles
+(default 0), any other the backward's.
 
 For vision B=256 L=50 H=12 and text B=256 L=32 H=8 causal (Dh=64, with
 the projection bias), bf16 and fp32, it prints one JSON line with each
@@ -88,10 +92,11 @@ def build(variants):
 
 
 def entry(lib, kind, n_ints=0):
-    """The kind's C entry in ``lib``; #6's takes ``n_ints`` ints after its
-    pointers (B, L, H, Dh and ``_bwd_x_entry``'s)."""
-    if kind == "bwd_x":
-        fn = lib.ccmh_attention_bwd_x
+    """The kind's C entry in ``lib``; #6's and #8's take ``n_ints`` ints
+    after their pointers (B, L, H, Dh and ``_bwd_x_entry``'s or
+    ``_savedp_entry``'s)."""
+    if kind in ("bwd_x", "savedp"):
+        fn = lib.ccmh_attention_bwd_x if kind == "bwd_x" else lib.ccmh_attention_bwd_savedp
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     elif kind == "stacked":
@@ -108,7 +113,7 @@ def entry(lib, kind, n_ints=0):
 
 
 def kind_of(name):
-    return next((k for k in ("fwd", "stacked", "bwd_x") if name.startswith(k)), "bwd")
+    return next((k for k in ("fwd", "stacked", "bwd_x", "savedp") if name.startswith(k)), "bwd")
 
 
 def main(argv=None) -> int:
@@ -174,6 +179,17 @@ def main(argv=None) -> int:
                     want_x = av.backward_x_reference(qkv, bench_mask, g, H, mode).float()
                     if mode == "fewstores":
                         cols = slice(D, 2 * D)
+                elif kind == "savedp":
+                    sp = plans[name]
+                    probs = av.savedp_probs(qkv, bench_mask, H)
+                    item = qkv.element_size()
+                    plan = av._savedp_plan(L, Dh, item, probs.data_ptr())
+                    plan = plan._replace(smem_bytes=plan.smem_bytes + sp.get("extra_ll_tiles", 0)
+                                         * av._pad16(L) * av._tile_ld(L, item) * item)
+                    _, _, ints = av._savedp_entry(L, Dh, item, 4, probs.data_ptr(), plan)
+                    args = [0, qkv.data_ptr(), probs.data_ptr(), g.data_ptr(), out.data_ptr(), B,
+                            L, H, Dh, *ints, 1.0 / math.sqrt(Dh), code, stream]
+                    want_x = av.backward_savedp_reference(qkv, probs, g, H).float()
                 elif kind == "stacked":
                     args = [0, qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, H, Dh, 16,
                             1.0 / math.sqrt(Dh), code, stream]
@@ -187,11 +203,11 @@ def main(argv=None) -> int:
                 if err:
                     row[name] = f"CUDA error {err}"
                     continue
-                want = want_x if kind == "bwd_x" else {"fwd": want_f, "stacked": want_s,
-                                                        "bwd": want_b}[kind]
+                want = want_x if kind in ("bwd_x", "savedp") else {
+                    "fwd": want_f, "stacked": want_s, "bwd": want_b}[kind]
                 e = (out[..., cols].float() - want[..., cols]).abs().max().item()
-                out_scale = max(1.0, want[..., cols].abs().max().item()) if kind == "bwd_x" \
-                    else scale
+                out_scale = max(1.0, want[..., cols].abs().max().item()) \
+                    if kind in ("bwd_x", "savedp") else scale
                 tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else out_scale)
                 row[name] = [1e3 * steady_ms(lambda: fn(*args)),
                              "ok" if e <= tol else f"BAD {e}"]
