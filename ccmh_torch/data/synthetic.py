@@ -2,7 +2,7 @@
 ``ccmh/data/synthetic.py``; the same seed writes the same arrays, so the
 two packages train on identical data).
 
-Two forms:
+Two forms, and TwDH's centre assets (:func:`write_synthetic_twdh_assets`):
 * in-memory RawData with npy-mode images (uint8 arrays);
 * on-disk files in the reference layout (index.npy, caption.mat["caption"],
   label.mat["category"], dataset/dataloader.py:40-53).
@@ -73,3 +73,22 @@ def write_synthetic_mat_dataset(
     scio.savemat(os.path.join(out_dir, "caption.mat"), {"caption": caption_cells})
     scio.savemat(os.path.join(out_dir, "label.mat"), {"category": raw.labels})
     return out_dir
+
+
+def write_synthetic_twdh_assets(path: str, n_class: int = 8, long_bits: int = 16,
+                                short_bits: int = 8, seed: int = 0) -> str:
+    """A synthetic TwDH centre/transform ``.npz`` (one long length, one
+    short length; the layout ``losses.twdh.load_twdh_assets`` reads), for
+    tiny runs that no shipped asset fits.  With ``long_bits = 2 *
+    short_bits`` it writes the arrays ``ccmh``'s writer does."""
+    if not os.path.exists(path):
+        r = np.random.RandomState(seed)
+        np.savez(path, **{
+            f"long/{long_bits}":
+                (r.randint(0, 2, (n_class, long_bits)) * 2 - 1).astype(np.float32),
+            f"short/{short_bits}":
+                (r.randint(0, 2, (n_class, short_bits)) * 2 - 1).astype(np.float32),
+            f"trans/{long_bits}/{short_bits}":
+                r.randn(2 * long_bits, 2 * short_bits).astype(np.float32),
+        })
+    return path

@@ -290,9 +290,13 @@ class Retriever:
 
     ``params`` is the method's parameter tree of tensors (``clip`` plus the
     head trees, ``ccmh``'s layout; ``bridge.params_from_jax`` converts
-    ``ccmh``'s).  Under ``cfg.compute_dtype="bfloat16"`` the tower weights
-    are cast to bf16 once here.  Encoding runs under
-    ``torch.inference_mode()``.
+    ``ccmh``'s), ``aux`` the method's state (TwDH's BatchNorm and assets,
+    DPBE's Hessians).  TwDH's image codes normalise with the BatchNorm
+    statistics of each encoded chunk (its train-mode quirk, as ``ccmh``'s
+    Retriever encodes with no ``valid`` rows), so they depend on
+    ``batch_size`` and on the chunk's other images.  Under
+    ``cfg.compute_dtype="bfloat16"`` the tower weights are cast to bf16
+    once here.  Encoding runs under ``torch.inference_mode()``.
     """
 
     def __init__(self, method, params, aux, cfg, clip_cfg,

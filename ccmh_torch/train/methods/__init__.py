@@ -1,9 +1,8 @@
 """Method registry (port of ``ccmh/train/methods/__init__.py``).
 
-``ccmh`` registers all 14 reference methods (main.py:18-33).  The port
-lists the methods ported so far in :data:`PORTED`; asking for one of the
-others raises ``NotImplementedError`` that names what is and is not ported,
-instead of falling back to anything.
+``ccmh`` registers all 14 reference methods (main.py:18-33), and so does
+the port: :data:`PORTED` lists the modules, each defining ``METHOD``.  An
+unknown name raises ``KeyError`` instead of falling back to anything.
 """
 
 from __future__ import annotations
@@ -31,9 +30,8 @@ EXPECTED_METHODS: Dict[str, str] = {
     "dghdgh": "DGHDGH",
 }
 
-# modules of ccmh_torch.train.methods ported so far; each defines METHOD
-PORTED = ("dchmt", "dsph", "dnph_tmm", "dhaph", "dmsh_ln", "dscph", "ddwsh", "ddbh", "mith",
-          "dpsih")
+# modules of ccmh_torch.train.methods ported (all 14); each defines METHOD
+PORTED = tuple(EXPECTED_METHODS)
 
 
 def available_methods() -> List[str]:
@@ -47,12 +45,7 @@ def unported_methods() -> List[str]:
 
 
 def get_method(name: str) -> Method:
-    for mod, method_name in EXPECTED_METHODS.items():
-        if method_name != name:
-            continue
-        if mod not in PORTED:
-            raise NotImplementedError(
-                f"method {name!r} is not ported to ccmh_torch yet; ported: "
-                f"{available_methods()}, not yet ported: {unported_methods()}")
-        return importlib.import_module(f"ccmh_torch.train.methods.{mod}").METHOD
+    for mod in PORTED:
+        if EXPECTED_METHODS[mod] == name:
+            return importlib.import_module(f"ccmh_torch.train.methods.{mod}").METHOD
     raise KeyError(f"unknown method {name!r}; ported: {available_methods()}")

@@ -7,7 +7,9 @@ methods:
 * ``loss``          — CLIP forward + heads + method loss, the body of the
                       train step (``make_loss_fn`` binds the config);
 * ``encode_image``  — images -> ±1 image codes;
-* ``encode_text``   — token ids -> ±1 text codes.
+* ``encode_text``   — token ids -> ±1 text codes;
+* ``multi_encode``, ``custom_step`` — optional, as in ``ccmh`` (TwDH's
+  per-length codes, DGHDGH's sequenced step).
 
 ``ccmh`` encodes one modality by returning one output of its joint
 ``encode`` under ``jit`` and letting XLA drop the other tower.  PyTorch
@@ -50,13 +52,25 @@ class Method:
     # optional: cfg -> (q, r) -> int32 distances replacing plain Hamming
     dist_fn: Optional[Callable[[Config], Callable]] = None
     # optional: (cfg, extra) -> the optimizer of the loss-side ``extra``
-    # parameters (ccmh's extra_tx), stepped after BertAdam
-    extra_optimizer: Optional[Callable[[Config, Params], torch.optim.Optimizer]] = None
+    # parameters (ccmh's extra_tx), stepped after BertAdam; None where this
+    # config leaves them frozen (DNPH's default)
+    extra_optimizer: Optional[Callable[[Config, Params], Optional[torch.optim.Optimizer]]] = None
     features: str = "pooled"       # the towers' output mode the method reads
     needs_mask: bool = False       # batches carry key_padding_mask = ids == 0 (MITH)
     # a global gradient-norm clip of the main parameters before BertAdam's
     # per-tensor clip (DPSIH: train/DPSIH/hash_train.py:70-71, at 2.0)
     grad_clip: float = 0.0
+    # optional: (params, aux, batch {"image", "text", "valid"}, cfg, clip_cfg)
+    #   -> {name: (img ±1, txt ±1)}, the per-length codes of a multi-length
+    # method (TwDH), validated after ``valid`` (Trainer.valid_multi)
+    multi_encode: Optional[Callable[..., Dict[str, Tuple[torch.Tensor, torch.Tensor]]]] = None
+    # optional: (cfg, clip_cfg, optimizer, extra_optimizer) -> a
+    # ``(state, batch) -> (state, metrics)`` step replacing the generic one,
+    # or None to keep it (DGHDGH's three-phase sequencing)
+    custom_step: Optional[Callable] = None
+    # encode_image takes ``valid=`` [B] bool, the eval batch's real rows
+    # (TwDH's train-mode BatchNorm statistics count only those)
+    encode_takes_valid: bool = False
 
     def make_loss_fn(self, cfg: Config, clip_cfg: ClipConfig):
         """``(params, extra, aux, batch, generator) -> (loss, (aux, metrics))``."""
@@ -69,8 +83,10 @@ class Method:
 
     def encode(self, params: Params, aux: Params, batch: Dict[str, torch.Tensor],
                cfg: Config, clip_cfg: ClipConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch {"image", "text"} -> (image codes, text codes)."""
-        return (self.encode_image(params, aux, batch["image"], cfg, clip_cfg),
+        """batch {"image", "text"} (and "valid" for a method that takes it)
+        -> (image codes, text codes)."""
+        kw = ({"valid": batch.get("valid")} if self.encode_takes_valid else {})
+        return (self.encode_image(params, aux, batch["image"], cfg, clip_cfg, **kw),
                 self.encode_text(params, aux, batch["text"], cfg, clip_cfg))
 
 

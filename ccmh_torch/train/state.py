@@ -79,7 +79,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
                     extra_optimizer: Optional[torch.optim.Optimizer] = None,
-                    grad_clip: float = 0.0):
+                    grad_clip: float = 0.0, custom_step=None):
     """``(state, batch) -> (state, metrics)``: one eager step.
 
     ``loss_fn(params, extra, aux, batch, generator) -> (loss, (new_aux,
@@ -90,7 +90,11 @@ def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
     parameters by their global norm first (``ccmh`` chains
     ``clip_by_global_norm`` before BertAdam).  ``metrics`` holds detached
     device scalars, ``loss`` among them (reading them synchronises with the
-    card, so the caller decides when)."""
+    card, so the caller decides when).  ``custom_step``, a method's own
+    ``(state, batch) -> (state, metrics)`` (DGHDGH's sequenced mode, built
+    by ``Method.custom_step``), replaces the generic body."""
+    if custom_step is not None:
+        return custom_step
     optimizers = [optimizer] + ([extra_optimizer] if extra_optimizer is not None else [])
 
     def step_fn(state: TrainState, batch: Dict[str, Any]):

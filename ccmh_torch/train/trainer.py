@@ -8,18 +8,21 @@ pinned host buffers on the card), each batch runs one eager train step
 clip where it has one, BertAdam, and the method's own optimizer for its
 loss-side ``extra`` parameters where it has one, as DSPH's proxy SGD);
 the epoch rides in every batch, and a ``needs_mask`` method's batches
-carry the key-padding mask.  Then ``valid`` extracts
+carry the key-padding mask; a method with a ``custom_step`` (DGHDGH's
+sequenced mode) replaces the generic step.  Then ``valid`` extracts
 ±1 codes for the query and retrieval splits, ranks them (by Hamming
 distance, or the method's own ``dist_fn``) with the histogram mAP
 and rechecks candidates for a best epoch with the exact stable-sort mAP
 (``ccmh``'s ``_needs_exact``), keeps the best-epoch trackers, and writes
-the ``.mat`` codes, the csv and the reference's log lines.  ``--save-model``
+the ``.mat`` codes, the csv and the reference's log lines; a method with
+``multi_encode`` (TwDH) is validated at each code length after it
+(``valid_multi``).  ``--save-model``
 writes ``model-<epoch>.npz`` in ``ccmh``'s format, which both packages load.
 
 Not ported, each raising when asked for: ``--resume`` and full-state
 checkpoints, preemption on SIGTERM, ``test()`` with its PR curves,
-multi-length encoders (``multi_encode``), meshes (DP/TP/FSDP), image
-caches and device residency, remat, profiling, compilation caches.
+meshes (DP/TP/FSDP), image caches and device residency, remat, profiling,
+compilation caches.
 """
 
 from __future__ import annotations
@@ -173,18 +176,23 @@ class Trainer:
         params = trainable(params)
         self.optimizer = make_main_optimizer(cfg, params, len(self.train_loader))
         # the loss-side extra parameters train only under the method's own
-        # optimizer (ccmh's extra_tx)
+        # optimizer (ccmh's extra_tx), where it has one for this config
+        # (DNPH's proxies have none by default and stay at their init)
         self.extra_optimizer = None
         if extra is not None and self.method.extra_optimizer is not None:
-            extra = trainable(extra)
             self.extra_optimizer = self.method.extra_optimizer(cfg, extra)
+            if self.extra_optimizer is not None:
+                trainable(extra)
         self.state = TrainState(params, extra, aux, step,
                                 torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
+        custom = (self.method.custom_step(cfg, clip_cfg, self.optimizer, self.extra_optimizer)
+                  if self.method.custom_step else None)
         self.train_step = make_train_step(self.method.make_loss_fn(cfg, clip_cfg),
                                           self.optimizer, self.extra_optimizer,
-                                          grad_clip=self.method.grad_clip)
+                                          grad_clip=self.method.grad_clip, custom_step=custom)
         # the method's own ranking distance in evaluation (DPSIH), else Hamming
         self.eval_dist_fn = self.method.dist_fn(cfg) if self.method.dist_fn else None
+        self.max_multi: Dict[str, Dict[str, float]] = {}   # valid_multi's best-of
 
     def _restore(self, path: str, params, extra):
         """Weights of a ccmh-format ``.npz`` (``restore_state``'s npz branch):
@@ -271,9 +279,8 @@ class Trainer:
         with torch.inference_mode():
             for batch in loader:
                 start = time.time()
-                dev = self._put({"image": batch["image"], "text": batch["text"]})
-                img = self.method.encode_image(params, aux, dev["image"], cfg, clip_cfg)
-                txt = self.method.encode_text(params, aux, dev["text"], cfg, clip_cfg)
+                dev = self._put({k: batch[k] for k in ("image", "text", "valid")})
+                img, txt = self.method.encode(params, aux, dev, cfg, clip_cfg)
                 img, txt = img.cpu().numpy(), txt.cpu().numpy()
                 encoder_time += time.time() - start
                 if img_buf is None:
@@ -357,7 +364,52 @@ class Trainer:
                     fh.write("epoch,i2t,t2i,i2i,t2t,max_i2t,max_t2i\n")
                 fh.write(f"{epoch},{i2t},{t2i},{i2i},{t2t},"
                          f"{self.max_mapi2t},{self.max_mapt2i}\n")
+        if self.method.multi_encode is not None:
+            self.valid_multi(epoch)
         return i2t, t2i, i2i, t2t
+
+    def _get_multi_codes(self, loader: BatchIterator, length: int
+                         ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """{name: (image codes, text codes)} of a split at every code length
+        of ``multi_encode``, scattered by dataset index."""
+        buffers: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        cfg, clip_cfg, params, aux = self.cfg, self.clip_cfg, self.state.params, self.state.aux
+        with torch.inference_mode():
+            for batch in loader:
+                dev = self._put({k: batch[k] for k in ("image", "text", "valid")})
+                out = self.method.multi_encode(params, aux, dev, cfg, clip_cfg)
+                valid = batch["valid"]
+                idx = batch["index"][valid]
+                for name, codes in out.items():
+                    ic, tc = (c.cpu().numpy() for c in codes)
+                    if name not in buffers:
+                        buffers[name] = (np.zeros((length, ic.shape[1]), np.int8),
+                                         np.zeros((length, tc.shape[1]), np.int8))
+                    buffers[name][0][idx] = ic[valid]
+                    buffers[name][1][idx] = tc[valid]
+        return buffers
+
+    def valid_multi(self, epoch: int):
+        """Per-length validation of a multi-code method
+        (train/TwDH/hash_train.py:219-253 valid_each): the hist mAP quartet
+        at each length, with K + 1 distance bins for a K-bit code, its
+        best-of in the log and a ``valid_<name>`` row in metrics.jsonl."""
+        q = self._get_multi_codes(self.query_loader, len(self.query_data))
+        r = self._get_multi_codes(self.retrieval_loader, len(self.retrieval_data))
+        qL, rL = self._eval_labels_dev()
+        for name in q:
+            i2t, t2i, i2i, t2t = map(float, calc_map_4way(
+                q[name][0], q[name][1], r[name][0], r[name][1], qL, rL,
+                n_bins=q[name][0].shape[1] + 1, device=self.device))
+            best = self.max_multi.setdefault(name, {"i2t": 0.0, "t2i": 0.0})
+            best["i2t"] = max(best["i2t"], i2t)
+            best["t2i"] = max(best["t2i"], t2i)
+            self.logger.info(
+                f">>>>>> [{epoch}/{self.cfg.epochs}] [{name}] MAP(i->t): {i2t}, "
+                f"MAP(t->i): {t2i}, MAP(i->i): {i2i}, MAP(t->t): {t2t}, "
+                f"MAX i2t: {best['i2t']}, MAX t2i: {best['t2i']}")
+            self.metrics.write(f"valid_{name}", self.global_step, epoch=epoch,
+                               i2t=i2t, t2i=t2i, i2i=i2i, t2t=t2t)
 
     def test(self):
         raise NotImplementedError("Trainer.test (exact mAP with PR curves) is not yet "

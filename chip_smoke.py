@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the ccmh_torch serving and training paths on one NVIDIA card and
 check them: DCHMT serving, DCHMT training, LinearHash training with the
-LayerNorm kernels, and the token-level methods (MITH, DPSIH, DHaPH).
+LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH) and the
+methods with extra state (DNPH, DPBE, DGHDGH, TwDH).
 
     python3 chip_smoke.py
 
@@ -106,7 +107,23 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    with the kernels against plain attention and LayerNorm (losses within
    1e-5, relative gradient norm within 1e-3), and the MITH, DPSIH and
    DHaPH step ms at batch 128 in fp32 and bf16, split into forward,
-   backward and optimizer device time by CUDA events.
+   backward and optimizer device time by CUDA events;
+11. the four methods with extra state, LayerNorm kernels on, each at
+   ViT-B/32 from a random init on phase 5's dataset (batch 128, a
+   256-item train split, 2 steps and ``valid``), counters set to 0 just
+   before each run and read just after: DNPH through ``ccmh_torch.cli.main``
+   with ``--save-model`` (proxies frozen, as the reference) and again with
+   ``dnph.step_proxies``; DPBE; DGHDGH fused and ``sequenced``; TwDH at
+   K=512 with the shipped mirflickr centres and its per-length
+   ``valid_multi``.  It checks the launches of #1, #2, #4 and #5 against
+   the counts the code implies, finite losses and mAPs, every trained
+   leaf moved (the proxies only when stepped), the Hessians, BatchNorm
+   stats and J meters, and that each saved ``.npz`` serves the trainer's
+   codes (TwDH in chunks of the eval batch, whose BatchNorm statistics its
+   image codes follow).  Then each one's step ms at batch 128 in fp32 and
+   bf16 (forward, backward and optimizers by CUDA events; DGHDGH's
+   sequenced step whole) and the host ms of DNPH's two Hungarian
+   assignments.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -1002,12 +1019,13 @@ def training_path(state):
     state.update(trainer=trainer, params0=params0, train_launches=launches)
 
 
-def check_served_codes(phase, trainer, pretrained, margin_of, **cfg_kw):
+def check_served_codes(phase, trainer, pretrained, margin_of, k_bits=K_BITS, **cfg_kw):
     """The saved weights serve: ``Retriever.from_pretrained`` on
     ``pretrained`` encodes the query split to the trainer's own codes, the
-    text side as the method encodes it (MITH under its key-padding mask).
-    A bit may differ only where ``margin_of(kind, retriever, cfg, x)``, the
-    relaxed code's distance from a flip, is below MARGIN."""
+    text side as the method encodes it (MITH under its key-padding mask),
+    in chunks of BATCH.  A bit may differ only where ``margin_of(kind,
+    retriever, cfg, x)``, the relaxed code's distance from a flip, is below
+    MARGIN."""
     import torch
 
     from ccmh_torch.config import Config
@@ -1017,7 +1035,7 @@ def check_served_codes(phase, trainer, pretrained, margin_of, **cfg_kw):
     batches = list(trainer.query_loader)
     images = np.concatenate([b["image"] for b in batches])
     ids = np.concatenate([b["text"] for b in batches])
-    cfg = Config(method=trainer.cfg.method, output_dim=K_BITS,
+    cfg = Config(method=trainer.cfg.method, output_dim=k_bits,
                  max_words=trainer.cfg.max_words, pretrained=pretrained, **cfg_kw)
     retriever = Retriever.from_pretrained(cfg, device="cuda")
     differ, near = 0, 0
@@ -1936,6 +1954,242 @@ def beside_token_methods(state):
     return timings
 
 
+# -------------------------------------------------------------------- phase 11
+
+# (label, method, --set overrides, K): the four methods with extra state
+EXTRA_STATE_RUNS = (
+    ("DNPH", "DNPH", (), K_BITS),
+    ("DNPH_step_proxies", "DNPH", ("dnph.step_proxies=True",), K_BITS),
+    ("DPBE", "DPBE", (), K_BITS),
+    ("DGHDGH", "DGHDGH", (), K_BITS),
+    ("DGHDGH_sequenced", "DGHDGH", ("dghdgh.sequenced=True",), K_BITS),
+    # the shipped centres hold no 64-bit long code with short codes: 512
+    # (short 16, 32, 64); mirflickr's 24 classes fit phase 5's dataset
+    ("TwDH", "TwDH", ("twdh.center_path={twdh}",), 512),
+)
+
+
+def extra_state_launches(steps: int, eval_batches: int, clip_cfg) -> dict:
+    """The kernel launches a run of the pooled-feature methods implies:
+    #1 once per block of both towers in every forward (no key-padding
+    bias, no attention weights returned), #2 once per #1 of a train step;
+    #4 and #5 (``set_ln_impl("fused")``) once per block each.  A train step
+    runs both towers once (DGHDGH's sequenced step too: phases B and C
+    read detached codes), an eval batch encodes both towers."""
+    per_pass = clip_cfg.vision_layers + clip_cfg.transformer_layers
+    return {"fused_attention_fwd": (steps + eval_batches) * per_pass,
+            "fused_attention_bwd": steps * per_pass,
+            "fused_layer_norm": (steps + eval_batches) * per_pass,
+            "fused_add_layer_norm": (steps + eval_batches) * per_pass}
+
+
+def _extra_state_margin(trainer):
+    """The served codes' distance from a flip, per method: the relaxed
+    LinearHash code (DNPH, DGHDGH), the mean sampled code (DPBE), the
+    softmax pair gap with the chunk's BatchNorm statistics (TwDH)."""
+    from ccmh_torch.losses.dpbe import dpbe_encode_codes
+    from ccmh_torch.models.heads import linear_hash
+    from ccmh_torch.train.methods import dpbe as dpbe_method
+    from ccmh_torch.train.methods import twdh as twdh_method
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+
+    name = trainer.cfg.method
+
+    def margin(kind, retriever, cfg, x):
+        params, aux = retriever.params, retriever.aux
+        embed = (image_embeds if kind == "image" else text_embeds)(
+            params, retriever.clip_cfg, x, cfg)
+        head = "img_head" if kind == "image" else "txt_head"
+        if name == "DPBE":
+            draws = dpbe_method.encode_draws(cfg, params, embed.device)[
+                0 if kind == "image" else 1]
+            hess = aux["hessian_i" if kind == "image" else "hessian_t"]
+            return dpbe_encode_codes(embed, params[head], hess, draws).abs()
+        if name == "TwDH":
+            code = (twdh_method._image_long(params, aux, embed)[0] if kind == "image"
+                    else twdh_method._text_long(params, embed))
+            pairs = code.reshape(code.shape[0], -1, 2)
+            return (pairs[..., 1] - pairs[..., 0]).abs()
+        return linear_hash(params[head], embed).abs()
+    return margin
+
+
+def time_custom_steps(step_fn, st, batch, steps: int, warm: int) -> dict:
+    """Host ms per step of a method's own step (DGHDGH's sequenced three
+    phases) and its device ms between CUDA events around it."""
+    import torch
+
+    t_host = t_dev = 0.0
+    for i in range(warm + steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ev[0].record()
+        st, _ = step_fn(st, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            t_host += time.perf_counter() - h0
+            t_dev += ev[0].elapsed_time(ev[1])
+    return {"step_ms": 1e3 * t_host / steps, "device_ms": t_dev / steps}
+
+
+def extra_state_method(label, name, sets, k_bits, timings):
+    """One of the four methods with extra state at full width (ViT-B/32,
+    random init, batch 128 over a 256-item train split of phase 5's
+    dataset, LayerNorm kernels on): 2 train steps and ``valid`` (TwDH's
+    ``valid_multi`` too), through ``python -m ccmh_torch.cli`` with
+    ``--save-model`` for DNPH (its init as ``--pretrained``), through
+    ``Trainer`` for the others, counted launches around it.  Checks the launches against the implied count,
+    finite losses, every trained leaf moved (DNPH's proxies only with
+    ``step_proxies``), the aux state, and that the saved ``.npz`` serves
+    the trainer's codes.  Then the step ms at batch 128, fp32 and bf16."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.cli import config_from_args
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.losses import dnph_tomm
+    from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.train.trainer import Trainer
+
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    twdh = os.path.join(REPO, "ccmh_torch", "assets", "twdh", "mirflickr.npz")
+    out = os.path.join(WORK, f"{label}_out")
+    argv = ["--method", name, "--dataset", "synthetic", "--output-dim", str(k_bits),
+            "--data-dir", data, "--save-dir", out, "--epochs", "1",
+            "--batch-size", str(TRAIN_BATCH), "--query-num", str(TRAIN_QUERY),
+            # the eval batch is BATCH, the chunk the served codes take:
+            # TwDH's image codes follow their chunk's BatchNorm statistics
+            "--train-num", str(2 * TRAIN_BATCH), "--eval-batch", str(BATCH),
+            "--display-step", "1", "--num-workers", "4", "--device", "cuda"]
+    for item in sets:
+        argv += ["--set", item.format(twdh=twdh)]
+    trainer = Trainer(config_from_args(argv), clip_cfg=ClipConfig(), device="cuda")
+    start = _snapshot(trainer.state.params)
+    extra0 = _snapshot(trainer.state.extra) if trainer.state.extra is not None else {}
+    aux0 = _snapshot(trainer.state.aux)
+    via_cli = label == "DNPH"
+    if via_cli:
+        # the CLI run starts from this trainer's init, saved as --pretrained
+        init = os.path.join(WORK, "dnph_init.npz")
+        trainer.save_checkpoint(init)
+        del trainer
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(argv + ["--pretrained", init, "--save-model"])
+    else:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train_epoch(0)
+        trainer.valid(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+
+    steps = trainer.state.step
+    eval_batches = sum(-(-len(ds) // BATCH)
+                       for ds in (trainer.query_data, trainer.retrieval_data))
+    if trainer.method.multi_encode is not None:
+        eval_batches *= 2          # valid_multi encodes both splits again
+    want = extra_state_launches(steps, eval_batches, trainer.clip_cfg)
+    for kernel, n in want.items():
+        check(launches[kernel] == n, f"{label}: {launches[kernel]} launches of {kernel}, the "
+                                     f"code implies {n} ({steps} steps, {eval_batches} eval "
+                                     "batches)")
+    check(launches["hamming_distance_packed"] == 0 and all(launches[k] == 0 for k in ABLATION),
+          f"{label} launched other kernels: {launches}")
+    with open(os.path.join(trainer.cfg.save_dir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    losses = [r["loss"] for r in records if r["event"] == "train"]
+    check(steps == 2 and len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"{label}: {steps} steps, losses {losses}")
+    valid = {r["event"]: r for r in records if r["event"].startswith("valid")}
+    for event, r in valid.items():
+        check(all(0 < r[k] <= 1 for k in ("i2t", "t2i", "i2i", "t2t")), f"{label} {event} {r}")
+
+    # every trained leaf moved; TwDH's image-head v_b and out_b shift all
+    # rows alike before its BatchNorm, which removes them: no gradient
+    still = {("img_head", "v_b"), ("img_head", "out_b")} if name == "TwDH" else set()
+    moved = sum(not torch.equal(leaf.detach(), start[p])
+                for p, leaf in tree_leaves_with_path(trainer.state.params) if p not in still)
+    check(moved == len(start) - len(still), f"{label}: {moved} of {len(start) - len(still)} "
+                                            "parameter leaves moved")
+    result = {"seconds": round(seconds, 2), "step_losses": losses, "leaves_moved": moved,
+              "leaves": len(start), **launches, "launches_as_implied": want,
+              **{f"map_{e}": [r["i2t"], r["t2i"]] for e, r in valid.items()}}
+    if extra0:
+        moved_extra = _moved(extra0, trainer.state.extra)
+        frozen = label == "DNPH"       # the reference never steps their SGD
+        check(moved_extra == (0 if frozen else len(extra0)),
+              f"{label}: {moved_extra} of {len(extra0)} extra leaves moved")
+        result.update(extra_leaves_moved=moved_extra, extra_leaves=len(extra0))
+    aux = trainer.state.aux
+    if name == "DPBE":
+        moved_aux = _moved(aux0, aux)
+        check(moved_aux == len(aux0), f"DPBE: {moved_aux} of {len(aux0)} Hessian leaves moved")
+        result.update(hessian_leaves_moved=moved_aux)
+    if name == "TwDH":
+        check(int(aux["bn"]["count"]) == 2 and sorted(valid) == [
+            "valid", "valid_long", "valid_short16", "valid_short32", "valid_short64"],
+            f"TwDH: bn count {int(aux['bn']['count'])}, rows {sorted(valid)}")
+    if name == "DGHDGH":
+        check(float(aux["avg_count"]) == 2.0 and int(aux["epoch"]) == 0
+              and math.isfinite(float(aux["j_gen_avg"])), f"DGHDGH meters {aux}")
+    say("extra_state", method=label, k_bits=k_bits, **result)
+
+    saved = os.path.join(trainer.cfg.save_dir, "model-0.npz")
+    if not via_cli:
+        trainer.save_checkpoint(saved)
+    check_served_codes("extra_state", trainer, saved, _extra_state_margin(trainer),
+                       k_bits=k_bits)
+
+    # the step's time at batch 128, fp32 and bf16, LayerNorm fused
+    tr = trainer
+    batch = tr._put(next(iter(tr.train_loader)))
+    batch["epoch"] = torch.tensor(0, dtype=torch.int32, device="cuda")
+    opts = [tr.optimizer] + ([tr.extra_optimizer] if tr.extra_optimizer else [])
+    for dname, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        cfg = tr.cfg.replace(compute_dtype=dtype)
+        custom = (tr.method.custom_step(cfg, tr.clip_cfg, tr.optimizer, tr.extra_optimizer)
+                  if tr.method.custom_step else None)
+        if custom is not None:
+            timings[f"{label}_{dname}"] = time_custom_steps(custom, tr.state, batch,
+                                                            steps=4, warm=2)
+        else:
+            timings[f"{label}_{dname}"] = time_train_steps(
+                tr.method.make_loss_fn(cfg, tr.clip_cfg), tr.state, batch, opts, steps=4,
+                warm=2, grad_clip=tr.method.grad_clip)
+    if label == "DNPH":
+        # the host's share: two assignments of [128, 64] codes a step
+        codes = torch.tanh(torch.randn((TRAIN_BATCH, k_bits), device="cuda"))
+        noise = dnph_tomm.random_signs(None, TRAIN_BATCH, k_bits, "cuda")
+        timings["DNPH_hungarian_two_ms"] = 1e3 * host_s(
+            lambda: [dnph_tomm.assign_noise(codes, noise) for _ in range(2)], reps=5)
+    del trainer, tr, batch, opts
+    torch.cuda.empty_cache()
+    return launches
+
+
+def extra_state_path():
+    """Phase 11: each of EXTRA_STATE_RUNS with the LayerNorm kernels on;
+    returns the launches summed over the runs (each run counted from 0)."""
+    from ccmh_torch.clip import model as cm
+
+    total, timings = {}, {}
+    cm.set_ln_impl("fused")
+    try:
+        for label, name, sets, k_bits in EXTRA_STATE_RUNS:
+            launches = extra_state_method(label, name, sets, k_bits, timings)
+            for kernel, n in launches.items():
+                total[kernel] = total.get(kernel, 0) + n
+    finally:
+        cm.set_ln_impl("plain")
+    say("rates", extra_state_train_step_batch=TRAIN_BATCH, ln="fused", **timings)
+    return total
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2052,9 +2306,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     say("token_methods", phase_seconds=round(time.perf_counter() - t10, 1))
 
+    # the four methods with extra state (slice 11), LayerNorm kernels on:
+    # each run resets the counts just before it and reads them just after
+    t11 = time.perf_counter()
+    extra_state = extra_state_path()
+    say("launches", path="extra_state", **extra_state)
+    say("extra_state", phase_seconds=round(time.perf_counter() - t11, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
-                   "token_methods": token[k]}
+                   "token_methods": token[k], "extra_state": extra_state[k]}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

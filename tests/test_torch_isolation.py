@@ -39,6 +39,10 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.data.dataset, ccmh_torch.data.split, ccmh_torch.data.synthetic\n"
         "import ccmh_torch.utils.logger, ccmh_torch.utils.xlsx, ccmh_torch.ops.layernorm\n"
         "import ccmh_torch.ops.attention_variants, ccmh_torch.tools.bench_attn_bwd\n"
+        "import ccmh_torch.losses.dnph_tomm, ccmh_torch.losses.twdh, ccmh_torch.losses.dpbe\n"
+        "import ccmh_torch.losses.dghdgh, ccmh_torch.train.methods.dnph_tomm\n"
+        "import ccmh_torch.train.methods.twdh, ccmh_torch.train.methods.dpbe\n"
+        "import ccmh_torch.train.methods.dghdgh\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

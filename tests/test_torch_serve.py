@@ -100,18 +100,18 @@ def test_from_pretrained_checks(pair):
     with pytest.raises(ValueError, match="head"):
         Retriever.from_pretrained(Config(**_cfg(pretrained=path, output_dim=32)),
                                   device="cpu")                              # wrong K
-    with pytest.raises(NotImplementedError):
-        Retriever.from_pretrained(Config(**_cfg(pretrained=path, method="DNPH")),
-                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="pth"):
+        Retriever.from_pretrained(Config(**_cfg(pretrained=path[:-4] + ".pth")),
+                                  device="cpu")                              # unported form
 
 
 def test_registry_says_what_is_ported():
-    assert available_methods() == ["DCHMT", "DDBH", "DDWSH", "DHaPH", "DMsH_LN", "DNpH",
-                                   "DPSIH", "DSPH", "DScPH", "MITH"]
-    assert unported_methods() == ["DGHDGH", "DNPH", "DPBE", "TwDH"]
-    for name in unported_methods():
-        with pytest.raises(NotImplementedError, match="not ported.*'DSPH'"):
-            get_method(name)
+    assert available_methods() == ["DCHMT", "DDBH", "DDWSH", "DGHDGH", "DHaPH", "DMsH_LN",
+                                   "DNPH", "DNpH", "DPBE", "DPSIH", "DSPH", "DScPH", "MITH",
+                                   "TwDH"]
+    assert unported_methods() == []
+    for name in available_methods():
+        assert get_method(name).name == name
     with pytest.raises(KeyError):
         get_method("NOPE")
 
