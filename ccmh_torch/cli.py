@@ -5,11 +5,15 @@ main.py:36-46 plus argsbase.py:4-37), plus ``--device`` (default
 ``cuda``; ``cpu`` only when asked for):
 
     python -m ccmh_torch.cli --method DCHMT --dataset flickr --output-dim 64 \
-        --clip-path vitb32.npz --data-dir /data/flickr
+        --clip-path ViT-B-32.pt --data-dir /data/flickr --checkpoint-every 1
+    python -m ccmh_torch.cli ... --resume          # after a SIGTERM or a crash
+    python -m ccmh_torch.cli ... --test --pretrained model-4.npz
 
-Flags of features the port does not have yet (``--test``, ``--resume``,
-checkpoints of the full state, meshes, image caches, ...) raise
-``NotImplementedError`` from the Trainer instead of being ignored.
+``--clip-path`` takes ``.npz``, OpenAI ``.pt`` and HF directories;
+``--pretrained`` takes ``.npz``, full-state directories and reference
+``.pth`` files.  Flags of features the port does not have yet (meshes,
+image caches, remat, profiling, ...) raise ``NotImplementedError`` from
+the Trainer instead of being ignored.
 """
 
 from __future__ import annotations
@@ -85,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute-dtype", type=str, default=defaults.compute_dtype,
                         help="float32 (default) or bfloat16 towers")
 
-    # ccmh's flags for features this package does not have yet: kept so
-    # that a command line of ccmh parses, and refused by the Trainer
+    # ccmh's flags for features this package does not have yet (among the
+    # checkpoint flags below): kept so that a command line of ccmh parses,
+    # and refused by the Trainer
     unported = "not yet ported to ccmh_torch: raises NotImplementedError"
     parser.add_argument("--cache-images", dest="cache_images", action="store_true",
                         default=defaults.cache_images, help=unported)
@@ -97,11 +102,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'on' is " + unported + "; images always stream")
     parser.add_argument("--remat", action="store_true", default=defaults.remat, help=unported)
     parser.add_argument("--checkpoint-every", type=int, default=defaults.checkpoint_every,
-                        help="full-state checkpoints: " + unported)
+                        help="a full-state checkpoint every N epochs under "
+                             "<save-dir>/state_ckpt (0: none)")
     parser.add_argument("--async-checkpoint", dest="async_checkpoint",
-                        action="store_true", default=defaults.async_checkpoint, help=unported)
+                        action="store_true", default=defaults.async_checkpoint,
+                        help="write full-state checkpoints on a background thread")
     parser.add_argument("--resume", action="store_true", default=defaults.resume,
-                        help=unported)
+                        help="continue from the newest full-state checkpoint of the "
+                             "save dir, mid-epoch after a preemption")
     parser.add_argument("--profile", action="store_true", default=defaults.profile,
                         help=unported)
     parser.add_argument("--compilation-cache", type=str,

@@ -127,11 +127,19 @@ class BatchIterator:
         self.seed = seed
         self.ragged_last = ragged_last
         self._epoch = 0
+        self._start_step = 0
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle (and the caption draws) to an epoch index."""
         self._epoch = epoch
         self.dataset.epoch = epoch
+
+    def set_start_step(self, step: int) -> None:
+        """Skip the first ``step`` batches of the next iteration only; the
+        skipped batches are never assembled.  The epoch's order and caption
+        draws are functions of (seed, epoch, item), so batch ``step`` on is
+        the uninterrupted epoch's (a mid-epoch resume)."""
+        self._start_step = step
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -156,6 +164,8 @@ class BatchIterator:
         starts = list(range(0, n, self.batch_size))
         if self.drop_last and n % self.batch_size:
             starts = starts[:-1]
+        skip, self._start_step = self._start_step, 0
+        starts = starts[skip:]
 
         queue: Queue = Queue(maxsize=self.prefetch)
         sentinel = object()

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ccmh_torch.bridge import params_from_jax
-from ccmh_torch.clip.convert import infer_clip_config, load_params_npz
+from ccmh_torch.clip.convert import infer_clip_config, load_clip_params
 from ccmh_torch.clip.model import cast_clip_params
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.hamming import hamming_distance, hamming_distance_packed
@@ -317,8 +317,11 @@ class Retriever:
     @classmethod
     def from_pretrained(cls, cfg, clip_cfg=None,
                         device: DeviceLike = "cuda") -> "Retriever":
-        """Dataset-free serving construction from ``cfg.pretrained``, an
-        ``.npz`` checkpoint in ``ccmh``'s Trainer format.
+        """Dataset-free serving construction from ``cfg.pretrained``: an
+        ``.npz`` checkpoint in ``ccmh``'s Trainer format, a full-state
+        directory of the port (its weights; an orbax one of ``ccmh``
+        raises), or a reference ``model-<epoch>.pth`` (its aux buffers
+        update the method's fresh aux).
 
         The architecture is inferred from the checkpoint's shapes (``ccmh``
         takes it from ``cfg.clip_path`` or ``clip_cfg`` and defaults to
@@ -328,13 +331,13 @@ class Retriever:
             raise ValueError("from_pretrained requires cfg.pretrained")
         dev = resolve_device(device)
         method = get_method(cfg.method)
-        ckpt = load_checkpoint(cfg.pretrained)
+        ckpt = load_checkpoint(cfg.pretrained, method=cfg.method)
         tree = ckpt["params"]
         if "clip" not in tree:
             raise ValueError(f"{cfg.pretrained} holds no params/clip/... tower")
         found = infer_clip_config(tree["clip"])
         if cfg.clip_path:
-            clip_cfg = load_params_npz(cfg.clip_path, device="cpu")[1]
+            clip_cfg = load_clip_params(cfg.clip_path, device="cpu")[1]
         if clip_cfg is not None and clip_cfg != found:
             raise ValueError(
                 f"checkpoint {cfg.pretrained} holds a {found} tower but "
@@ -354,9 +357,10 @@ class Retriever:
             if want != got:
                 raise ValueError(f"checkpoint head {name!r} has shapes {got}, "
                                  f"{cfg.method} K={cfg.output_dim} needs {want}")
-        return cls(method, params_from_jax(tree, device=dev),
-                   params_from_jax(ckpt["aux"], device=dev), cfg, found,
-                   device=dev)
+        aux = params_from_jax(ckpt["aux"], device=dev)
+        if ckpt["reference"]:
+            aux = {**method.init(torch.Generator(device=dev), cfg, found)[2], **aux}
+        return cls(method, params_from_jax(tree, device=dev), aux, cfg, found, device=dev)
 
     # ------------------------------------------------------------- encoding
     def _chunked(self, fn, arr: np.ndarray, batch_size: int) -> np.ndarray:

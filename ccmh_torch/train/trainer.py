@@ -1,5 +1,5 @@
-"""Trainer: the epoch loop, validation by mAP, weights-only checkpoints
-(port of the core of ``ccmh/train/trainer.py``).
+"""Trainer: the epoch loop, validation by mAP, ``test()`` with the curves,
+checkpoints and resume (port of ``ccmh/train/trainer.py``).
 
 One device (``cuda`` unless the caller asks for ``cpu``).  Per epoch: the
 train split streams from :class:`BatchIterator` (host assembly on threads,
@@ -16,18 +16,30 @@ and rechecks candidates for a best epoch with the exact stable-sort mAP
 (``ccmh``'s ``_needs_exact``), keeps the best-epoch trackers, and writes
 the ``.mat`` codes, the csv and the reference's log lines; a method with
 ``multi_encode`` (TwDH) is validated at each code length after it
-(``valid_multi``).  ``--save-model``
-writes ``model-<epoch>.npz`` in ``ccmh``'s format, which both packages load.
+(``valid_multi``).  ``--save-model`` writes ``model-<epoch>.npz`` in
+``ccmh``'s format, which both packages load.
 
-Not ported, each raising when asked for: ``--resume`` and full-state
-checkpoints, preemption on SIGTERM, ``test()`` with its PR curves,
-meshes (DP/TP/FSDP), image caches and device residency, remat, profiling,
-compilation caches.
+``--test`` (``test()``) encodes both splits of a ``--pretrained`` model,
+reports the exact 4-way mAP and writes the codes and the PR / top-N
+curves (``ops/pr_curve.py``).  ``--checkpoint-every`` writes full-state
+slots (``train/checkpoint.py``; ``--async-checkpoint`` overlaps their
+writes), SIGTERM or :meth:`Trainer.request_preempt` saves one at the next
+step boundary and returns, and ``--resume`` continues from the newest
+slot bit for bit: the skipped batches are never assembled, and the
+trackers, the histogram-recheck ones included, come back with the state.
+``--clip-path`` reads ``.npz``, OpenAI ``.pt`` and HF directories;
+``--pretrained`` reads ``.npz``, full-state directories and reference
+``.pth`` files.
+
+Not ported, each raising when asked for: meshes (DP/TP/FSDP), image
+caches and device residency, remat, profiling, compilation caches.
 """
 
 from __future__ import annotations
 
 import os
+import signal
+import threading
 import time
 from typing import Dict, Optional, Tuple
 
@@ -36,14 +48,18 @@ import scipy.io as scio
 import torch
 
 from ccmh_torch.bridge import params_from_jax
-from ccmh_torch.clip.convert import load_params_npz
+from ccmh_torch.clip.convert import load_clip_params
 from ccmh_torch.clip.model import ClipConfig, init_clip_params
 from ccmh_torch.config import Config
 from ccmh_torch.data.dataset import BatchIterator, CrossModalDataset
 from ccmh_torch.data.split import SplitData, make_splits
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.map_metric import calc_map, calc_map_4way
-from ccmh_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from ccmh_torch.ops.pr_curve import curves, default_topn
+from ccmh_torch.train.checkpoint import (
+    AsyncStateSaver, latest_checkpoint, load_checkpoint, load_state, restore_state,
+    save_checkpoint, save_state,
+)
 from ccmh_torch.train.methods import get_method
 from ccmh_torch.train.optim import tree_leaves_with_path
 from ccmh_torch.train.state import TrainState, make_main_optimizer, make_train_step, trainable
@@ -53,10 +69,6 @@ from ccmh_torch.utils import MetricsWriter, get_logger
 def _unported(cfg: Config):
     """(setting, why) for each setting of ``cfg`` the port cannot honour."""
     checks = (
-        (not cfg.is_train, "--test (test() with PR curves)"),
-        (cfg.resume, "--resume (full-state checkpoints)"),
-        (cfg.checkpoint_every > 0, "--checkpoint-every (full-state checkpoints)"),
-        (cfg.async_checkpoint, "--async-checkpoint"),
         (cfg.profile, "--profile"),
         (bool(cfg.compilation_cache), "--compilation-cache"),
         (tuple(cfg.mesh_shape) != (1,), f"--mesh {cfg.mesh_shape} (DP/TP meshes)"),
@@ -83,7 +95,8 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         os.makedirs(cfg.save_dir, exist_ok=True)
-        self.logger = get_logger(os.path.join(cfg.save_dir, "train.log"))
+        self.logger = get_logger(os.path.join(cfg.save_dir,
+                                              "train.log" if cfg.is_train else "test.log"))
         self.metrics = MetricsWriter(os.path.join(cfg.save_dir, "metrics.jsonl"),
                                      tensorboard_dir=os.path.join(cfg.save_dir, "tensorboard"))
         self.method = get_method(cfg.method)
@@ -91,12 +104,7 @@ class Trainer:
         # the tower checkpoint fixes the image resolution, so it is read
         # before the datasets
         if clip_params is None and cfg.clip_path:
-            if not cfg.clip_path.endswith(".npz"):
-                raise NotImplementedError(
-                    f"--clip-path {cfg.clip_path}: only ccmh's .npz tower files are "
-                    "read by ccmh_torch (OpenAI .pt and HuggingFace conversion is "
-                    "not yet ported)")
-            clip_params, clip_cfg = load_params_npz(cfg.clip_path, device=self.device)
+            clip_params, clip_cfg = load_clip_params(cfg.clip_path, device=self.device)
         if clip_cfg is not None and clip_cfg.image_resolution != cfg.resolution:
             self.logger.warning(
                 f"--resolution {cfg.resolution} does not match the "
@@ -115,6 +123,8 @@ class Trainer:
         self.total_time = 0.0
         self._max_hist_i2t = self._max_hist_t2i = 0.0
         self._hist_bias = 0.0   # largest |exact - hist| seen so far
+        self._preempt = False
+        self._async_saver: Optional[AsyncStateSaver] = None
 
     # ------------------------------------------------------------------ data
     def _init_data(self, splits: Optional[SplitData]):
@@ -167,7 +177,7 @@ class Trainer:
         if cfg.pretrained:
             if not os.path.exists(cfg.pretrained):
                 raise FileNotFoundError(f"--pretrained {cfg.pretrained!r} does not exist")
-            params, extra, aux, step = self._restore(cfg.pretrained, params, extra)
+            params, extra, aux, step = self._restore(cfg.pretrained, params, extra, aux)
         if "train_labels" in aux:
             # MITH's buffer losses compare against the whole train split; the
             # labels are this run's, also after --pretrained (ccmh keeps a
@@ -194,39 +204,88 @@ class Trainer:
         self.eval_dist_fn = self.method.dist_fn(cfg) if self.method.dist_fn else None
         self.max_multi: Dict[str, Dict[str, float]] = {}   # valid_multi's best-of
 
-    def _restore(self, path: str, params, extra):
-        """Weights of a ccmh-format ``.npz`` (``restore_state``'s npz branch):
-        the params tree replaces the fresh one, and its ``extra`` tree the
-        fresh extra where it holds one; aux and step come along."""
-        ckpt = load_checkpoint(path)
-        trees = [("params", params, ckpt["params"])]
+    def _restore(self, path: str, params, extra, aux):
+        """Weights of a checkpoint (``restore_state``): an ``.npz`` or a
+        full-state directory replaces the params tree, its ``extra`` the
+        fresh extra where it holds one, and its aux and step come along; a
+        reference ``.pth`` replaces the trees it holds (the CLIP tower and
+        the method's heads) and updates aux with its buffers."""
+        ckpt = load_checkpoint(path, method=self.cfg.method)
+        saved = ckpt["params"]
+        trees = [("params", {k: params.get(k, {}) for k in saved} if ckpt["reference"] else params,
+                  saved)]
         if ckpt["extra"] is not None:
             trees.append(("extra", extra or {}, ckpt["extra"]))
-        for name, fresh, saved in trees:
+        for name, fresh, got_tree in trees:
             want = {k: tuple(v.shape) for k, v in tree_leaves_with_path(fresh)}
-            got = {k: tuple(np.shape(v)) for k, v in tree_leaves_with_path(saved)}
+            got = {k: tuple(np.shape(v)) for k, v in tree_leaves_with_path(got_tree)}
             if want != got:
                 diff = sorted(set(want.items()) ^ set(got.items()))[:6]
                 raise ValueError(f"{path} does not fit this {self.cfg.method} run "
                                  f"(K={self.cfg.output_dim}, {self.clip_cfg}): {name} {diff}")
         if ckpt["extra"] is not None:
             extra = params_from_jax(ckpt["extra"], device=self.device)
+        loaded = params_from_jax(saved, device=self.device)
+        saved_aux = params_from_jax(ckpt["aux"], device=self.device)
         self.logger.info(f"loaded checkpoint {path}")
-        return (params_from_jax(ckpt["params"], device=self.device), extra,
-                params_from_jax(ckpt["aux"], device=self.device), ckpt["step"])
+        if ckpt["reference"]:
+            return {**params, **loaded}, extra, {**aux, **saved_aux}, 0
+        return loaded, extra, saved_aux, ckpt["step"]
 
     # ------------------------------------------------------------------ train
     def run(self):
-        self.train()
+        if self.cfg.is_train:
+            self.train()
+        else:
+            self.test()
+
+    def request_preempt(self) -> None:
+        """Ask the training loop to save a full-state checkpoint at the next
+        step boundary and return.  ``train()`` routes SIGTERM here (what a
+        preempted machine or a batch scheduler sends)."""
+        self._preempt = True
 
     def train(self):
         self.logger.info("Start train.")
-        for epoch in range(self.cfg.epochs):
-            self.train_epoch(epoch)
-            if self.cfg.valid:
-                self.valid(epoch)
-            if self.cfg.save_model:
-                self.save_checkpoint(os.path.join(self.cfg.save_dir, f"model-{epoch}.npz"))
+        start_epoch, skip_steps = self.try_resume() if self.cfg.resume else (0, 0)
+        self._preempt = False
+        # SIGTERM -> a full-state slot at the next step boundary -> return;
+        # --resume continues from that step bit for bit (the shuffle and
+        # the caption draws are functions of (seed, epoch, item))
+        in_main = threading.current_thread() is threading.main_thread()
+        old_handler = None
+        if in_main:
+            def on_sigterm(signum, frame):
+                self.logger.info("SIGTERM: checkpointing at the next step boundary")
+                self.request_preempt()
+
+            old_handler = signal.signal(signal.SIGTERM, on_sigterm)
+        try:
+            for epoch in range(start_epoch, self.cfg.epochs):
+                if not self.train_epoch(epoch, skip_steps=skip_steps):
+                    return          # preempted mid-epoch: the slot is written
+                skip_steps = 0
+                if self._preempt:
+                    # the signal landed on the epoch's last step: the slot
+                    # records the whole epoch as done, so the resumed run
+                    # still validates and saves it (ccmh resumes after it)
+                    self.save_full_checkpoint(epoch, step_in_epoch=len(self.train_loader))
+                    self.logger.info(f"preempted after epoch {epoch}'s steps; rerun with "
+                                     "--resume")
+                    return
+                if self.cfg.valid:
+                    self.valid(epoch)
+                if self.cfg.save_model:
+                    self.save_checkpoint(os.path.join(self.cfg.save_dir, f"model-{epoch}.npz"))
+                if self.cfg.checkpoint_every and (epoch + 1) % self.cfg.checkpoint_every == 0:
+                    self.save_full_checkpoint(epoch)
+        finally:
+            # every way out finalises a pending asynchronous write
+            if self._async_saver is not None:
+                self._async_saver.close()
+                self._async_saver = None
+            if in_main:
+                signal.signal(signal.SIGTERM, old_handler)
         self.logger.info(
             f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
             f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
@@ -242,10 +301,18 @@ class Trainer:
             out[k] = t
         return out
 
-    def train_epoch(self, epoch: int) -> None:
+    def train_epoch(self, epoch: int, skip_steps: int = 0) -> bool:
+        """One epoch, entered after its first ``skip_steps`` batches on a
+        mid-epoch resume.  Returns False when preempted: a full-state slot
+        tagged with the step is on disk."""
         cfg = self.cfg
         self.logger.info(f">>>>>> epochs: {epoch}/{cfg.epochs}")
         self.train_loader.set_epoch(epoch)
+        if skip_steps:
+            self.train_loader.set_start_step(skip_steps)
+            self.logger.info(f"mid-epoch resume: fast-forwarding {skip_steps} steps")
+        step_in_epoch = skip_steps
+        n_steps = len(self.train_loader)
         losses = []
         start = time.time()
         # the epoch rides in every train batch as a device scalar (DMsH_LN's
@@ -256,17 +323,25 @@ class Trainer:
             batch["epoch"] = epoch_scalar
             self.state, metrics = self.train_step(self.state, batch)
             self.global_step += 1
+            step_in_epoch += 1
             losses.append(metrics["loss"])
             if self.global_step % cfg.display_step == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 self.logger.info(f">>>>>> Display >>>>>> [{epoch}/{cfg.epochs}] {m}")
                 self.metrics.write("train", self.global_step, **m)
+            if self._preempt and step_in_epoch < n_steps:
+                self.total_time += time.time() - start
+                self.save_full_checkpoint(epoch, step_in_epoch=step_in_epoch)
+                self.logger.info(f"preempted at epoch {epoch} step {step_in_epoch}/{n_steps}; "
+                                 "rerun with --resume to continue from this step")
+                return False
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.total_time += time.time() - start
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         self.logger.info(
             f">>>>>> [{epoch}/{cfg.epochs}] loss: {mean_loss}, time: {self.total_time}")
+        return True
 
     # ------------------------------------------------------------------- eval
     def get_code(self, loader: BatchIterator, length: int
@@ -411,9 +486,45 @@ class Trainer:
             self.metrics.write(f"valid_{name}", self.global_step, epoch=epoch,
                                i2t=i2t, t2i=t2i, i2i=i2i, t2t=t2t)
 
-    def test(self):
-        raise NotImplementedError("Trainer.test (exact mAP with PR curves) is not yet "
-                                  "ported to ccmh_torch")
+    def test(self, mode_name: str = "i2t"):
+        """The exact 4-way mAP of the ``--pretrained`` model (the method's
+        ``dist_fn`` where it has one), the codes as ``PR_cruve/<K>-ours-
+        <dataset>-<mode_name>.mat`` and the curves as ``curves-{i2t,t2i}.mat``.
+        ``test_seconds`` keeps the encode, mAP and curve seconds."""
+        if not self.cfg.pretrained:
+            raise RuntimeError("test requires --pretrained (train/base.py:278)")
+        t0 = time.perf_counter()
+        q_img, q_txt, _ = self.get_code(self.query_loader, len(self.query_data))
+        r_img, r_txt, _ = self.get_code(self.retrieval_loader, len(self.retrieval_data))
+        t1 = time.perf_counter()
+        qL, rL = self._eval_labels_dev()
+        i2t, t2i, i2i, t2t = map(float, calc_map_4way(
+            q_img, q_txt, r_img, r_txt, qL, rL, method="exact", dist_fn=self.eval_dist_fn,
+            n_bins=self.cfg.output_dim + 1, device=self.device))
+        t2 = time.perf_counter()
+        self.logger.info(
+            f">>>>>> MAP(i->t): {i2t}, MAP(t->i): {t2i}, MAP(t->t): {t2t}, MAP(i->i): {i2i}")
+        self.save_mat(q_img, q_txt, r_img, r_txt, mode_name=mode_name)
+        t3 = time.perf_counter()
+        self.save_pr_curves(q_img, q_txt, r_img, r_txt)
+        self.test_seconds = {"encode": t1 - t0, "exact_map": t2 - t1,
+                             "curves": time.perf_counter() - t3}
+        return i2t, t2i, i2i, t2t
+
+    def save_pr_curves(self, q_img, q_txt, r_img, r_txt):
+        """The PR and top-N precision curves of both directions, each from
+        one histogram pass on the device, as ``PR_cruve/curves-<dir>.mat``
+        beside the code dumps (the reference stops at the dumps)."""
+        save_dir = os.path.join(self.cfg.save_dir, "PR_cruve")
+        os.makedirs(save_dir, exist_ok=True)
+        ns = default_topn(len(self.retrieval_labels))
+        kw = dict(device=self.device)
+        if self.eval_dist_fn is not None:
+            kw.update(dist_fn=self.eval_dist_fn, max_dist=self.cfg.output_dim)
+        for name, (qB, rB) in (("i2t", (q_img, r_txt)), ("t2i", (q_txt, r_img))):
+            scio.savemat(os.path.join(save_dir, f"curves-{name}.mat"),
+                         curves(qB, rB, self.query_labels, self.retrieval_labels, ns, **kw))
+        self.logger.info(f">>>>>> save PR/topN curves to {save_dir}")
 
     def save_mat(self, q_img, q_txt, r_img, r_txt, mode_name="i2t"):
         """.mat export interoperable with reference tooling (train/base.py:328-349)."""
@@ -434,3 +545,61 @@ class Trainer:
         save_checkpoint(path, st.params, extra=st.extra, aux=st.aux, step=np.int32(st.step))
         self.logger.info(f"save model to {path}")
 
+
+    def save_full_checkpoint(self, epoch: int, step_in_epoch: int = 0):
+        """A full-state slot (``train/checkpoint.py``) of ``epoch``: the
+        state, both optimizers, the step generator and the trackers.
+        ``step_in_epoch`` > 0 marks a preemption slot of the epoch in
+        progress.  With ``--async-checkpoint`` the write overlaps the steps
+        after it; ``train()`` waits for it on every way out."""
+        root = os.path.join(self.cfg.save_dir, "state_ckpt")
+        args = (root, self.state, self.optimizer, self.extra_optimizer, epoch,
+                self._tracker_meta(step_in_epoch))
+        if self.cfg.async_checkpoint:
+            if self._async_saver is None:
+                self._async_saver = AsyncStateSaver()
+            self._async_saver.save(*args)
+        else:
+            save_state(*args)
+        at = f" (step {step_in_epoch})" if step_in_epoch else ""
+        self.logger.info(f"full-state checkpoint @ epoch {epoch}{at}")
+
+    def _tracker_meta(self, step_in_epoch: int = 0) -> Dict[str, float]:
+        """The trackers a slot carries.  step_in_epoch > 0 marks a
+        preemption slot: a resume re-enters its epoch after that many steps
+        (all of them when the signal landed on the epoch's last step, so
+        the resumed run still validates and saves it).  The hist trackers
+        make a resumed run take the uninterrupted run's exact-recheck
+        decisions; ``ccmh`` does not save them."""
+        return {"max_mapi2t": self.max_mapi2t, "max_mapt2i": self.max_mapt2i,
+                "best_epoch_i": float(self.best_epoch_i),
+                "best_epoch_t": float(self.best_epoch_t),
+                "total_time": self.total_time, "step_in_epoch": float(step_in_epoch),
+                "max_hist_i2t": self._max_hist_i2t, "max_hist_t2i": self._max_hist_t2i,
+                "hist_bias": self._hist_bias}
+
+    def try_resume(self) -> Tuple[int, int]:
+        """Restore the newest slot of ``save_dir/state_ckpt``, if any.
+        Returns (start_epoch, skip_steps): skip_steps > 0 re-enters the
+        slot's epoch after that many steps."""
+        path = latest_checkpoint(self.cfg.save_dir)
+        if path is None:
+            return 0, 0
+        tree = load_state(path)
+        restore_state(tree, self.state, self.optimizer, self.extra_optimizer)
+        meta, epoch = tree["meta"], int(tree["epoch"])
+        self.max_mapi2t = meta.get("max_mapi2t", 0.0)
+        self.max_mapt2i = meta.get("max_mapt2i", 0.0)
+        self.best_epoch_i = int(meta.get("best_epoch_i", 0))
+        self.best_epoch_t = int(meta.get("best_epoch_t", 0))
+        self.total_time = meta.get("total_time", 0.0)
+        self._max_hist_i2t = meta.get("max_hist_i2t", 0.0)
+        self._max_hist_t2i = meta.get("max_hist_t2i", 0.0)
+        self._hist_bias = meta.get("hist_bias", 0.0)
+        self.global_step = self.state.step
+        skip = int(meta.get("step_in_epoch", 0))
+        if skip:
+            self.logger.info(f"resumed from {path} (mid-epoch {epoch}, step {skip})")
+            return epoch, skip
+        self.logger.info(f"resumed from {path} (completed epoch {epoch})")
+        return epoch + 1, 0

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the ccmh_torch serving and training paths on one NVIDIA card and
 check them: DCHMT serving, DCHMT training, LinearHash training with the
-LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH) and the
-methods with extra state (DNPH, DPBE, DGHDGH, TwDH).
+LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH), the
+methods with extra state (DNPH, DPBE, DGHDGH, TwDH), and the lifecycle
+of a model (tower import, preemption and resume, ``--test``, export).
 
     python3 chip_smoke.py
 
@@ -123,7 +124,28 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    image codes follow).  Then each one's step ms at batch 128 in fp32 and
    bf16 (forward, backward and optimizers by CUDA events; DGHDGH's
    sequenced step whole) and the host ms of DNPH's two Hungarian
-   assignments.
+   assignments;
+12. the lifecycle, LayerNorm kernels on, counters set to 0 just before
+   each run and read just after: a seeded ViT-B/32 init written as an
+   OpenAI-layout ``.pt`` and read back through ``--clip-path`` bit for
+   bit; DSPH K=64 fp32 through ``ccmh_torch.cli.main`` on phase 5's
+   dataset (batch 128, 2 epochs of 4 steps, ``valid``, ``--save-model``,
+   ``--checkpoint-every 1``): run A twice (the two must end in the same
+   bits), run B cut by a real SIGTERM after global step 5 and resumed with
+   ``--resume``, run C the same with ``--async-checkpoint`` cut at epoch
+   0's last step; B and C held to A bit for bit (parameters, ``extra``,
+   ``aux``, both optimizers, the generator, the step, the trackers, every
+   ``train`` and ``valid`` row); then ``--test --pretrained`` A's
+   ``model-1.npz``: the exact mAPs within 4 ulps of the plain CPU
+   computation on the dumped codes, the histograms on the card equal to
+   the CPU's, the curve files and ``python -m ccmh_torch.ops.pr_curve``'s
+   within 1e-12 of ``ops.pr_curve`` on the CPU; ``python -m
+   ccmh_torch.clip.export_ref`` of A's ``.npz`` to a reference ``.pth``,
+   whose ``--test`` codes equal the ``.npz``'s.  The launches of #1, #2,
+   #4, #5 equal the counts the code implies, none for a skipped step.  It
+   prints the bytes of one slot, the ms a synchronous and an asynchronous
+   save block the loop, a resume's load ms and ``test()``'s encode, mAP
+   and curve ms.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -2190,6 +2212,322 @@ def extra_state_path():
     return total
 
 
+# -------------------------------------------------------------------- phase 12
+
+LIFECYCLE_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "fused_layer_norm",
+                     "fused_add_layer_norm")
+# metrics.jsonl fields that are host timings, not results
+TIMING_FIELDS = ("time", "q_encoder_time", "r_encoder_time")
+
+
+def _tree_diff(got, want, path="") -> list:
+    """Paths where two trees (dicts, lists, tensors, numbers) differ."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path]
+        return [d for k in want for d in _tree_diff(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [path]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _tree_diff(g, w, f"{path}[{i}]")]
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and got.shape == want.shape
+                and got.dtype == want.dtype and torch.equal(got, want))
+        return [] if same else [path]
+    return [] if got == want else [path]
+
+
+def _float_spread(got, want) -> float:
+    """The largest |got - want| over two trees' float tensors."""
+    import torch
+
+    if isinstance(want, dict):
+        return max([_float_spread(got[k], want[k]) for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        return max([_float_spread(g, w) for g, w in zip(got, want)] or [0.0])
+    if isinstance(want, torch.Tensor) and want.is_floating_point():
+        return float((got.double() - want.double()).abs().max()) if want.numel() else 0.0
+    return 0.0
+
+
+def _final_slot(save_dir):
+    """The run's last full-state slot, its timing tracker set aside."""
+    from ccmh_torch.train.checkpoint import load_state
+
+    tree = load_state(os.path.join(save_dir, "state_ckpt"))
+    tree["meta"].pop("total_time")
+    return tree
+
+
+def _metric_rows(save_dir):
+    with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+        return [{k: v for k, v in r.items() if k not in TIMING_FIELDS}
+                for r in map(json.loads, fh)]
+
+
+def _lifecycle_run(argv, timings, cut_at=None):
+    """``ccmh_torch.cli.main(argv)`` in-process with its launches counted;
+    ``cut_at`` sends this process a SIGTERM once global step ``cut_at`` is
+    done.  The blocking ms of every full-state save and of the resume's
+    load go into ``timings``."""
+    import signal
+
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.train import trainer as trainer_mod
+
+    make = trainer_mod.make_train_step
+    save, resume = trainer_mod.Trainer.save_full_checkpoint, trainer_mod.Trainer.try_resume
+
+    def make_cut(*args, **kw):
+        inner = make(*args, **kw)
+
+        def step_fn(state, batch):
+            state, metrics = inner(state, batch)
+            if state.step == cut_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return state, metrics
+        return step_fn
+
+    def timed(fn, key):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            timings.setdefault(key, []).append(round(1e3 * (time.perf_counter() - t0), 1))
+            return out
+        return run
+
+    key = "async_save_block_ms" if "--async-checkpoint" in argv else "sync_save_block_ms"
+    trainer_mod.make_train_step = make_cut if cut_at else make
+    trainer_mod.Trainer.save_full_checkpoint = timed(save, key)
+    trainer_mod.Trainer.try_resume = timed(resume, "resume_load_ms")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.make_train_step = make
+        trainer_mod.Trainer.save_full_checkpoint = save
+        trainer_mod.Trainer.try_resume = resume
+    return trainer, read_counts(), time.perf_counter() - t0
+
+
+def _lifecycle_launches(steps: int, eval_batches: int) -> dict:
+    from ccmh_torch.clip.model import ClipConfig
+
+    return extra_state_launches(steps, eval_batches, ClipConfig())
+
+
+def _check_launches(what, launches, want):
+    for kernel in LIFECYCLE_KERNELS:
+        check(launches[kernel] == want[kernel], f"lifecycle {what}: {launches[kernel]} launches "
+                                                f"of {kernel}, the code implies {want[kernel]}")
+    others = {k: n for k, n in launches.items() if k not in LIFECYCLE_KERNELS and n}
+    check(not others, f"lifecycle {what} launched other kernels: {others}")
+
+
+def _test_maps(save_dir):
+    import re
+
+    with open(os.path.join(save_dir, "test.log")) as fh:
+        found = re.findall(r"MAP\(i->t\): (\S+), MAP\(t->i\): (\S+), MAP\(t->t\): (\S+), "
+                           r"MAP\(i->i\): (\S+)$", fh.read(), re.M)
+    check(len(found) == 1, f"test.log holds {len(found)} mAP lines")
+    return np.asarray(found[0], np.float64).astype(np.float32)      # i2t, t2i, t2t, i2i
+
+
+def lifecycle_path():
+    """Phase 12: a tower imported from an OpenAI-layout ``.pt``, DSPH
+    trained (run A, twice), preempted by SIGTERM and resumed (B; C with
+    asynchronous saves, preempted at an epoch's last step), each held to A
+    bit for bit; ``--test`` on A's ``.npz`` with its exact mAP and curves
+    held to the plain CPU computation; A exported to a reference ``.pth``
+    and tested again.  LayerNorm kernels on; returns the summed launches."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.clip.convert import load_clip_params
+    from ccmh_torch.clip.export_ref import export_clip_state_dict
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.ops.map_metric import calc_map_4way
+    from ccmh_torch.ops.pr_curve import compute_hists, curves, default_topn
+    from ccmh_torch.train.checkpoint import load_state
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    work = os.path.join(WORK, "lifecycle")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    timings, total = {}, {}
+
+    def add(launches):
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+
+    # 1. the random init as an OpenAI-layout .pt, read back through --clip-path
+    tower = os.path.join(work, "tower.pt")
+    clip0 = init_clip_params(torch.Generator(device="cuda").manual_seed(12), ClipConfig())
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                export_clip_state_dict(clip0, prefix="").items()}, tower)
+    loaded, cfg = load_clip_params(tower, device="cuda")
+    check(cfg == ClipConfig(), f"lifecycle: the tower .pt reads as {cfg}")
+    want = dict(tree_leaves_with_path(clip0))
+    check(all(torch.equal(leaf, want[p]) for p, leaf in tree_leaves_with_path(loaded))
+          and len(want) == len(dict(tree_leaves_with_path(loaded))),
+          "lifecycle: the tower read from the .pt differs from the init")
+    del loaded, clip0, want
+
+    base = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--epochs", "2", "--batch-size", str(TRAIN_BATCH),
+            "--query-num", str(TRAIN_QUERY), "--train-num", str(TRAIN_SPLIT),
+            "--eval-batch", str(BATCH), "--clip-path", tower, "--display-step", "1",
+            "--num-workers", "4", "--device", "cuda"]
+    train = base + ["--checkpoint-every", "1", "--save-model"]
+
+    def run_dir(name):
+        return os.path.join(work, name, "DSPH", "synthetic", str(K_BITS))
+
+    steps_per_epoch = TRAIN_SPLIT // TRAIN_BATCH
+    eval_batches = -(-TRAIN_QUERY // BATCH) + -(-(TRAIN_ITEMS - TRAIN_QUERY) // BATCH)
+    cm.set_ln_impl("fused")
+    try:
+        # 2. run A, uninterrupted, twice: the card's step is deterministic
+        # when the two end in the same bits
+        results = {}
+        for name in ("A", "A2"):
+            _, launches, seconds = _lifecycle_run(
+                train + ["--save-dir", os.path.join(work, name)], timings)
+            _check_launches(name, launches, _lifecycle_launches(2 * steps_per_epoch,
+                                                                2 * eval_batches))
+            add(launches)
+            results[name] = round(seconds, 2)
+        slot_a, rows_a = _final_slot(run_dir("A")), _metric_rows(run_dir("A"))
+        slot_bytes = os.path.getsize(os.path.join(run_dir("A"), "state_ckpt", "e000001",
+                                                  "state.pt"))
+        slot_a2 = _final_slot(run_dir("A2"))
+        diff = _tree_diff(slot_a2, slot_a) + (["metrics.jsonl"]
+                                              if _metric_rows(run_dir("A2")) != rows_a else [])
+        say("lifecycle", run="A twice", seconds=[results["A"], results["A2"]],
+            differing=diff[:8], spread=_float_spread(slot_a2, slot_a))
+        check(not diff, f"lifecycle: two uninterrupted runs differ at {diff[:8]}")
+        del slot_a2
+        shutil.rmtree(os.path.join(work, "A2"))
+
+        # 3-4. B: SIGTERM after global step 5 (epoch 1 step 1), synchronous
+        # saves; C: asynchronous saves, SIGTERM at epoch 0's last step
+        for name, flags, cut, where in (("B", [], steps_per_epoch + 1, (1, 1)),
+                                        ("C", ["--async-checkpoint"], steps_per_epoch,
+                                         (0, steps_per_epoch))):
+            argv = train + flags + ["--save-dir", os.path.join(work, name)]
+            cut_tr, cut_launches, cut_s = _lifecycle_run(argv, timings, cut_at=cut)
+            check(cut_tr.state.step == cut, f"lifecycle {name}: train() ran on to step "
+                                            f"{cut_tr.state.step} after the SIGTERM")
+            slot = load_state(os.path.join(run_dir(name), "state_ckpt"))
+            got = (slot["epoch"], int(slot["meta"]["step_in_epoch"]))
+            check(got == where, f"lifecycle {name}: the preemption slot is (epoch, step) {got}, "
+                                f"not {where}")
+            del cut_tr, slot
+            torch.cuda.empty_cache()
+            res_tr, res_launches, res_s = _lifecycle_run(argv + ["--resume"], timings)
+            with open(os.path.join(run_dir(name), "train.log")) as fh:
+                check(f"fast-forwarding {where[1]} steps" in fh.read(),
+                      f"lifecycle {name}: the resumed run did not fast-forward")
+            # before the cut: `cut` steps and epoch 0's valid when it was
+            # reached; after: the remaining steps, no launch for the skipped
+            valid_before = 1 if cut > steps_per_epoch else 0
+            _check_launches(f"{name} cut", cut_launches,
+                            _lifecycle_launches(cut, valid_before * eval_batches))
+            _check_launches(f"{name} resumed", res_launches, _lifecycle_launches(
+                2 * steps_per_epoch - cut, (2 - valid_before) * eval_batches))
+            add(cut_launches)
+            add(res_launches)
+            slot_x = _final_slot(run_dir(name))
+            diff = _tree_diff(slot_x, slot_a) + (
+                ["metrics.jsonl"] if _metric_rows(run_dir(name)) != rows_a else [])
+            check(not diff, f"lifecycle {name}: the resumed run differs from A at {diff[:8]}")
+            say("lifecycle", run=name, cut_at_step=cut, slot=list(where),
+                cut_s=round(cut_s, 2), resumed_s=round(res_s, 2),
+                equal_to_A="params, extra, aux, both optimizers, generator, step, meta, "
+                           "every train and valid row")
+            del res_tr, slot_x
+            torch.cuda.empty_cache()
+            shutil.rmtree(os.path.join(work, name))
+        del slot_a
+
+        # 6. --test on A's .npz: the exact mAP and the curves against the
+        # plain CPU computation on the dumped codes, and the curves CLI
+        model = os.path.join(run_dir("A"), "model-1.npz")
+        test_tr, test_launches, test_s = _lifecycle_run(
+            base + ["--test", "--pretrained", model, "--save-dir", os.path.join(work, "T")],
+            timings)
+        _check_launches("--test", test_launches, _lifecycle_launches(0, eval_batches))
+        add(test_launches)
+        test_dir = run_dir("T")
+        maps = _test_maps(test_dir)
+        mat_path = os.path.join(test_dir, "PR_cruve", f"{K_BITS}-ours-synthetic-i2t.mat")
+        import scipy.io as scio
+
+        mat = scio.loadmat(mat_path)
+        plain = np.asarray([float(x) for x in calc_map_4way(
+            mat["q_img"], mat["q_txt"], mat["r_img"], mat["r_txt"], mat["q_l"], mat["r_l"],
+            method="exact", n_bins=K_BITS + 1, device="cpu")], np.float32)[[0, 1, 3, 2]]
+        ulps = np.abs(maps.view(np.int32) - plain.view(np.int32))
+        check(np.all(ulps <= 4), f"lifecycle --test: exact mAPs {maps} vs plain CPU {plain}")
+        ns = default_topn(mat["r_l"].shape[0])
+        cli_out = os.path.join(work, "cli-curves.mat")
+        out = subprocess.run([sys.executable, "-m", "ccmh_torch.ops.pr_curve", mat_path,
+                              "--direction", "i2t", "-o", cli_out], capture_output=True,
+                             text=True, timeout=300, cwd=REPO)
+        check(out.returncode == 0, f"python -m ccmh_torch.ops.pr_curve failed: {out.stderr}")
+        for direction, q, r in (("i2t", "q_img", "r_txt"), ("t2i", "q_txt", "r_img")):
+            hists_cpu = compute_hists(mat[q], mat[r], mat["q_l"], mat["r_l"], device="cpu")
+            hists_gpu = compute_hists(mat[q], mat[r], mat["q_l"], mat["r_l"], device="cuda")
+            check(all(np.array_equal(a, b) for a, b in zip(hists_cpu, hists_gpu)),
+                  f"lifecycle: {direction} histograms on the card differ from the CPU's")
+            want = curves(mat[q], mat[r], mat["q_l"], mat["r_l"], ns, device="cpu")
+            files = [os.path.join(test_dir, "PR_cruve", f"curves-{direction}.mat")]
+            files += [cli_out] if direction == "i2t" else []
+            for path in files:
+                got = scio.loadmat(path)
+                for key in ("precision", "recall", "p_at_n"):
+                    err = float(np.abs(got[key].ravel() - want[key]).max())
+                    check(err <= 1e-12, f"lifecycle: {os.path.basename(path)} {key} is {err} "
+                                        "from the CPU's")
+                check(np.array_equal(got["topn"].ravel(), want["topn"]), "topn")
+        codes = {k: mat[k] for k in ("q_img", "q_txt", "r_img", "r_txt")}
+        test_seconds = {k: round(1e3 * v, 1) for k, v in test_tr.test_seconds.items()}
+        del test_tr
+
+        # 7. A's .npz as a reference .pth through the export CLI, tested again
+        pth = os.path.join(work, "m.pth")
+        out = subprocess.run([sys.executable, "-m", "ccmh_torch.clip.export_ref", model,
+                              "--method", "DSPH", "--output-dim", str(K_BITS), "-o", pth],
+                             capture_output=True, text=True, timeout=300, cwd=REPO)
+        check(out.returncode == 0, f"python -m ccmh_torch.clip.export_ref failed: {out.stderr}")
+        _, pth_launches, _ = _lifecycle_run(
+            base + ["--test", "--pretrained", pth, "--save-dir", os.path.join(work, "P")],
+            timings)
+        _check_launches("--test .pth", pth_launches, _lifecycle_launches(0, eval_batches))
+        add(pth_launches)
+        got = scio.loadmat(os.path.join(run_dir("P"), "PR_cruve",
+                                        f"{K_BITS}-ours-synthetic-i2t.mat"))
+        check(all(np.array_equal(got[k], v) for k, v in codes.items()),
+              "lifecycle: the .pth's codes differ from the .npz's")
+        check(np.array_equal(_test_maps(run_dir("P")), maps), "lifecycle: the .pth's mAPs differ")
+    finally:
+        cm.set_ln_impl("plain")
+    say("lifecycle", run="test", maps_i2t_t2i_t2t_i2i=maps.tolist(), ulps_to_plain=ulps.tolist(),
+        pth_codes="equal to the .npz's", slot_bytes=slot_bytes, test_ms=test_seconds,
+        **timings)
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2313,9 +2651,18 @@ def main() -> int:
     say("launches", path="extra_state", **extra_state)
     say("extra_state", phase_seconds=round(time.perf_counter() - t11, 1))
 
+    # the lifecycle (slice 12): tower import, train, preemption, resume,
+    # --test and reference export; each run resets the counts just before
+    # it and reads them just after
+    t12 = time.perf_counter()
+    lifecycle = lifecycle_path()
+    say("launches", path="lifecycle", **lifecycle)
+    say("lifecycle", phase_seconds=round(time.perf_counter() - t12, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
-                   "token_methods": token[k], "extra_state": extra_state[k]}
+                   "token_methods": token[k], "extra_state": extra_state[k],
+                   "lifecycle": lifecycle[k]}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

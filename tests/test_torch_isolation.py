@@ -43,6 +43,8 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.losses.dghdgh, ccmh_torch.train.methods.dnph_tomm\n"
         "import ccmh_torch.train.methods.twdh, ccmh_torch.train.methods.dpbe\n"
         "import ccmh_torch.train.methods.dghdgh\n"
+        "import ccmh_torch.ops.pr_curve, ccmh_torch.ops.recall, ccmh_torch.clip.hf\n"
+        "import ccmh_torch.clip.import_ref, ccmh_torch.clip.export_ref\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -90,7 +90,7 @@ def test_text_encode_never_runs_the_vision_tower(pair, monkeypatch):
     assert tret.encode_texts(CAPTIONS[:2]).shape == (2, 16)
 
 
-def test_from_pretrained_checks(pair):
+def test_from_pretrained_checks(pair, tmp_path):
     _, _, path = pair
     with pytest.raises(ValueError):
         Retriever.from_pretrained(Config(**_cfg()), device="cpu")            # no path
@@ -100,9 +100,15 @@ def test_from_pretrained_checks(pair):
     with pytest.raises(ValueError, match="head"):
         Retriever.from_pretrained(Config(**_cfg(pretrained=path, output_dim=32)),
                                   device="cpu")                              # wrong K
-    with pytest.raises(NotImplementedError, match="pth"):
+    with pytest.raises(FileNotFoundError):
         Retriever.from_pretrained(Config(**_cfg(pretrained=path[:-4] + ".pth")),
-                                  device="cpu")                              # unported form
+                                  device="cpu")                              # no such .pth
+    orbax = tmp_path / "state_ckpt" / "e000000"
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        Retriever.from_pretrained(Config(**_cfg(pretrained=str(orbax.parent))),
+                                  device="cpu")                              # ccmh's orbax
 
 
 def test_registry_says_what_is_ported():
