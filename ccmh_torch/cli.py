@@ -89,17 +89,28 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute-dtype", type=str, default=defaults.compute_dtype,
                         help="float32 (default) or bfloat16 towers")
 
-    # ccmh's flags for features this package does not have yet (among the
-    # checkpoint flags below): kept so that a command line of ccmh parses,
-    # and refused by the Trainer
-    unported = "not yet ported to ccmh_torch: raises NotImplementedError"
     parser.add_argument("--cache-images", dest="cache_images", action="store_true",
-                        default=defaults.cache_images, help=unported)
-    parser.add_argument("--cache-dir", type=str, default=defaults.cache_dir, help=unported)
+                        default=defaults.cache_images,
+                        help="decode each split once into a uint8 memmap cache and "
+                             "stream batches from it (transforms are deterministic, "
+                             "so this is lossless); normalization moves on-device")
+    parser.add_argument("--cache-dir", type=str, default=defaults.cache_dir,
+                        help="decoded-tensor cache location "
+                             "(default <data_dir>/_ccmh_cache)")
     parser.add_argument("--device-resident", dest="device_resident_images",
                         choices=["auto", "on", "off"],
                         default=defaults.device_resident_images,
-                        help="'on' is " + unported + "; images always stream")
+                        help="with --cache-images: pin the decoded train "
+                             "split to the card once and gather batches there; "
+                             "per-step host traffic drops to one fused "
+                             "ids/labels buffer.  auto pins when the split "
+                             "fits --set device_resident_budget_mb "
+                             f"(default {defaults.device_resident_budget_mb}), "
+                             "else trains chunked (--set device_resident_block_rows) "
+                             "or streams")
+    # ccmh's flags for features this package does not have yet: kept so
+    # that a command line of ccmh parses, and refused by the Trainer
+    unported = "not yet ported to ccmh_torch: raises NotImplementedError"
     parser.add_argument("--remat", action="store_true", default=defaults.remat, help=unported)
     parser.add_argument("--checkpoint-every", type=int, default=defaults.checkpoint_every,
                         help="a full-state checkpoint every N epochs under "

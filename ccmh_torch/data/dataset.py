@@ -3,25 +3,28 @@
 Per-item semantics match ``ccmh`` (and the reference BaseDataset,
 dataset/base.py:35-100):
 
+* train transform: bicubic resize of the short side to R, centre crop;
+  eval transform: bicubic resize to (R, R); both by the port's native
+  loader (``data/native/``), a copy of ``ccmh``'s with PIL's resampling;
+* CLIP pixel normalization (same constants, same op order);
 * the caption is drawn among the item's captions by
   ``random.Random(mix)``, a pure function of (seed, epoch, item); BPE
   tokenized to SOT + tokens + EOT, zero-padded to ``max_words``;
-* images are CLIP-normalized NHWC float32 (same constants, same op order,
-  so the same bits as ``ccmh``'s ``normalize_u8``);
 * item -> (image, caption ids int32, label float32, index int32), and
   with ``with_mask`` the key-padding mask ``ids == 0`` (MITH's batches).
 
-Images: npy-mode arrays only.  An image already at the configured
-resolution passes through unchanged, which is exactly what ``ccmh`` yields
-for it: PIL's bicubic resize to the same size returns the pixels as they
-are, and so does the centre crop.  Other sizes and JPEG paths need a
-decoder and a resize without Pillow and raise "not yet ported".  There is
-no image cache and no device residency.
+Images are JPEG paths (the reference's ``index.mat``, space-padded
+strings) or npy-mode uint8 arrays of any size.  An item the loader cannot
+decode (PNG, WebP, a corrupt file) raises ``ValueError`` naming the item
+and its path: ``ccmh`` falls back to PIL there, and the port has no PIL.
 
 :class:`BatchIterator` yields dicts of stacked numpy arrays from a
-producer thread (``prefetch`` batches ahead, items assembled by a thread
-pool), so host assembly overlaps the card's step.  The epoch's shuffle is
-a pure function of (seed, epoch).
+producer thread (``prefetch`` batches ahead).  A batch of JPEG paths is
+decoded in one native call to uint8, and a batch read from a decoded-image
+cache (``data/cache.py``) is uint8 too: the tower normalizes those on the
+card (``clip/model.py`` ``normalize_pixels``), so every transport feeds it
+the same bits.  npy-mode batches carry host-normalized float32, as in
+``ccmh``.  The epoch's shuffle is a pure function of (seed, epoch).
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from queue import Queue
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from ccmh_torch.data import native
 from ccmh_torch.data.split import RawData
 from ccmh_torch.tokenizer.bpe import tokenize_batch
 
@@ -44,6 +48,18 @@ CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 def normalize_u8(arr: np.ndarray) -> np.ndarray:
     """uint8 -> CLIP-normalized float32 (``ccmh``'s op order, same bits)."""
     return (arr.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+
+def images_from_bytes(blobs, resolution: int, is_train: bool = False) -> np.ndarray:
+    """Raw JPEG files -> [N, R, R, 3] CLIP-normalized float32 (the serving
+    path), in one native call.  Raises ``ValueError`` naming the first
+    item the loader cannot decode."""
+    blobs = list(blobs)
+    images, ok = native.decode_batch_mem(blobs, resolution, is_train)
+    if not ok.all():
+        i = int(np.flatnonzero(~ok)[0])
+        raise ValueError(f"image {i} is not a decodable JPEG ({len(blobs[i])} bytes)")
+    return images
 
 
 class CrossModalDataset:
@@ -81,18 +97,45 @@ class CrossModalDataset:
             cap = cap.item() if cap.size == 1 else str(cap)
         return str(cap)
 
-    def load_image(self, i: int) -> np.ndarray:
+    def image_path(self, i: int) -> Optional[str]:
+        """Item i's JPEG path (``.strip()``-ed: ``index.mat`` strings are
+        space-padded), or None for an in-memory array or another format."""
+        src = self.raw.indexes[i]
+        if isinstance(src, np.ndarray):
+            if src.ndim >= 2:
+                return None
+            src = src.item() if src.size == 1 else src[0]
+        if not isinstance(src, (str, bytes)):
+            return None
+        path = (src.decode() if isinstance(src, bytes) else str(src)).strip()
+        return path if path.lower().endswith((".jpg", ".jpeg")) else None
+
+    def load_image_u8(self, i: int) -> np.ndarray:
+        """Item i after the resize and crop, before the normalization:
+        [R, R, 3] uint8, the decoded-image cache's payload."""
         src = self.raw.indexes[i]
         r = self.resolution
-        if not (isinstance(src, np.ndarray) and src.dtype == np.uint8
+        if isinstance(src, np.ndarray) and src.ndim >= 2:
+            return native.resize_u8(src, r, self.is_train)
+        path = self.image_path(i)
+        if path is None:
+            raise ValueError(f"item {i} ({src!r}) is not a JPEG path or a uint8 array; "
+                             "ccmh_torch decodes JPEG files only")
+        image, ok = native.decode_batch_u8([path], r, self.is_train, n_threads=1)
+        if not ok[0]:
+            raise ValueError(f"item {i}: the loader cannot decode {path}")
+        return image[0]
+
+    def load_image(self, i: int) -> np.ndarray:
+        """Item i CLIP-normalized, [R, R, 3] float32.  An npy-mode array at
+        the configured resolution passes through unresized, as PIL's
+        resize to the same size returns its pixels."""
+        src = self.raw.indexes[i]
+        r = self.resolution
+        if (isinstance(src, np.ndarray) and src.dtype == np.uint8
                 and src.shape == (r, r, 3)):
-            what = (f"a {src.dtype} array of shape {src.shape}"
-                    if isinstance(src, np.ndarray) else f"{type(src).__name__} {src!r}")
-            raise NotImplementedError(
-                f"item {i} is {what}: ccmh_torch takes npy-mode uint8 images at "
-                f"the configured resolution ({r}, {r}, 3) only; decoding and "
-                "resizing images (JPEG paths, other sizes) is not yet ported")
-        return normalize_u8(src)
+            return normalize_u8(src)
+        return normalize_u8(self.load_image_u8(i))
 
     def meta_items(self, idxs) -> Dict[str, np.ndarray]:
         """Captions (tokenized), labels and indices of a batch, and the
@@ -117,8 +160,14 @@ class BatchIterator:
 
     def __init__(self, dataset: CrossModalDataset, batch_size: int, *,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 8,
-                 prefetch: int = 2, drop_last: bool = False, ragged_last: bool = False):
+                 prefetch: int = 2, drop_last: bool = False, ragged_last: bool = False,
+                 image_cache=None, with_images: bool = True):
         self.dataset = dataset
+        # data/cache.py ImageCache: batches carry its uint8 images
+        self.image_cache = image_cache
+        # False: meta and valid only (device-resident epochs gather the
+        # pixels on the card from the batch's indices)
+        self.with_images = with_images
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -147,11 +196,26 @@ class BatchIterator:
 
     def _assemble(self, idx_batch: np.ndarray, n_valid: int, pool) -> Dict[str, np.ndarray]:
         batch = self.dataset.meta_items(idx_batch)
-        batch["image"] = np.stack(list(pool.map(self.dataset.load_image, idx_batch)))
+        if self.with_images:
+            batch["image"] = (self.image_cache.gather(idx_batch) if self.image_cache is not None
+                              else self._images(idx_batch, pool))
         valid = np.zeros(len(idx_batch), bool)
         valid[:n_valid] = True
         batch["valid"] = valid
         return batch
+
+    def _images(self, idx_batch: np.ndarray, pool) -> np.ndarray:
+        """A batch of JPEG paths in one native call (uint8), else item by
+        item on the pool (float32)."""
+        ds = self.dataset
+        paths = [ds.image_path(int(i)) for i in idx_batch]
+        if any(p is None for p in paths):
+            return np.stack(list(pool.map(ds.load_image, idx_batch)))
+        images, ok = native.decode_batch_u8(paths, ds.resolution, ds.is_train)
+        if not ok.all():
+            j = int(np.flatnonzero(~ok)[0])
+            raise ValueError(f"item {int(idx_batch[j])}: the loader cannot decode {paths[j]}")
+        return images
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.dataset)

@@ -30,6 +30,7 @@ import torch
 from ccmh_torch.bridge import params_from_jax
 from ccmh_torch.clip.convert import infer_clip_config, load_clip_params
 from ccmh_torch.clip.model import cast_clip_params
+from ccmh_torch.data.prefetch import DevicePut, device_prefetch, to_device
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.hamming import hamming_distance, hamming_distance_packed
 from ccmh_torch.ops.packing import pack_codes
@@ -64,13 +65,14 @@ def _check_key_fits(n: int, max_dist: int) -> Tuple[int, int]:
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
     """Tensor, numpy array or nested list -> tensor on ``device`` (uint32
-    packed lanes are viewed as the int32 patterns the port keeps)."""
+    packed lanes are viewed as the int32 patterns the port keeps), copied
+    from pinned memory (``data/prefetch.py`` to_device)."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return to_device(a, device)
 
 
 def _chunk_topk(dist: torch.Tensor, k: int, idx_bits: int,
@@ -368,12 +370,16 @@ class Retriever:
             # one zero row probes the output width/dtype, then slice to empty
             probe = np.zeros((1,) + arr.shape[1:], arr.dtype)
             return self._chunked(fn, probe, 1)[:0]
-        out = []
         bs = max(1, batch_size)
+        # chunk N+1 is copied (pinned, side stream) while chunk N encodes
+        # at prefetch_device >= 2; at 1, each copy is pageable and serial.
+        # Reading each chunk's codes back bounds how far the host runs ahead.
+        put = DevicePut(self.device, self.cfg.prefetch_device)
+        chunks = ({"x": arr[s:s + bs]} for s in range(0, arr.shape[0], bs))
+        out = []
         with torch.inference_mode():
-            for s in range(0, arr.shape[0], bs):
-                part = torch.from_numpy(np.ascontiguousarray(arr[s:s + bs])).to(self.device)
-                codes = fn(self.params, self.aux, part, self.cfg, self.clip_cfg)
+            for part in device_prefetch(chunks, put, depth=self.cfg.prefetch_device):
+                codes = fn(self.params, self.aux, part["x"], self.cfg, self.clip_cfg)
                 out.append(codes.cpu().numpy())
         return np.concatenate(out)
 

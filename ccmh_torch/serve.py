@@ -10,8 +10,9 @@ Endpoints (all JSON):
 * ``GET  /healthz`` — liveness + model/gallery metadata.
 * ``POST /v1/encode`` — ``{"texts": [...]}`` or ``{"images": [[...]]}``
   (nested lists, CLIP-normalized NHWC) or ``{"images_b64": "<base64 .npy>"}``
-  → ``{"codes": [[±1, ...]]}``.  ``{"images_jpeg_b64": [...]}`` (raw image
-  files decoded server-side) is not ported yet and answers 400.
+  → ``{"codes": [[±1, ...]]}``.  ``{"images_jpeg_b64": [...]}``: raw JPEG
+  files, decoded server-side by the native loader (eval transform); bad
+  base64 or an undecodable file answers 400.
 * ``POST /v1/search`` — an encode body plus ``{"k": 10, "index": "image"}``
   → ``{"indices": [[...]], "distances": [[...]]}`` (exact Hamming top-k,
   the stable tie order of the exact eval path).
@@ -44,6 +45,7 @@ Start: ``python -m ccmh_torch.serve --method DCHMT --pretrained ckpt.npz
 from __future__ import annotations
 
 import base64
+import binascii
 import io
 import json
 import threading
@@ -52,6 +54,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ccmh_torch.data.dataset import images_from_bytes
 
 __all__ = ["RetrievalService", "serve", "main"]
 
@@ -318,14 +322,11 @@ class RetrievalService:
             return self._text_batcher.submit(ids)
         res = self.retriever.clip_cfg.image_resolution
         if "images_jpeg_b64" in body:
-            # decoding raw files needs ccmh's native JPEG loader or PIL;
-            # neither is ported: a client error, not a crash
-            raise ServiceError("'images_jpeg_b64' is not yet ported to ccmh_torch; "
-                               "send CLIP-normalized arrays as 'images' or "
-                               "'images_b64'")
-        arr = (_decode_npy_b64(body["images_b64"])
-               if "images_b64" in body
-               else np.asarray(body["images"], np.float32))
+            arr = _decode_jpeg_b64(body["images_jpeg_b64"], res)
+        else:
+            arr = (_decode_npy_b64(body["images_b64"])
+                   if "images_b64" in body
+                   else np.asarray(body["images"], np.float32))
         if arr.ndim != 4 or arr.shape[1:] != (res, res, 3):
             raise ServiceError(
                 f"'images' must be [B, {res}, {res}, 3] CLIP-normalized "
@@ -390,6 +391,25 @@ class RetrievalService:
                 f"no index {name!r} (have {sorted(self.indexes)})") from None
 
     ROUTES = {"/v1/encode": encode, "/v1/search": search, "/v1/add": add}
+
+
+def _decode_jpeg_b64(payload: Any, resolution: int) -> np.ndarray:
+    """A list of base64 JPEG files -> CLIP-normalized NHWC float32, decoded
+    by the native loader on the calling thread (GIL-free, so concurrent
+    requests decode in parallel before they coalesce on the card)."""
+    if not isinstance(payload, list) or not all(isinstance(p, str) for p in payload):
+        raise ServiceError("'images_jpeg_b64' must be a list of base64 "
+                           "strings (one raw image file each)")
+    blobs = []
+    for i, p in enumerate(payload):
+        try:
+            blobs.append(base64.b64decode(p, validate=True))
+        except (binascii.Error, ValueError):
+            raise ServiceError(f"images_jpeg_b64[{i}] is not valid base64") from None
+    try:
+        return images_from_bytes(blobs, resolution, is_train=False)
+    except ValueError as exc:
+        raise ServiceError(f"images_jpeg_b64: {exc}") from None
 
 
 def _decode_npy_b64(payload: str) -> np.ndarray:

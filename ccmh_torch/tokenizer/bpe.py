@@ -7,8 +7,9 @@ scanner over ``unicodedata.category``.  It yields the same words as the
 ``regex`` pattern for every code point assigned in the interpreter's
 Unicode database (tests/test_torch_tokenizer.py checks all of them).
 
-The native C++ tokenizer of ``ccmh`` is not ported yet; every text takes
-this pure-Python path.
+``tokenize_batch`` sends the texts on which it is exact (ASCII, no ``&``,
+no ``<|``) through the port's copy of ``ccmh``'s native C++ tokenizer
+(``tokenizer/native/``) and the rest through this pure-Python path.
 
 The vocab asset ``ccmh_torch/assets/bpe_simple_vocab_16e6.txt.gz`` is the
 standard public OpenAI CLIP merge table (49,152-token vocab: 256 byte
@@ -259,10 +260,28 @@ def default_tokenizer() -> ClipBpeTokenizer:
     return ClipBpeTokenizer()
 
 
-def tokenize_batch(texts: Sequence[str], max_words: int = 32) -> np.ndarray:
-    """List of strings -> int32 [B, max_words] (host-side, pure Python)."""
+def tokenize_batch(texts: Sequence[str], max_words: int = 32,
+                   use_native: bool = True) -> np.ndarray:
+    """List of strings -> int32 [B, max_words].
+
+    Texts that :func:`ccmh_torch.tokenizer.native.eligible` accepts go
+    through the native C++ tokenizer in one GIL-free call (the same ids;
+    a failed build raises), the rest through the Python tokenizer, as
+    ``ccmh``'s ``tokenize_batch`` splits them.  ``use_native=False`` sends
+    every text through Python."""
     texts = list(texts)
-    if not texts:  # keep the [B, max_words] contract for empty batches
-        return np.zeros((0, max_words), np.int32)
-    tok = default_tokenizer()
-    return np.asarray([tok.encode_padded(t, max_words) for t in texts], dtype=np.int32)
+    out = np.zeros((len(texts), max_words), np.int32)
+    native_idx = []
+    if use_native:
+        from ccmh_torch.tokenizer import native
+
+        native_idx = [i for i, t in enumerate(texts) if native.eligible(t)]
+        if native_idx:
+            out[native_idx] = native.encode_padded_batch(
+                [texts[i] for i in native_idx], max_words)
+    rest = sorted(set(range(len(texts))) - set(native_idx))
+    if rest:
+        tok = default_tokenizer()
+        for i in rest:
+            out[i] = tok.encode_padded(texts[i], max_words)
+    return out

@@ -31,8 +31,20 @@ trackers, the histogram-recheck ones included, come back with the state.
 ``--pretrained`` reads ``.npz``, full-state directories and reference
 ``.pth`` files.
 
-Not ported, each raising when asked for: meshes (DP/TP/FSDP), image
-caches and device residency, remat, profiling, compilation caches.
+The input path: JPEG ``index.mat`` datasets and npy images of any size
+(``data/dataset.py``, the native loader); ``--cache-images`` decodes each
+split once into a uint8 memmap (``data/cache.py``, under ``--cache-dir``);
+with a cache, ``--device-resident auto|on`` pins the train split to the
+card and gathers each batch there (``data/resident.py``), a split over
+``device_resident_budget_mb`` trains in the chunked mode (a pinned region
+plus superblocks streamed on a side stream) or streams, and the eval
+splits pin where the rest of the budget holds them.  Streamed batches are
+copied from pinned memory on a side stream ``prefetch_device`` batches
+ahead (``data/prefetch.py``).  Every transport feeds the step the same
+bits.
+
+Not ported, each raising when asked for: meshes (DP/TP/FSDP), remat,
+profiling, compilation caches, the reduced-precision optimizer state.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from ccmh_torch.clip.convert import load_clip_params
 from ccmh_torch.clip.model import ClipConfig, init_clip_params
 from ccmh_torch.config import Config
 from ccmh_torch.data.dataset import BatchIterator, CrossModalDataset
+from ccmh_torch.data.prefetch import DevicePut, device_prefetch
 from ccmh_torch.data.split import SplitData, make_splits
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.map_metric import calc_map, calc_map_4way
@@ -74,9 +87,6 @@ def _unported(cfg: Config):
         (tuple(cfg.mesh_shape) != (1,), f"--mesh {cfg.mesh_shape} (DP/TP meshes)"),
         (cfg.fsdp, "--fsdp"),
         (cfg.shard_gallery is not None, "--shard-gallery (mesh eval)"),
-        (cfg.cache_images, "--cache-images (decoded-image caches)"),
-        (bool(cfg.cache_dir), "--cache-dir"),
-        (cfg.device_resident_images == "on", "--device-resident on"),
         (cfg.remat, "--remat"),
         (cfg.optim_moments_dtype != "float32", "optim_moments_dtype"),
         (cfg.param_dtype != "float32", "param_dtype"),
@@ -154,13 +164,53 @@ class Trainer:
         if self.cfg.nclass == 0:
             self.cfg.nclass = self.query_labels.shape[1]
         nw = cfg.num_workers
+        caches = {"train": None, "query": None, "retrieval": None}
+        if cfg.cache_images:
+            # each split decoded ONCE into a uint8 memmap; epochs read it and
+            # the tower normalizes on the card (data/cache.py)
+            from ccmh_torch.data.cache import open_or_build
+
+            base = cfg.cache_dir or os.path.join(cfg.data_dir or cfg.save_dir, "_ccmh_cache")
+            for split, ds in (("train", self.train_data), ("query", self.query_data),
+                              ("retrieval", self.retrieval_data)):
+                caches[split] = open_or_build(ds, base, split, num_workers=nw,
+                                              logger=self.logger)
+            self.logger.info(f"decoded-tensor image caches ready under {base}")
+        # device-resident epochs (data/resident.py): a cached train split
+        # within the budget pins to the card (in _init_model); one over it
+        # trains chunked in auto mode, or streams where two superblock
+        # buffers would not fit either
+        self.train_resident = None
+        self.train_chunked = None
+        self._resident_source = None
+        self._chunked_plan = None
+        self._split_caches = caches
+        if caches["train"] is not None:
+            from ccmh_torch.data.resident import ResidentImages, plan_chunked
+
+            mode = cfg.device_resident_images
+            if ResidentImages.plan(caches["train"], budget_mb=cfg.device_resident_budget_mb,
+                                   mode=mode, logger=self.logger):
+                self._resident_source = caches["train"]
+            elif mode == "auto":
+                images = caches["train"].images
+                self._chunked_plan = plan_chunked(
+                    len(images), int(np.prod(images.shape[1:])),
+                    cfg.device_resident_budget_mb * 2**20, cfg.batch_size,
+                    cfg.device_resident_block_rows)
+                if self._chunked_plan is None:
+                    self.logger.info("device-resident images [chunked]: two superblock "
+                                     "buffers exceed the budget; streaming")
         self.train_loader = BatchIterator(
             self.train_data, cfg.batch_size, shuffle=cfg.shuffle, seed=cfg.seed,
-            num_workers=nw, ragged_last=cfg.ragged_last)
+            num_workers=nw, ragged_last=cfg.ragged_last, image_cache=caches["train"],
+            with_images=self._resident_source is None and self._chunked_plan is None)
         self.query_loader = BatchIterator(self.query_data, cfg.eval_batch, shuffle=False,
-                                          seed=cfg.seed, num_workers=nw)
+                                          seed=cfg.seed, num_workers=nw,
+                                          image_cache=caches["query"])
         self.retrieval_loader = BatchIterator(self.retrieval_data, cfg.eval_batch,
-                                              shuffle=False, seed=cfg.seed, num_workers=nw)
+                                              shuffle=False, seed=cfg.seed, num_workers=nw,
+                                              image_cache=caches["retrieval"])
 
     # ----------------------------------------------------------------- model
     def _init_model(self, clip_cfg: Optional[ClipConfig], clip_params):
@@ -203,6 +253,90 @@ class Trainer:
         # the method's own ranking distance in evaluation (DPSIH), else Hamming
         self.eval_dist_fn = self.method.dist_fn(cfg) if self.method.dist_fn else None
         self.max_multi: Dict[str, Dict[str, float]] = {}   # valid_multi's best-of
+        # host batch -> device tensors, from pinned memory on a side stream
+        # at prefetch_device >= 2 (data/prefetch.py)
+        self._put = DevicePut(self.device, cfg.prefetch_device)
+        if self._resident_source is not None:
+            from ccmh_torch.data.resident import ResidentImages
+
+            self.train_resident = ResidentImages(self._resident_source.images, self.device)
+            self.logger.info(f"device-resident images: pinned {self.train_resident.n} items "
+                             f"({self.train_resident.nbytes / 2**20:.0f} MiB)")
+        if self._chunked_plan is not None:
+            self._init_chunked_residency()
+        self._plan_eval_residency()
+
+    def _init_chunked_residency(self):
+        """The chunked mode of an over-budget train split: rows below R pin
+        to the card, the rest stream once an epoch in M-row superblocks
+        (``data/resident.py`` :func:`plan_chunked`)."""
+        from ccmh_torch.data.resident import ResidentImages
+
+        cache = self._split_caches["train"]
+        r, m = self._chunked_plan
+        region = ResidentImages(cache.images[:r], self.device)
+        row = int(np.prod(cache.images.shape[1:]))
+        self.train_chunked = {"region": region, "R": r, "M": m, "cache": cache,
+                              "row_shape": cache.images.shape[1:]}
+        self.logger.info(
+            f"device-resident images [chunked]: pinned rows 0..{r} of {len(cache.images)} "
+            f"({region.nbytes / 2**20:.0f} MiB); the remaining {len(cache.images) - r} rows "
+            f"stream once per epoch in {m}-row superblocks ({m * row / 2**20:.0f} MiB each)")
+
+    def _plan_eval_residency(self):
+        """Which eval splits pin to the card (query first), within what the
+        train residency leaves of ``device_resident_budget_mb``; they pin at
+        the first ``valid``."""
+        from ccmh_torch.data.resident import ResidentEvalSplit
+
+        cfg = self.cfg
+        self._resident_eval: Dict[str, tuple] = {}
+        self._resident_eval_plan: Dict[str, object] = {}
+        if cfg.device_resident_images == "off":
+            return
+        budget = cfg.device_resident_budget_mb * 2**20
+        used = self.train_resident.nbytes if self.train_resident is not None else 0
+        if self.train_chunked is not None:
+            ck = self.train_chunked
+            used += ck["region"].nbytes + 2 * ck["M"] * int(np.prod(ck["row_shape"]))
+        for split, ds in (("query", self.query_data), ("retrieval", self.retrieval_data)):
+            cache = self._split_caches.get(split)
+            if cache is None:
+                continue
+            est = ResidentEvalSplit.plan_bytes(cache, ds, cfg.eval_batch)
+            if used + est <= budget:
+                self._resident_eval_plan[split] = cache
+                used += est
+            else:
+                self.logger.info(f"device-resident eval: {split} streams "
+                                 f"({(used + est) / 2**20:.0f} MiB would exceed the "
+                                 f"{budget / 2**20:.0f} MiB budget)")
+
+    def _resident_eval_encoders(self, loader: BatchIterator):
+        """(encode, multi_encode) over ``loader``'s split pinned to the card
+        (pinned at the first call), or (None, None) where it streams."""
+        split, ds = {id(self.query_loader): ("query", self.query_data),
+                     id(self.retrieval_loader): ("retrieval", self.retrieval_data)
+                     }.get(id(loader), (None, None))
+        if split not in self._resident_eval_plan:
+            return None, None
+        enc = self._resident_eval.get(split)
+        if enc is None:
+            from ccmh_torch.data.resident import ResidentEvalSplit, make_resident_eval_encoder
+
+            res = ResidentEvalSplit(self._resident_eval_plan[split], ds, self.cfg.eval_batch,
+                                    self.device)
+            cfg, clip_cfg, method = self.cfg, self.clip_cfg, self.method
+            encode = make_resident_eval_encoder(
+                lambda p, a, b: method.encode(p, a, b, cfg, clip_cfg), res)
+            multi = None
+            if method.multi_encode is not None:
+                multi = make_resident_eval_encoder(
+                    lambda p, a, b: method.multi_encode(p, a, b, cfg, clip_cfg), res)
+            enc = self._resident_eval[split] = (encode, multi)
+            self.logger.info(f"device-resident eval: pinned {split} split ({res.n} items, "
+                             f"{res.nbytes / 2**20:.0f} MiB)")
+        return enc
 
     def _restore(self, path: str, params, extra, aux):
         """Weights of a checkpoint (``restore_state``): an ``.npz`` or a
@@ -290,17 +424,6 @@ class Trainer:
             f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
             f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
 
-    def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch -> device tensors (through pinned buffers on the card,
-        so the copies run asynchronously)."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
-
     def train_epoch(self, epoch: int, skip_steps: int = 0) -> bool:
         """One epoch, entered after its first ``skip_steps`` batches on a
         mid-epoch resume.  Returns False when preempted: a full-state slot
@@ -318,10 +441,20 @@ class Trainer:
         # the epoch rides in every train batch as a device scalar (DMsH_LN's
         # label net anneals with it), as in ccmh
         epoch_scalar = torch.tensor(epoch, dtype=torch.int32, device=self.device)
-        for batch in self.train_loader:
-            batch = self._put(batch)
-            batch["epoch"] = epoch_scalar
-            self.state, metrics = self.train_step(self.state, batch)
+        if self.train_resident is not None:
+            stream, run_step = self._resident_stream(epoch_scalar)
+        elif self.train_chunked is not None:
+            stream, run_step = self._chunked_stream(epoch_scalar)
+        else:
+            def put(b):
+                b = self._put(b)
+                b["epoch"] = epoch_scalar
+                return b
+
+            stream = device_prefetch(self.train_loader, put, depth=cfg.prefetch_device)
+            run_step = self.train_step
+        for batch in stream:
+            self.state, metrics = run_step(self.state, batch)
             self.global_step += 1
             step_in_epoch += 1
             losses.append(metrics["loss"])
@@ -343,18 +476,87 @@ class Trainer:
             f">>>>>> [{epoch}/{cfg.epochs}] loss: {mean_loss}, time: {self.total_time}")
         return True
 
+    def _epoch_tables(self, batches):
+        """The epoch's host batches as device tables, one copy each
+        (``pack_epoch``): yields (table, spec, row) per step."""
+        from ccmh_torch.data.resident import pack_epoch
+        from ccmh_torch.data.prefetch import to_device
+
+        for table_np, spec, n_rows in pack_epoch(batches):
+            table = to_device(table_np, self.device)
+            for row in range(n_rows):
+                yield table, spec, row
+
+    def _resident_stream(self, epoch_scalar):
+        """(items, run_step) of a device-resident epoch: the image-free
+        batches packed into one table, each step gathering its images on the
+        card."""
+        from ccmh_torch.data.resident import make_resident_epoch_step
+
+        stepper = make_resident_epoch_step(self.train_step)
+        images = self.train_resident.images
+
+        def run_step(state, item):
+            table, spec, row = item
+            return stepper(state, table, spec, row, epoch_scalar, images)
+
+        return self._epoch_tables(list(self.train_loader)), run_step
+
+    def _chunked_stream(self, epoch_scalar):
+        """(items, run_step) of a chunked epoch: rows below R from the pinned
+        region, the others from superblock buffers copied one ahead."""
+        from ccmh_torch.data.resident import (
+            AsyncBlockPut, augment_chunked_batches, make_chunked_epoch_step,
+        )
+
+        ck = self.train_chunked
+        stepper = make_chunked_epoch_step(self.train_step)
+        aug, blocks, block_of = augment_chunked_batches(list(self.train_loader),
+                                                        ck["R"], ck["M"])
+        putter = AsyncBlockPut(self.device)
+
+        def start(g):
+            def fill():
+                buf = np.zeros((ck["M"],) + tuple(ck["row_shape"]), np.uint8)
+                if len(blocks[g]):
+                    buf[:len(blocks[g])] = ck["cache"].gather(blocks[g])
+                return buf
+            putter.start(g, fill)
+
+        def items():
+            start(0)
+            current = (None, None)
+            for step, item in enumerate(self._epoch_tables(aug)):
+                g = block_of[step]
+                if current[0] != g:
+                    current = (g, putter.get(g))
+                    if g + 1 < len(blocks):
+                        start(g + 1)
+                yield item + (current[1],)
+
+        def run_step(state, item):
+            table, spec, row, sb_buf = item
+            return stepper(state, table, spec, row, epoch_scalar,
+                           ck["region"].images, sb_buf)
+
+        return items(), run_step
+
     # ------------------------------------------------------------------- eval
     def get_code(self, loader: BatchIterator, length: int
                  ) -> Tuple[np.ndarray, np.ndarray, float]:
         """±1 codes of a split, scattered by dataset index (train/base.py:
         130-148); the encoder time accumulates over the batches."""
+        encode, _ = self._resident_eval_encoders(loader)
+        cfg, clip_cfg, params, aux = self.cfg, self.clip_cfg, self.state.params, self.state.aux
+        if encode is not None:
+            start = time.time()
+            img, txt = encode(params, aux)
+            return img.cpu().numpy(), txt.cpu().numpy(), time.time() - start
         img_buf = txt_buf = None
         encoder_time = 0.0
-        cfg, clip_cfg, params, aux = self.cfg, self.clip_cfg, self.state.params, self.state.aux
         with torch.inference_mode():
-            for batch in loader:
+            for dev, batch in device_prefetch(loader, self._put_eval, depth=cfg.prefetch_device):
                 start = time.time()
-                dev = self._put({k: batch[k] for k in ("image", "text", "valid")})
                 img, txt = self.method.encode(params, aux, dev, cfg, clip_cfg)
                 img, txt = img.cpu().numpy(), txt.cpu().numpy()
                 encoder_time += time.time() - start
@@ -366,6 +568,11 @@ class Trainer:
                 img_buf[idx] = img[valid]
                 txt_buf[idx] = txt[valid]
         return img_buf, txt_buf, encoder_time
+
+    def _put_eval(self, batch):
+        """(device batch, host batch): the host batch keeps the indices and
+        the valid mask the scatter needs after encoding."""
+        return self._put({k: batch[k] for k in ("image", "text", "valid")}), batch
 
     # hist-vs-exact agreement bound of ccmh's Trainer (trainer.py:821)
     EXACT_MARGIN = 0.02
@@ -447,11 +654,14 @@ class Trainer:
                          ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
         """{name: (image codes, text codes)} of a split at every code length
         of ``multi_encode``, scattered by dataset index."""
-        buffers: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        _, multi = self._resident_eval_encoders(loader)
         cfg, clip_cfg, params, aux = self.cfg, self.clip_cfg, self.state.params, self.state.aux
+        if multi is not None:
+            return {name: tuple(c.cpu().numpy() for c in codes)
+                    for name, codes in multi(params, aux).items()}
+        buffers: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         with torch.inference_mode():
-            for batch in loader:
-                dev = self._put({k: batch[k] for k in ("image", "text", "valid")})
+            for dev, batch in device_prefetch(loader, self._put_eval, depth=cfg.prefetch_device):
                 out = self.method.multi_encode(params, aux, dev, cfg, clip_cfg)
                 valid = batch["valid"]
                 idx = batch["index"][valid]

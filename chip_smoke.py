@@ -2324,12 +2324,12 @@ def _lifecycle_launches(steps: int, eval_batches: int) -> dict:
     return extra_state_launches(steps, eval_batches, ClipConfig())
 
 
-def _check_launches(what, launches, want):
+def _check_launches(what, launches, want, phase="lifecycle"):
     for kernel in LIFECYCLE_KERNELS:
-        check(launches[kernel] == want[kernel], f"lifecycle {what}: {launches[kernel]} launches "
+        check(launches[kernel] == want[kernel], f"{phase} {what}: {launches[kernel]} launches "
                                                 f"of {kernel}, the code implies {want[kernel]}")
     others = {k: n for k, n in launches.items() if k not in LIFECYCLE_KERNELS and n}
-    check(not others, f"lifecycle {what} launched other kernels: {others}")
+    check(not others, f"{phase} {what} launched other kernels: {others}")
 
 
 def _test_maps(save_dir):
@@ -2528,6 +2528,443 @@ def lifecycle_path():
     return total
 
 
+# -------------------------------------------------------------------- phase 13
+
+# MIRFlickr-25K's split sizes (query 2,000, train 10,000, retrieval 10,000)
+INPUT_ITEMS, INPUT_QUERY, INPUT_TRAIN = 12000, 2000, 10000
+INPUT_SIZES = ((375, 500), (500, 375))     # MIRFlickr's two orientations
+INPUT_STEPS = 16                           # the transports' bit-equality run
+INPUT_EVAL_BATCH = 256
+# the card's decode of the fixtures against ccmh's PIL outputs, LSB at 224:
+# libjpeg decodes as PIL does (ccmh's own gate, tests/test_native_loader.py);
+# nvJPEG's IDCT is not libjpeg's integer one (PERF.md §4), so its gate is
+# on the largest and the mean difference
+INPUT_FIXTURE_TOL = {"libjpeg": {"max": 2, "mean": None}, "nvjpeg": {"max": 4, "mean": 0.5}}
+INPUT_SERVE_FILES = 64
+
+
+class _StopSteps(Exception):
+    pass
+
+
+def input_fixtures(native):
+    """Gate 1: the committed fixtures decoded by the loader on this machine
+    against ccmh's PIL outputs at 224 (``expected.npz``)."""
+    fixture_dir = os.path.join(REPO, "ccmh_torch", "assets", "jpeg")
+    names = sorted(f[:-4] for f in os.listdir(fixture_dir) if f.endswith(".jpg"))
+    paths = [os.path.join(fixture_dir, f"{n}.jpg") for n in names]
+    per, total, count = {}, 0.0, 0
+    with np.load(os.path.join(fixture_dir, "expected.npz")) as expected:
+        for mode in ("train", "eval"):
+            got, ok = native.decode_batch_u8(paths, 224, mode == "train")
+            check(ok.all(), f"input: the loader failed on fixtures {np.flatnonzero(~ok)}")
+            for name, img in zip(names, got):
+                diff = np.abs(img.astype(np.int32) - expected[f"{name}/{mode}"])
+                per[f"{name}/{mode}"] = [int(diff.max()), round(float(diff.mean()), 4)]
+                total += float(diff.sum())
+                count += diff.size
+    decoder = native.decoder()
+    tol = INPUT_FIXTURE_TOL[decoder]
+    worst, mean = max(v[0] for v in per.values()), total / count
+    say("input", decoder=decoder, fixtures=len(names), max_lsb=worst, mean_lsb=round(mean, 4),
+        tol=tol, per_fixture=per)
+    check(worst <= tol["max"], f"input: fixture decode {worst} LSB from PIL > {tol['max']}")
+    check(tol["mean"] is None or mean <= tol["mean"],
+          f"input: fixture decode {mean:.4f} LSB from PIL on average > {tol['mean']}")
+    return paths
+
+
+def input_rates(native, paths, texts):
+    """Gate 2's numbers: decode img/s of the batch entries at 1, 4 and all
+    threads against one image per call on one thread, and native against
+    Python BPE texts/s."""
+    from ccmh_torch.tokenizer.bpe import tokenize_batch
+
+    native.decode_batch_u8(paths[:16], 224, True)            # warm: build, contexts
+    tokenize_batch(texts[:8], 32)                            # warm: build, vocab
+    tokenize_batch(texts[:8], 32, use_native=False)
+    rates = {"cpu_count": os.cpu_count()}
+    for name, fn in (("decode_batch_u8", native.decode_batch_u8),
+                     ("decode_batch", native.decode_batch)):
+        for threads in (1, 4, os.cpu_count()):
+            n = 128 if threads == 1 else 512
+            t0 = time.perf_counter()
+            _, ok = fn(paths[:n], 224, True, n_threads=threads)
+            rates[f"{name}_t{threads}_img_s"] = round(n / (time.perf_counter() - t0), 1)
+            check(ok.all(), f"input: {name} failed on the dataset")
+    t0 = time.perf_counter()
+    for p in paths[:128]:
+        native.decode_batch_u8([p], 224, True, n_threads=1)
+    rates["plain_one_per_call_img_s"] = round(128 / (time.perf_counter() - t0), 1)
+    t0 = time.perf_counter()
+    ids = tokenize_batch(texts, 32)
+    rates["bpe_native_texts_s"] = round(len(texts) / (time.perf_counter() - t0), 1)
+    t0 = time.perf_counter()
+    py_ids = tokenize_batch(texts, 32, use_native=False)
+    rates["bpe_python_texts_s"] = round(len(texts) / (time.perf_counter() - t0), 1)
+    check(np.array_equal(ids, py_ids), "input: native and Python BPE ids differ")
+    say("input", texts=len(texts), **rates)
+    return rates
+
+
+def _input_hooks(steps_taken, stop_after=None):
+    """Patches for one run: a train step that times itself (host clock and
+    CUDA events; the host gap before each call is time spent waiting on the
+    batches) and stops after ``stop_after`` steps; the cache build and the
+    resident pins timed."""
+    import torch
+
+    from ccmh_torch.data import cache as cache_mod
+    from ccmh_torch.data import resident as res_mod
+    from ccmh_torch.train import trainer as trainer_mod
+
+    make, build, pin = trainer_mod.make_train_step, cache_mod.open_or_build, res_mod._pin
+    rec = {"losses": [], "events": [], "gaps": [], "cache_s": [], "pins": []}
+
+    def make_timed(*args, **kw):
+        inner = make(*args, **kw)
+
+        def step_fn(state, batch):
+            t_in = time.perf_counter()
+            if rec.get("t_out") is not None:
+                rec["gaps"].append(t_in - rec["t_out"])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, metrics = inner(state, batch)
+            ev[1].record()
+            rec["events"].append(ev)
+            rec["losses"].append(metrics["loss"])
+            steps_taken[0] += 1
+            rec["t_out"] = time.perf_counter()
+            if stop_after is not None and steps_taken[0] >= stop_after:
+                raise _StopSteps()
+            return state, metrics
+        return step_fn
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        rec["cache_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_pin(arr, device, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pin(arr, device, *a, **kw)
+        rec["pins"].append((arr.nbytes, time.perf_counter() - t0))
+        return out
+
+    patches = ((trainer_mod, "make_train_step", make_timed),
+               (cache_mod, "open_or_build", timed_build), (res_mod, "_pin", timed_pin))
+    return rec, patches
+
+
+def _with(patches, fn):
+    old = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, new in patches:
+        setattr(mod, name, new)
+    try:
+        return fn()
+    finally:
+        for mod, name, value in old:
+            setattr(mod, name, value)
+
+
+def input_transports(data, work):
+    """Gate 3: the first 16 steps of epoch 0 in four transports, bit-equal
+    step losses and parameters after step 16."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.train.trainer import Trainer
+
+    base = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_TRAIN),
+            "--eval-batch", str(INPUT_EVAL_BATCH), "--display-step", "1",
+            "--num-workers", "8", "--device", "cuda"]
+    cache_dir = os.path.join(work, "cache")
+    row = 224 * 224 * 3
+    # chunked: a budget under the 1.51 GB split, above two 512-row superblocks
+    chunk_mb = 1024
+    modes = (("streaming", ["--device-resident", "off"]),
+             ("cached", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "off"]),
+             ("resident", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "on"]),
+             ("chunked", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "auto",
+                          "--set", f"device_resident_budget_mb={chunk_mb}"]))
+    want_losses = want_params = None
+    out, launches = {}, {}
+    for name, flags in modes:
+        steps = [0]
+        rec, patches = _input_hooks(steps, stop_after=INPUT_STEPS)
+
+        def run():
+            cfg = cli.config_from_args(base + flags + ["--save-dir", os.path.join(work, name)])
+            t0 = time.perf_counter()
+            tr = Trainer(cfg, device="cuda")
+            init_s = time.perf_counter() - t0
+            reset_counts()
+            try:
+                tr.train_epoch(0)
+            except _StopSteps:
+                pass
+            torch.cuda.synchronize()
+            return tr, init_s, read_counts()
+
+        tr, init_s, counts = _with(patches, run)
+        launches[name] = counts
+        check(steps[0] == INPUT_STEPS, f"input {name}: {steps[0]} steps")
+        losses = [float(l) for l in rec["losses"]]
+        check(all(math.isfinite(l) for l in losses), f"input {name}: losses {losses}")
+        ck = tr.train_chunked
+        if name == "chunked":
+            check(ck is not None and ck["R"] < INPUT_TRAIN
+                  and ck["region"].nbytes + 2 * ck["M"] * row <= chunk_mb * 2**20,
+                  f"input chunked: the plan {ck and (ck['R'], ck['M'])} is not chunked in budget")
+        check((tr.train_resident is not None) == (name == "resident"),
+              f"input {name}: train_resident {tr.train_resident is not None}")
+        params = dict(tree_leaves_with_path(tr.state.params))
+        if want_losses is None:
+            want_losses = losses
+            want_params = {k: v.detach().clone() for k, v in params.items()}
+        else:
+            check(losses == want_losses, f"input {name}: step losses {losses} differ from "
+                                         f"streaming's {want_losses}")
+            differing = [str(k) for k, v in params.items() if not torch.equal(v, want_params[k])]
+            check(not differing and len(params) == len(want_params),
+                  f"input {name}: parameters differ from streaming's at {differing[:6]}")
+        out[name] = {"init_s": round(init_s, 2),
+                     "cache_build_s": [round(s, 2) for s in rec["cache_s"]],
+                     "pins_mib_s": [[round(b / 2**20, 1), round(s, 3)] for b, s in rec["pins"]],
+                     **({"chunked_R_M": [ck["R"], ck["M"]]} if ck else {})}
+        del tr, params
+        torch.cuda.empty_cache()
+    say("input", transports=list(out), steps=INPUT_STEPS, step_losses=want_losses,
+        losses_and_parameters="bit-equal", **out)
+    return launches, out
+
+
+def input_epochs(data, work):
+    """Gate 4: a whole epoch streamed and one resident (79 steps, a ragged
+    last batch of 16) through ``ccmh_torch.cli.main``, each with ``valid``
+    (streamed, then resident): bit-equal parameters, equal codes and mAPs;
+    epoch seconds, step ms, device ms by CUDA events, idle share and the
+    streamed epoch's share spent waiting on the batches."""
+    import scipy.io as scio
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    base = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+            "--data-dir", data, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_TRAIN),
+            "--eval-batch", str(INPUT_EVAL_BATCH), "--display-step", "100",
+            "--num-workers", "8", "--device", "cuda"]
+    cache_dir = os.path.join(work, "cache")
+    runs = (("streaming", ["--device-resident", "off"]),
+            ("resident", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "on",
+                          "--save-model"]))
+    results, trainers, launches = {}, {}, {}
+    n_steps = -(-INPUT_TRAIN // TRAIN_BATCH)
+    for name, flags in runs:
+        steps = [0]
+        rec, patches = _input_hooks(steps)
+        save_dir = os.path.join(work, f"epoch_{name}")
+        argv = base + flags + ["--save-dir", save_dir]
+
+        def run():
+            reset_counts()
+            tr = cli.main(argv)
+            torch.cuda.synchronize()
+            return tr, read_counts()
+
+        tr, counts = _with(patches, run)
+        launches[name] = counts
+        check(steps[0] == n_steps, f"input {name}: {steps[0]} steps, not {n_steps}")
+        device_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+        epoch_s = tr.total_time
+        run_dir = os.path.join(save_dir, "DSPH", "synthetic", str(K_BITS))
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            valid = [r for r in map(json.loads, fh) if r["event"] == "valid"]
+        check(len(valid) == 1, f"input {name}: {len(valid)} valid rows")
+        results[name] = {
+            "epoch_s": round(epoch_s, 2), "steps": steps[0],
+            "step_ms_host": round(1e3 * epoch_s / steps[0], 1),
+            "step_ms_device": round(device_ms / steps[0], 1),
+            "idle_share": round(1 - device_ms / 1e3 / epoch_s, 3),
+            "wait_share": round(sum(rec["gaps"]) / epoch_s, 3),
+            "valid_q_encoder_s": round(valid[0]["q_encoder_time"], 2),
+            "valid_r_encoder_s": round(valid[0]["r_encoder_time"], 2),
+            "maps": [valid[0][k] for k in ("i2t", "t2i", "i2i", "t2t")],
+            "resident_eval": sorted(tr._resident_eval)}
+        results[name]["codes"] = scio.loadmat(
+            os.path.join(run_dir, "PR_cruve", f"{K_BITS}-ours-synthetic-i2t.mat"))
+        trainers[name] = {k: v.detach().clone()
+                          for k, v in tree_leaves_with_path(tr.state.params)}
+        results[name]["model"] = os.path.join(run_dir, "model-0.npz")
+        del tr
+        torch.cuda.empty_cache()
+    s, r = results["streaming"], results["resident"]
+    check(s["resident_eval"] == [] and r["resident_eval"] == ["query", "retrieval"],
+          f"input: eval residency streamed {s['resident_eval']}, resident {r['resident_eval']}")
+    differing = [str(k) for k, v in trainers["resident"].items()
+                 if not torch.equal(v, trainers["streaming"][k])]
+    check(not differing, f"input: the resident epoch's parameters differ at {differing[:6]}")
+    check(s["maps"] == r["maps"], f"input: resident valid mAPs {r['maps']} != streamed {s['maps']}")
+    for key in ("q_img", "q_txt", "r_img", "r_txt"):
+        check(np.array_equal(s["codes"][key], r["codes"][key]),
+              f"input: resident valid codes {key} differ from the streamed ones")
+    model = r["model"]
+    for v in results.values():
+        v.pop("codes"), v.pop("model")
+    say("input", epochs="streaming and resident", parameters="bit-equal",
+        valid_codes_and_maps="equal", **results)
+    return launches, results, model
+
+
+def input_serving(model, fixture_paths):
+    """Gate 5: 64 JPEG files over HTTP as ``images_jpeg_b64`` (codes equal
+    to ``Retriever.encode_images`` of ``decode_batch_mem``'s arrays, a
+    search over them launching #3); image encode items/s at batch 256 fp32
+    with ``prefetch_device`` 1 and 2, the H2D copies' device ms from the
+    profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccmh_torch.config import Config
+    from ccmh_torch.data import native
+    from ccmh_torch.retrieval import HashIndex, Retriever
+    from ccmh_torch.serve import RetrievalService, serve
+
+    files = [open(fixture_paths[i % len(fixture_paths)], "rb").read()
+             for i in range(INPUT_SERVE_FILES)]
+    retriever = Retriever.from_pretrained(Config(method="DSPH", output_dim=K_BITS,
+                                                 pretrained=model), device="cuda")
+    arrays, ok = native.decode_batch_mem(files, retriever.clip_cfg.image_resolution)
+    check(ok.all(), "input: decode_batch_mem failed on the fixtures")
+    direct = retriever.encode_images(arrays)
+    reset_counts()
+    index = HashIndex(direct, packed=True, device="cuda")
+    service = RetrievalService(retriever, {"image": index})
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = {"images_jpeg_b64": [base64.b64encode(f).decode() for f in files]}
+    try:
+        got = np.asarray(http(server.server_address[1], "/v1/encode", body)["codes"])
+        found = http(server.server_address[1], "/v1/search", {**body, "k": 8})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    serve_launches = read_counts()
+    check(np.array_equal(got, direct), "input: images_jpeg_b64 codes differ from "
+                                       "Retriever.encode_images of decode_batch_mem's arrays")
+    check(all(d[0] == 0 for d in found["distances"]), "input: a served file is not its own "
+                                                      "nearest code")
+    check(serve_launches["hamming_distance_packed"] > 0, "input: the search never launched #3")
+    # two vision passes (the encode and the search request, 64 rows each):
+    # #1, #4 and #5 once per block, no backward
+    layers = retriever.clip_cfg.vision_layers
+    want = {"fused_attention_fwd": 2 * layers, "fused_attention_bwd": 0,
+            "fused_layer_norm": 2 * layers, "fused_add_layer_norm": 2 * layers}
+    check(all(serve_launches[k] == n for k, n in want.items()),
+          f"input serving: launches {serve_launches}, the code implies {want}")
+
+    images = random_images(N_IMAGES, 224, seed=13)
+    rates = {}
+    for depth in (1, 2, 2, 1):
+        retriever.cfg = retriever.cfg.replace(prefetch_device=depth)
+        retriever.encode_images(images[:BATCH], batch_size=BATCH)        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = retriever.encode_images(images, batch_size=BATCH)
+        torch.cuda.synchronize()
+        rates.setdefault(f"encode_items_s_depth{depth}", []).append(
+            round(N_IMAGES / (time.perf_counter() - t0), 1))
+        check(np.array_equal(codes[:INPUT_SERVE_FILES], retriever.encode_images(
+            images[:INPUT_SERVE_FILES])), "input: codes depend on the chunking")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            retriever.encode_images(images, batch_size=BATCH)
+            torch.cuda.synchronize()
+        # device-side records only, as tools/profile_torch_serving.py sums them
+        h2d = sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "memcpy htod" in e.name.lower())
+        rates.setdefault(f"h2d_device_ms_depth{depth}", []).append(round(h2d, 2))
+    say("input", serve_files=INPUT_SERVE_FILES, served_codes="equal to direct encode",
+        search_hamming_launches=serve_launches["hamming_distance_packed"], batch=BATCH,
+        images=N_IMAGES, **rates)
+    return serve_launches, rates
+
+
+def input_path():
+    """Phase 13: the real-data input path, LayerNorm kernels on.  A 12,000
+    item JPEG dataset (MIRFlickr-25K's split sizes and orientations)
+    written by the port's encoder; the fixtures against PIL; decode and BPE
+    rates; the four transports bit-equal over 16 steps; a streamed and a
+    resident epoch with ``valid``; JPEG serving.  Returns the summed
+    launches of the runs."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.data import native
+    from ccmh_torch.data.split import load_raw
+    from ccmh_torch.data.synthetic import write_photo_jpeg_dataset
+
+    work = os.path.join(WORK, "input")
+    data = os.path.join(work, "data")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fixture_paths = input_fixtures(native)
+    t0 = time.perf_counter()
+    write_photo_jpeg_dataset(data, INPUT_ITEMS, n_class=24, seed=13, sizes=INPUT_SIZES,
+                             device="cuda")
+    write_s = time.perf_counter() - t0
+    raw = load_raw(os.path.join(data, "caption.mat"), os.path.join(data, "index.mat"),
+                   os.path.join(data, "label.mat"))
+    paths = [str(p).strip() for p in raw.indexes]
+    jpeg_bytes = sum(os.path.getsize(p) for p in paths)
+    say("input", items=INPUT_ITEMS, query=INPUT_QUERY, train=INPUT_TRAIN,
+        sizes=[list(s) for s in INPUT_SIZES], classes=24, captions_per_item=3,
+        write_s=round(write_s, 2), jpeg_mean_kb=round(jpeg_bytes / len(paths) / 1024, 1))
+    texts = [str(np.ravel(np.asarray(c, dtype=object))[0]) for c in raw.captions[:10000]]
+    rates = input_rates(native, paths, texts)
+
+    total = {}
+
+    def add(launches):
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+
+    n_steps = -(-INPUT_TRAIN // TRAIN_BATCH)
+    eval_batches = (-(-INPUT_QUERY // INPUT_EVAL_BATCH)
+                    + -(-(INPUT_ITEMS - INPUT_QUERY) // INPUT_EVAL_BATCH))   # query, retrieval
+    cm.set_ln_impl("fused")
+    try:
+        transports, _ = input_transports(data, work)
+        for name, launches in transports.items():
+            _check_launches(f"{name} 16 steps", launches,
+                            extra_state_launches(INPUT_STEPS, 0, ClipConfig()), phase="input")
+            add(launches)
+        epochs, epoch_results, model = input_epochs(data, work)
+        for name, launches in epochs.items():
+            _check_launches(f"{name} epoch", launches,
+                            extra_state_launches(n_steps, eval_batches, ClipConfig()),
+                            phase="input")
+            add(launches)
+        serve_launches, serve_rates = input_serving(model, fixture_paths)
+        add(serve_launches)
+    finally:
+        cm.set_ln_impl("plain")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2659,10 +3096,18 @@ def main() -> int:
     say("launches", path="lifecycle", **lifecycle)
     say("lifecycle", phase_seconds=round(time.perf_counter() - t12, 1))
 
+    # the real-data input path (slice 13): JPEG decode, BPE, caches,
+    # prefetch, residency and JPEG serving; each run resets the counts just
+    # before it and reads them just after
+    t13 = time.perf_counter()
+    input_launches = input_path()
+    say("launches", path="input", **input_launches)
+    say("input", phase_seconds=round(time.perf_counter() - t13, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
                    "token_methods": token[k], "extra_state": extra_state[k],
-                   "lifecycle": lifecycle[k]}
+                   "lifecycle": lifecycle[k], "input": input_launches.get(k, 0)}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

@@ -176,8 +176,8 @@ def test_token_methods_train_and_save_through_the_cli(tmp_path, method):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compilation-cache", "cache"], ["--device-resident", "on"], ["--cache-dir", "cache"],
-    ["--mesh", "2"], ["--fsdp"], ["--cache-images"], ["--remat"], ["--profile"],
+    ["--compilation-cache", "cache"],
+    ["--mesh", "2"], ["--fsdp"], ["--remat"], ["--profile"],
     ["--set", "optim_moments_dtype=bfloat16"],
 ], ids=lambda f: f[0].lstrip("-") + (f[1] if len(f) > 1 and f[0] == "--set" else ""))
 def test_unported_flags_raise_instead_of_being_ignored(tmp_path, flags):

@@ -15,6 +15,7 @@ import scipy.io as scio
 
 from ccmh.data.dataset import BatchIterator as JBatchIterator, CrossModalDataset as JDataset
 from ccmh.data.split import make_splits as j_make_splits
+from ccmh.data.synthetic import synthetic_arrays as jsynthetic_arrays
 from ccmh.data.synthetic import write_synthetic_mat_dataset as j_write
 from ccmh_torch.data.dataset import BatchIterator, CrossModalDataset
 from ccmh_torch.data.split import make_splits
@@ -88,13 +89,20 @@ def test_batches_of_two_epochs_match(datasets, ragged_last, drop_last, shuffle):
                 np.testing.assert_array_equal(g[key], w[key], err_msg=f"epoch {epoch} {key}")
 
 
-def test_other_image_sizes_raise_not_yet_ported():
+def test_other_image_sizes_raise_not_yet_ported(tmp_path):
+    """Once refused, now ported: an npy image of another size is resized
+    as ccmh resizes it (within 2 LSB of PIL), and ``jpeg=True`` writes
+    JPEG files and an index.mat (tests/test_torch_jpeg_dataset.py holds
+    both to ccmh in full)."""
     raw = synthetic_arrays(n=4, n_class=3, resolution=RES + 8, seed=0)
-    ds = CrossModalDataset(raw, resolution=RES)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ds.load_image(0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        write_synthetic_mat_dataset("/nonexistent-dir-never-made", jpeg=True)
+    jraw = jsynthetic_arrays(n=4, n_class=3, resolution=RES + 8, seed=0)
+    got = CrossModalDataset(raw, resolution=RES).load_image(0)
+    want = JDataset(jraw, resolution=RES).load_image(0)
+    assert got.shape == (RES, RES, 3)
+    assert np.abs(got - want).max() * 0.27577711 * 255 <= 2 + 1e-3
+    out = write_synthetic_mat_dataset(str(tmp_path / "d"), n=4, resolution=RES, jpeg=True)
+    assert os.path.exists(os.path.join(out, "index.mat"))
+    assert len(os.listdir(os.path.join(out, "images"))) == 4
 
 
 def test_a_consumer_that_stops_early_does_not_hang():

@@ -8,6 +8,7 @@ orbax), so the port keeps its own copies of what it needs from ccmh.
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -45,6 +46,8 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.train.methods.dghdgh\n"
         "import ccmh_torch.ops.pr_curve, ccmh_torch.ops.recall, ccmh_torch.clip.hf\n"
         "import ccmh_torch.clip.import_ref, ccmh_torch.clip.export_ref\n"
+        "import ccmh_torch.tokenizer.native, ccmh_torch.data.native\n"
+        "import ccmh_torch.data.cache, ccmh_torch.data.prefetch, ccmh_torch.data.resident\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -75,6 +78,65 @@ def test_no_forbidden_import_in_source(path):
             if root == "ftfy" and path.endswith("bpe.py"):
                 continue
             assert root not in FORBIDDEN_ROOTS, f"{path}:{node.lineno} imports {name}"
+
+
+def _string_constants(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            yield node
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "join":
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and arg.value == "ccmh":
+                    yield arg
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_file_names_a_path_under_ccmh(path):
+    """No string of the port's code (docstrings and comments aside) names a
+    path in ccmh's tree, so no source is read or built from there."""
+    for node in _string_constants(path):
+        # a "file:line" citation of ccmh's code (chip_smoke.py's "replaces"
+        # column) names no path the code opens
+        text = re.sub(r"ccmh/[\w/.]+\.py:\d+", "", node.value.replace("\\", "/"))
+        assert text != "ccmh" and "ccmh/" not in text.replace("ccmh_torch/", ""), (
+            f"{path}:{node.lineno} names {node.value!r}")
+
+
+def test_host_libraries_build_under_the_ignored_build_directory(tmp_path, monkeypatch):
+    """The native tokenizer and image loader build from the port's own
+    sources into build/ccmh_torch_host/ (git-ignored), named by a hash of
+    the source and the flags."""
+    from ccmh_torch.data import native as loader
+    from ccmh_torch.tokenizer import native as bpe
+    from ccmh_torch.utils import host_build
+
+    port = os.path.join(REPO, "ccmh_torch")
+    for mod in (bpe, loader):
+        assert os.path.dirname(mod.SRC).startswith(port + os.sep), mod.SRC
+    assert host_build.BUILD_DIR == os.path.join(REPO, "build", "ccmh_torch_host")
+    with open(os.path.join(REPO, ".gitignore")) as fh:
+        assert "build/" in fh.read().split()
+    decoder, flags = loader.build_flags()
+    lib = host_build.build(loader.SRC, f"loader_{decoder}", flags)
+    assert os.path.dirname(lib) == host_build.BUILD_DIR
+    assert host_build.library_path(loader.SRC, "x", flags) != host_build.library_path(
+        loader.SRC, "x", flags + ("-DOTHER",))
+    src = tmp_path / "bpe.cpp"
+    src.write_bytes(open(bpe.SRC, "rb").read())
+    before = host_build.library_path(str(src), "bpe", bpe.FLAGS)
+    with open(src, "a") as fh:
+        fh.write("\n// edited\n")
+    assert host_build.library_path(str(src), "bpe", bpe.FLAGS) != before
+    assert not [n for n in os.listdir(os.path.dirname(bpe.SRC)) if n.endswith(".so")]
+    assert not [n for n in os.listdir(os.path.dirname(loader.SRC)) if n.endswith(".so")]
 
 
 def test_package_data_ships_the_kernel_sources_and_vocab():

@@ -227,11 +227,46 @@ def test_add_then_search_finds_new_item(server):
 def test_client_errors_are_400(server):
     srv, *_ = server
     code, msg = _error(srv, "/v1/encode", {"images_jpeg_b64": ["AAAA"]})
-    assert code == 400 and "not yet ported" in msg
+    assert code == 400 and "not a decodable JPEG" in msg
     assert _error(srv, "/v1/encode", {})[0] == 400
     assert _error(srv, "/v1/search", {"texts": ["x"], "k": 0})[0] == 400
     assert _error(srv, "/v1/search", {"texts": ["x"], "index": "text"})[0] == 400
     assert _error(srv, "/v1/add", {"codes": [[1, -1]]})[0] == 400
+
+
+def _fixture_files():
+    from tests.test_torch_jpeg_dataset import FIXTURE_DIR, FIXTURES
+
+    return [open(os.path.join(FIXTURE_DIR, f"{n}.jpg"), "rb").read() for n in FIXTURES]
+
+
+def test_jpeg_b64_codes_equal_ccmh_service(server, pair):
+    """``images_jpeg_b64`` over HTTP: the codes of ccmh's service on the
+    same files and weights, and of the direct encode of the native
+    loader's arrays; bad base64 and undecodable files answer 400 as in
+    ccmh."""
+    from ccmh.serve import RetrievalService as JService, ServiceError as JServiceError
+    from ccmh_torch.data import native
+
+    srv, *_ = server
+    jret, tret, _ = pair
+    files = _fixture_files()
+    body = {"images_jpeg_b64": [base64.b64encode(f).decode() for f in files]}
+    got = np.asarray(_call(srv, "/v1/encode", body)["codes"])
+    want = JService(jret, {}, batching=False).encode(body)["codes"]
+    np.testing.assert_array_equal(got, np.asarray(want))
+    arrays, ok = native.decode_batch_mem(files, TINY.image_resolution)
+    assert ok.all()
+    np.testing.assert_array_equal(got, tret.encode_images(arrays))
+    bad_b64 = {"images_jpeg_b64": ["not base64!"]}
+    code, msg = _error(srv, "/v1/encode", bad_b64)
+    with pytest.raises(JServiceError) as jerr:
+        JService(jret, {}, batching=False).encode(bad_b64)
+    assert code == 400 and msg == str(jerr.value)
+    for body in ({"images_jpeg_b64": "x"}, {"images_jpeg_b64": [base64.b64encode(b"junk").decode()]}):
+        with pytest.raises(JServiceError):
+            JService(jret, {}, batching=False).encode(body)
+        assert _error(srv, "/v1/encode", body)[0] == 400
 
 
 def test_service_rejects_wrong_width_ids(pair):
