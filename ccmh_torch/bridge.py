@@ -11,6 +11,10 @@ direction imports ``ccmh`` or JAX; callers hand over numpy arrays
 (MITH's residual MLP layers) stay lists.  ``ccmh``'s BertAdam
 state (the ``m`` and ``v`` trees and ``step``, as numpy) goes into the
 port's optimizer with ``BertAdam.load_tree_state`` (train/optim.py).
+numpy has no bfloat16 of its own: ``ccmh``'s bf16 leaves (reduced
+optimizer moments) arrive as ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` refuses, and cross through a 16-bit view
+(:func:`tensor_from_numpy`), bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +29,16 @@ from ccmh_torch.device import DeviceLike, resolve_device
 Params = Dict[str, Any]
 
 
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A host tensor holding a copy of array ``a``; a bfloat16 array
+    (``ml_dtypes``, read by its name: the port does not import it) keeps
+    its bits and comes out ``torch.bfloat16``."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
     """Nested dict of numpy arrays (``ccmh``'s tree) -> same tree of tensors
     on ``device``, dtypes and shapes unchanged."""
@@ -35,7 +49,7 @@ def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, list):
             return [conv(v) for v in node]
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+        return tensor_from_numpy(node).to(dev)
 
     return conv(tree)
 

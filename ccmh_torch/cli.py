@@ -11,9 +11,11 @@ main.py:36-46 plus argsbase.py:4-37), plus ``--device`` (default
 
 ``--clip-path`` takes ``.npz``, OpenAI ``.pt`` and HF directories;
 ``--pretrained`` takes ``.npz``, full-state directories and reference
-``.pth`` files.  Flags of features the port does not have yet (meshes,
-image caches, remat, profiling, ...) raise ``NotImplementedError`` from
-the Trainer instead of being ignored.
+``.pth`` files.  ``--remat`` (``--set remat_policy=dots``), ``--set
+optim_moments_dtype=bfloat16`` and ``--profile`` work as in ``ccmh``.
+Flags of features the port does not have (meshes, XLA's compilation
+cache, ``param_dtype``) raise ``NotImplementedError`` from the Trainer
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -108,10 +110,15 @@ def build_parser() -> argparse.ArgumentParser:
                              f"(default {defaults.device_resident_budget_mb}), "
                              "else trains chunked (--set device_resident_block_rows) "
                              "or streams")
-    # ccmh's flags for features this package does not have yet: kept so
-    # that a command line of ccmh parses, and refused by the Trainer
-    unported = "not yet ported to ccmh_torch: raises NotImplementedError"
-    parser.add_argument("--remat", action="store_true", default=defaults.remat, help=unported)
+    # ccmh's flags for features this package does not have: kept so that a
+    # command line of ccmh parses, and refused by the Trainer
+    unported = "not ported to ccmh_torch: raises NotImplementedError"
+    parser.add_argument("--remat", action="store_true", default=defaults.remat,
+                        help="checkpoint each tower block in the train step: the "
+                             "backward recomputes its activations (torch.utils."
+                             "checkpoint), about one more forward for a saved "
+                             "[B, L, W] per block; --set remat_policy=dots keeps "
+                             "the matmul outputs and recomputes the rest")
     parser.add_argument("--checkpoint-every", type=int, default=defaults.checkpoint_every,
                         help="a full-state checkpoint every N epochs under "
                              "<save-dir>/state_ckpt (0: none)")
@@ -122,9 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="continue from the newest full-state checkpoint of the "
                              "save dir, mid-epoch after a preemption")
     parser.add_argument("--profile", action="store_true", default=defaults.profile,
-                        help=unported)
+                        help="trace epoch 1 with torch.profiler (host, and CUDA "
+                             "on a card) into <save-dir>/profile")
     parser.add_argument("--compilation-cache", type=str,
-                        default=defaults.compilation_cache, metavar="DIR", help=unported)
+                        default=defaults.compilation_cache, metavar="DIR",
+                        help="XLA's persistent compilation cache in ccmh; the port "
+                             "compiles no XLA and builds its CUDA kernels once into "
+                             "build/, so this " + unported)
     parser.add_argument("--mesh", type=str, default="1",
                         help="device mesh shape; anything but '1' is " + unported)
     parser.add_argument("--fsdp", action="store_true", default=False, help=unported)

@@ -31,6 +31,7 @@ The head-major (tensor-parallel) layout is not ported.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -78,6 +79,20 @@ class ClipConfig:
             embed_dim=64, image_resolution=32, vision_layers=2, vision_width=128,
             vision_patch_size=16, context_length=77, vocab_size=49408,
             transformer_width=128, transformer_heads=2, transformer_layers=2,
+        )
+
+    @classmethod
+    def vit_l14(cls, resolution: int = 224) -> "ClipConfig":
+        """ViT-L/14 (``resolution=336`` for ViT-L/14@336px): 24 vision
+        blocks of width 1024 (16 heads, 257 or 577 tokens) and a 12-block
+        width-768 text tower, ``ccmh``'s preset.  A converted checkpoint
+        infers its shape itself; the preset builds the tower without
+        weights (benchmarks, sizing)."""
+        return cls(
+            embed_dim=768, image_resolution=resolution, vision_layers=24,
+            vision_width=1024, vision_patch_size=14, context_length=77,
+            vocab_size=49408, transformer_width=768, transformer_heads=12,
+            transformer_layers=12,
         )
 
 
@@ -182,12 +197,55 @@ def _layer(tree: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the products without a batch
+    dimension (``x @ w``, which eager PyTorch runs as ``mm`` / ``addmm``)
+    and recompute the rest, ``ccmh``'s ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(x: torch.Tensor, layer: Params, n_head: int,
+                 attn_bias: Optional[torch.Tensor], remat) -> torch.Tensor:
+    """One block under activation checkpointing: only its input (and the
+    layer's weights, views of the stacked leaves) stay saved, and the
+    backward recomputes the block; ``"dots"`` also keeps its matmul outputs."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    def block(h):
+        return _block(h, _cast_layer(layer, h.dtype), n_head, attn_bias)[0]
+
+    if remat == "dots":
+        return checkpoint(block, x, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _dots_policy))
+    return checkpoint(block, x, use_reentrant=False)
+
+
+def _cast_layer(layer: Params, dtype: torch.dtype) -> Params:
+    if layer["ln_1"]["scale"].dtype != dtype:
+        layer = _map(lambda t: t.to(dtype), layer)
+    return layer
+
+
 def transformer(x: torch.Tensor, stacked: Params, n_head: int,
-                attn_bias: Optional[torch.Tensor] = None, need_last_attn: bool = False
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                attn_bias: Optional[torch.Tensor] = None, need_last_attn: bool = False,
+                remat=False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order over the stacked layer parameters ->
     (output, the last block's attention weights with ``need_last_attn``;
     only that block then takes the plain attention, as in ``ccmh``).
+
+    ``remat=True`` (or ``"full"``) checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    the block's activations from its saved input, about one more forward
+    for a saved [B, L, W] a block instead of every intermediate.
+    ``remat="dots"`` keeps the matmul outputs and recomputes the rest
+    (:func:`_dots_policy`).  With ``need_last_attn`` the last block runs
+    unchecked, as in ``ccmh``.  Recomputation repeats the forward's
+    kernels on the same inputs, so the gradients are the same bits.
 
     Weights in another dtype than ``x`` are cast per layer (LayerNorm still
     reduces in fp32); :func:`cast_clip_params` casts them once instead."""
@@ -195,10 +253,12 @@ def transformer(x: torch.Tensor, stacked: Params, n_head: int,
     weights = None
     for i in range(n_layers):
         layer = _layer(stacked, i)
-        if layer["ln_1"]["scale"].dtype != x.dtype:
-            layer = _map(lambda t: t.to(x.dtype), layer)
-        x, weights = _block(x, layer, n_head, attn_bias,
-                            need_weights=need_last_attn and i == n_layers - 1)
+        last = need_last_attn and i == n_layers - 1
+        if remat and not last:
+            x = _remat_block(x, layer, n_head, attn_bias, remat)
+        else:
+            x, weights = _block(x, _cast_layer(layer, x.dtype), n_head, attn_bias,
+                                need_weights=last)
     return x, weights
 
 
@@ -248,14 +308,16 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
                    dtype: torch.dtype = torch.float32,
-                   features: str = "pooled") -> VisionOutput:
+                   features: str = "pooled", remat=False) -> VisionOutput:
     """ViT forward (reference model/base/model.py:228-252).  ``features``:
 
     "pooled": the CLIP embedding;
     "tokens": and the token states before ``ln_post`` (DPSIH,
               model/DPSIH.py:88-95);
     "mith":   ``ln_post`` on *all* tokens, all projected, and the last
-              layer's cls -> patch attention row (model/MITH.py:57-83)."""
+              layer's cls -> patch attention row (model/MITH.py:57-83).
+
+    ``remat``: False, True / "full" or "dots" (:func:`transformer`)."""
     if features not in ("pooled", "tokens", "mith"):
         raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     if images.dtype == torch.uint8:
@@ -268,7 +330,7 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
     x = x + p["positional_embedding"].to(dtype)
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
     x, attn = transformer(x, p["blocks"], cfg.vision_heads, None,
-                          need_last_attn=features == "mith")
+                          need_last_attn=features == "mith", remat=remat)
     if features == "mith":
         h = layer_norm(x, p["ln_post"]["scale"], p["ln_post"]["bias"])
         tokens_proj = h @ p["proj"].to(dtype)              # [B, 1+P, E]
@@ -291,7 +353,7 @@ def causal_mask(length: int, device: Any = "cpu") -> torch.Tensor:
 
 def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
                  dtype: torch.dtype = torch.float32, features: str = "pooled",
-                 key_padding_mask: Optional[torch.Tensor] = None) -> TextOutput:
+                 key_padding_mask: Optional[torch.Tensor] = None, remat=False) -> TextOutput:
     """Causal text transformer with EOT pooling.
 
     ``ids``: integer [B, L] (L <= context_length; the positional embedding
@@ -301,7 +363,8 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
     joins the causal mask as a per-example [B, 1, L, L] bias.
     ``features``: "pooled" | "tokens" | "mith" (every token projected, the
     EOS attention row with its own column zeroed and the key-padding mask
-    extended to the EOT token, model/MITH.py:120-144)."""
+    extended to the EOT token, model/MITH.py:120-144).  ``remat`` as in
+    :func:`vision_forward`."""
     if features not in ("pooled", "tokens", "mith"):
         raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     B, L = ids.shape
@@ -314,7 +377,7 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
             key_padding_mask.to(torch.bool), -math.inf)
         bias = bias[None, None, :, :] + kp[:, None, None, :]
     x, attn = transformer(x, p["blocks"], cfg.transformer_heads, bias,
-                          need_last_attn=features == "mith")
+                          need_last_attn=features == "mith", remat=remat)
     eos_pos = ids.argmax(dim=-1)                           # [B]
     rows = torch.arange(B, device=x.device)
     h = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])

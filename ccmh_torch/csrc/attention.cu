@@ -46,6 +46,7 @@
 // 53.0 KB; L=77 34.9 / 66.0 KB; L=128 55.7 / 105.2 KB (Dh=128: 105.2 /
 // 204.3 KB).  Above 48 KB it needs cudaFuncSetAttribute.
 
+#include "attention_long.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -165,6 +166,134 @@ cudaError_t launch(const void* qkv, const void* qkv_b, const float* mask, void* 
   return launch_class<T, 128, 128>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The long path, L > 128 (attention_long.cuh): one block per (batch element,
+// head, 64-query tile), 4 warps of 16 queries.  The block's q tile stays in
+// shared memory; the k tiles stream through twice, first for each row's
+// softmax max and sum (RowStats), then with the v tiles for
+// p = exp(x - max) / sum, rounded to T, times v, accumulated in registers.
+// Shared memory 3 x 64 ld elements of T: Dh = 64 27.6 KB bf16 / 52.2 KB
+// fp32, Dh = 128 52.2 / 101.4 KB.
+//
+// What bounds it on an H100: at ViT-L/14 (B = 64, L = 257, H = 16) bf16
+// bytes (101 MB of qkv, 34 MB of context: 40 us at 3.35 TB/s), fp32 the
+// 3xTF32 products (the function's 17.3 GFLOP at a third of the 495 TF32
+// peak: 105 us; the stats pass's extra q k^T adds half again).  The k and v
+// tiles are re-read by every query tile of a head, from L2.
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(ccmh::attn_long::kThreads)
+attention_fwd_long_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_b,
+                          const float* __restrict__ mask, T* __restrict__ out, int L, int H,
+                          int Dh, float scale, int vec, int n_qt) {
+  using namespace ccmh::attn_long;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld<T>(Dh);
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk = sq + kTile * ld;
+  T* sv = sk + kTile * ld;
+  const int qt = blockIdx.x % n_qt;
+  const int h = (blockIdx.x / n_qt) % H, b = blockIdx.x / (n_qt * H);
+  const int D = H * Dh, D3 = 3 * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* base = qkv + (size_t)b * L * D3 + h * Dh;
+  const T* bq = qkv_b ? qkv_b + h * Dh : nullptr;
+  const T* bk = qkv_b ? bq + D : nullptr;
+  const T* bv = qkv_b ? bq + 2 * D : nullptr;
+  const int q0 = qt * kTile, nq = min(kTile, L - q0);
+  const int m0 = warp * 16;
+  const bool active = m0 < nq;          // the warp holds a query below L
+  const int i0 = q0 + m0 + (lane >> 2);
+  const int n_dk = pad16(Dh) / 16;
+  const int n_kt = (L + kTile - 1) / kTile;
+
+  load_tile<T>(sq, ld, base + (size_t)q0 * D3, D3, nq, Dh, bq, vec);
+  RowStats st;       // pass 1: each row's softmax max and sum over every key
+  st.init();
+  float inv[2] = {0.f, 0.f};
+  float o[DMAX / 8][4];   // pass 2: ctx = p . v, p normalised in fp32 and rounded to T
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int step = 0; step < 2 * n_kt; ++step) {
+    const bool pass2 = step >= n_kt;
+    const int k0 = (pass2 ? step - n_kt : step) * kTile, nk = min(kTile, L - k0);
+    if (step > 0) __syncthreads();      // every warp is done with the last tiles
+    load_tile<T>(sk, ld, base + D + (size_t)k0 * D3, D3, nk, Dh, bk, vec);
+    if (pass2) load_tile<T>(sv, ld, base + 2 * D + (size_t)k0 * D3, D3, nk, Dh, bv, vec);
+    land(vec);
+    if (vec && qkv_b != nullptr) {
+      if (step == 0) fold_bias<T>(sq, ld, nq, Dh, bq, vec);
+      fold_bias<T>(sk, ld, nk, Dh, bk, vec);
+      if (pass2) fold_bias<T>(sv, ld, nk, Dh, bv, vec);
+      __syncthreads();
+    }
+    if (active) {
+      for (int n0 = 0; n0 < nk; n0 += kChunk) {
+        const int n_blk = chunk_blocks(n0, nk);
+        float s[4][4];
+        rows_chunk<T>(s, sq, sk, ld, m0, n0, n_blk, n_dk, lane);
+        logits_rows(s, n_blk, scale, mask, i0, k0 + n0, L, lane);
+        if (!pass2) {
+          st.add(s, nullptr, n_blk);
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = expf(s[j][e] - st.mx[e >> 1]) * inv[e >> 1];
+#pragma unroll
+        for (int jb = 0; jb < 2; ++jb)
+          if (jb < n_blk)
+            acc_times<T>(o, s[2 * jb], s[2 * jb + 1], sv, ld, n0 + jb * 16, n_dk, lane);
+      }
+    }
+    if (step == n_kt - 1) {
+      st.finish();
+      inv[0] = 1.f / st.l[0];
+      inv[1] = 1.f / st.l[1];
+    }
+  }
+
+  // stage over the warp's own q rows (only this warp reads them), then store
+  if (active) {
+    __syncwarp();
+    stage_acc<T>(sq + m0 * ld, ld, o, 2 * n_dk, lane);
+    __syncwarp();
+    store_rows<T>(out + ((size_t)b * L + q0 + m0) * D + h * Dh, D, sq + m0 * ld, ld,
+                  min(16, nq - m0), Dh, vec, lane);
+  }
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_long_class(const void* qkv, const void* qkv_b, const float* mask,
+                              void* out, int B, int L, int H, int Dh, float scale, bool vec,
+                              cudaStream_t stream) {
+  using namespace ccmh::attn_long;
+  const size_t smem = (size_t)3 * kTile * tile_ld<T>(Dh) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_long_kernel<T, DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (L + kTile - 1) / kTile;
+  const long long blocks = (long long)B * H * n_qt;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  attention_fwd_long_kernel<T, DMAX><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(qkv_b), mask, static_cast<T*>(out),
+      L, H, Dh, scale, vec ? 1 : 0, n_qt);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, void* out,
+                        int B, int L, int H, int Dh, float scale, cudaStream_t stream) {
+  const bool vec = (Dh * sizeof(T)) % 16 == 0 && aligned16(qkv) && aligned16(out) &&
+                   (qkv_b == nullptr || aligned16(qkv_b));
+  if (pad16(Dh) <= 64)
+    return launch_long_class<T, 64>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
+  return launch_long_class<T, 128>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
+}
+
 }  // namespace
 
 // qkv [B, L, 3*H*Dh] and out [B, L, H*Dh] contiguous in `dtype`; qkv_b
@@ -174,7 +303,7 @@ cudaError_t launch(const void* qkv, const void* qkv_b, const float* mask, void* 
 extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b,
                                   const float* mask, void* out, int B, int L, int H,
                                   int Dh, float scale, int dtype, void* stream) {
-  if (B < 1 || H < 1 || H > 65535 || L < 1 || L > kMaxL ||
+  if (B < 1 || H < 1 || H > 65535 || L < 1 || L > ccmh::attn_long::kMaxL ||
       Dh < 1 || Dh > kMaxDh)
     return (int)cudaErrorInvalidValue;
   // this library links its own CUDA runtime, whose current device is not
@@ -184,9 +313,14 @@ extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ccmh::kFloat32:
-      return (int)launch<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+      return (int)(L > kMaxL
+                       ? launch_long<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s)
+                       : launch<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s));
     case ccmh::kBFloat16:
-      return (int)launch<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+      return (int)(L > kMaxL ? launch_long<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh,
+                                                          scale, s)
+                             : launch<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh,
+                                                     scale, s));
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -68,6 +68,7 @@
 
 #include <type_traits>
 
+#include "attention_long.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -523,6 +524,365 @@ cudaError_t launch(int device, const void* qkv, const void* qkv_b, const float* 
   return cudaErrorInvalidValue;   // no shape up to L = Dh = 128 comes here
 }
 
+// ---------------------------------------------------------------------------
+// The long path, L > 128 (attention_long.cuh): three kernels in stream
+// order, each a block per (batch element, head, 64-row tile) of 4 warps,
+// every output element summed by one warp in a fixed order (no atomics:
+// the same bits every run, which bit-equal resume and remat need):
+//   1. stats, query-major: the k and v tiles stream past the block's q and
+//      g tiles for each row's softmax max, 1 / sum and D_i = sum_j p_ij dp_ij
+//      over the unrounded p (RowStats), written as fp32 into the row's own
+//      dq slot of dqkv (its Dh elements of T hold the 12 bytes);
+//   2. dk and dv, key-major: the q and g tiles and their rows' statistics
+//      stream past the block's k and v tiles; each warp recomputes its 16
+//      keys' logits and dp against them, p and dS = p (dp - D_i) scale,
+//      rounded to T, and sums dv += p_c^T g and dk += dS_c^T q in registers;
+//   3. dq, query-major: the k and v tiles stream past the block's q and g
+//      tiles; each warp reads its rows' statistics, sums dq += dS_c k, and
+//      overwrites them with dq.
+// So no scratch beyond dqkv, and the grid has L / 64 times the blocks of a
+// block per head (which it outran: PERF.md).  Each warp stages its outputs
+// over its own rows of a resident tile and stores them 16 bytes at a time
+// where aligned.  Shared memory 4 x 64 ld elements of T (+ 768 bytes of
+// statistics in kernel 2): Dh = 64 36.9 KB bf16 / 69.6 KB fp32, Dh = 128
+// 69.6 / 135.2 KB.
+//
+// What bounds it on an H100: at ViT-L/14 (B = 64, L = 257, H = 16) bf16 the
+// bytes (101 MB of qkv and 34 MB of g read, 101 MB of dqkv written: 70 us),
+// fp32 the 3xTF32 products.  The kernels take nine products where five
+// suffice (q k^T and g v^T three times each), the price of streaming
+// without atomics or a device-memory [L, L] tile.
+
+// fp32 statistics in a 2-byte aligned slot of T (a bf16 row slice need not
+// be 4-byte aligned)
+__device__ __forceinline__ void put_stat(void* slot, int k, float x) {
+  unsigned short* p = static_cast<unsigned short*>(slot) + 2 * k;
+  const uint32_t u = __float_as_uint(x);
+  p[0] = static_cast<unsigned short>(u & 0xffffu);
+  p[1] = static_cast<unsigned short>(u >> 16);
+}
+
+__device__ __forceinline__ float get_stat(const void* slot, int k) {
+  const unsigned short* p = static_cast<const unsigned short*>(slot) + 2 * k;
+  return __uint_as_float(static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 16));
+}
+
+// what the three kernels share: the block's tile, head and pointers
+template <typename T>
+struct LongBwd {
+  const T* base;     // the head's q slice of row 0 of qkv (k at + D, v at + 2 D)
+  const T* gbase;    // the head's slice of row 0 of g
+  T* obase;          // the head's dq slice of row 0 of dqkv
+  const T *bq, *bk, *bv;
+  int D, D3, t0, nt, n_t;
+
+  __device__ LongBwd(const T* qkv, const T* qkv_b, const T* g, T* dqkv, int L, int H, int Dh) {
+    using namespace ccmh::attn_long;
+    n_t = (L + kTile - 1) / kTile;
+    const int tile = blockIdx.x % n_t, h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
+    D = H * Dh;
+    D3 = 3 * D;
+    base = qkv + (size_t)b * L * D3 + h * Dh;
+    gbase = g + (size_t)b * L * D + h * Dh;
+    obase = dqkv + (size_t)b * L * D3 + h * Dh;
+    bq = qkv_b ? qkv_b + h * Dh : nullptr;
+    bk = qkv_b ? bq + D : nullptr;
+    bv = qkv_b ? bq + 2 * D : nullptr;
+    t0 = tile * kTile;
+    nt = min(kTile, L - t0);
+  }
+};
+
+// the k and v tiles of key tile kt
+template <typename T>
+__device__ __forceinline__ void load_kv(const LongBwd<T>& a, T* sk, T* sv, int ld, int kt, int L,
+                                        int Dh, bool vec) {
+  using namespace ccmh::attn_long;
+  const int k0 = kt * kTile, nk = min(kTile, L - k0);
+  load_tile<T>(sk, ld, a.base + a.D + (size_t)k0 * a.D3, a.D3, nk, Dh, a.bk, vec);
+  load_tile<T>(sv, ld, a.base + 2 * a.D + (size_t)k0 * a.D3, a.D3, nk, Dh, a.bv, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ccmh::attn_long::kThreads)
+attention_bwd_long_stats(const T* __restrict__ qkv, const T* __restrict__ qkv_b,
+                         const float* __restrict__ mask, const T* __restrict__ g,
+                         T* __restrict__ dqkv, int L, int H, int Dh, float scale, int vec) {
+  using namespace ccmh::attn_long;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld<T>(Dh);
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sg = sq + kTile * ld;
+  T* sk = sg + kTile * ld;
+  T* sv = sk + kTile * ld;
+  const LongBwd<T> a(qkv, qkv_b, g, dqkv, L, H, Dh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = warp * 16, i0 = a.t0 + m0 + (lane >> 2);
+  const bool active = m0 < a.nt;
+  const int n_dk = pad16(Dh) / 16;
+
+  load_tile<T>(sq, ld, a.base + (size_t)a.t0 * a.D3, a.D3, a.nt, Dh, a.bq, vec);
+  load_tile<T>(sg, ld, a.gbase + (size_t)a.t0 * a.D, a.D, a.nt, Dh, nullptr, vec);
+  RowStats st;
+  st.init();
+  for (int kt = 0; kt < a.n_t; ++kt) {
+    const int k0 = kt * kTile, nk = min(kTile, L - k0);
+    if (kt > 0) __syncthreads();
+    load_kv(a, sk, sv, ld, kt, L, Dh, vec);
+    land(vec);
+    if (vec && qkv_b != nullptr) {
+      if (kt == 0) fold_bias<T>(sq, ld, a.nt, Dh, a.bq, vec);
+      fold_bias<T>(sk, ld, nk, Dh, a.bk, vec);
+      fold_bias<T>(sv, ld, nk, Dh, a.bv, vec);
+      __syncthreads();
+    }
+    if (active) {
+      for (int n0 = 0; n0 < nk; n0 += kChunk) {
+        const int n_blk = chunk_blocks(n0, nk);
+        float s[4][4], dp[4][4];
+        rows_chunk<T>(s, sq, sk, ld, m0, n0, n_blk, n_dk, lane);
+        rows_chunk<T>(dp, sg, sv, ld, m0, n0, n_blk, n_dk, lane);
+        logits_rows(s, n_blk, scale, mask, i0, k0 + n0, L, lane);
+        st.add(s, dp, n_blk);
+      }
+    }
+  }
+  st.finish();
+  if (active && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        T* slot = a.obase + (size_t)i * a.D3;
+        const float inv = 1.f / st.l[r];
+        put_stat(slot, 0, st.mx[r]);
+        put_stat(slot, 1, inv);
+        put_stat(slot, 2, st.dn[r] * inv);
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(ccmh::attn_long::kThreads)
+attention_bwd_long_dkdv(const T* __restrict__ qkv, const T* __restrict__ qkv_b,
+                        const float* __restrict__ mask, const T* __restrict__ g,
+                        T* __restrict__ dqkv, int L, int H, int Dh, float scale, int vec) {
+  using namespace ccmh::attn_long;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld<T>(Dh);
+  T* sk = reinterpret_cast<T*>(smem_raw);
+  T* sv = sk + kTile * ld;
+  T* sq = sv + kTile * ld;
+  T* sg = sq + kTile * ld;
+  float* s_mx = reinterpret_cast<float*>(sg + kTile * ld);   // the q tile's statistics
+  float* s_inv = s_mx + kTile;
+  float* s_d = s_inv + kTile;
+  const LongBwd<T> a(qkv, qkv_b, g, dqkv, L, H, Dh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int m0 = warp * 16;
+  const int j0 = a.t0 + m0 + (lane >> 2);     // the warp's keys j0 and j0 + 8
+  const bool active = m0 < a.nt;
+  const int n_dk = pad16(Dh) / 16;
+
+  load_tile<T>(sk, ld, a.base + a.D + (size_t)a.t0 * a.D3, a.D3, a.nt, Dh, a.bk, vec);
+  load_tile<T>(sv, ld, a.base + 2 * a.D + (size_t)a.t0 * a.D3, a.D3, a.nt, Dh, a.bv, vec);
+  float dk[DMAX / 8][4], dv[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  for (int qt = 0; qt < a.n_t; ++qt) {
+    const int q0 = qt * kTile, nq = min(kTile, L - q0);
+    if (qt > 0) __syncthreads();
+    load_tile<T>(sq, ld, a.base + (size_t)q0 * a.D3, a.D3, nq, Dh, a.bq, vec);
+    load_tile<T>(sg, ld, a.gbase + (size_t)q0 * a.D, a.D, nq, Dh, nullptr, vec);
+    if (threadIdx.x < nq) {
+      const T* slot = a.obase + (size_t)(q0 + threadIdx.x) * a.D3;
+      s_mx[threadIdx.x] = get_stat(slot, 0);
+      s_inv[threadIdx.x] = get_stat(slot, 1);
+      s_d[threadIdx.x] = get_stat(slot, 2);
+    }
+    land(vec);
+    if (vec && qkv_b != nullptr) {
+      if (qt == 0) {
+        fold_bias<T>(sk, ld, a.nt, Dh, a.bk, vec);
+        fold_bias<T>(sv, ld, a.nt, Dh, a.bv, vec);
+      }
+      fold_bias<T>(sq, ld, nq, Dh, a.bq, vec);
+      __syncthreads();
+    }
+    if (active) {
+      for (int n0 = 0; n0 < nq; n0 += kChunk) {
+        const int n_blk = chunk_blocks(n0, nq);
+        float s[4][4], dp[4][4];
+        rows_chunk<T>(s, sk, sq, ld, m0, n0, n_blk, n_dk, lane);    // [keys][queries]
+        rows_chunk<T>(dp, sv, sg, ld, m0, n0, n_blk, n_dk, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + 8 * (e >> 1);
+            const int r = n0 + 8 * j + 2 * t + (e & 1);     // the query's row in the tile
+            float p = 0.f, ds = 0.f;
+            if (j / 2 < n_blk && key < L && r < nq) {
+              const float x = logit(s[j][e], scale, mask, q0 + r, key, L);
+              p = expf(x - s_mx[r]) * s_inv[r];
+              ds = p * (dp[j][e] - s_d[r]) * scale;
+            }
+            s[j][e] = p;
+            dp[j][e] = ds;
+          }
+#pragma unroll
+        for (int jb = 0; jb < 2; ++jb)
+          if (jb < n_blk) {
+            acc_times<T>(dv, s[2 * jb], s[2 * jb + 1], sg, ld, n0 + jb * 16, n_dk, lane);
+            acc_times<T>(dk, dp[2 * jb], dp[2 * jb + 1], sq, ld, n0 + jb * 16, n_dk, lane);
+          }
+      }
+    }
+  }
+  if (active) {
+    __syncwarp();
+    stage_acc<T>(sk + m0 * ld, ld, dk, 2 * n_dk, lane);
+    stage_acc<T>(sv + m0 * ld, ld, dv, 2 * n_dk, lane);
+    __syncwarp();
+    const int rows = min(16, a.nt - m0);
+    T* out = a.obase + (size_t)(a.t0 + m0) * a.D3;
+    store_rows<T>(out + a.D, a.D3, sk + m0 * ld, ld, rows, Dh, vec, lane);
+    store_rows<T>(out + 2 * a.D, a.D3, sv + m0 * ld, ld, rows, Dh, vec, lane);
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(ccmh::attn_long::kThreads)
+attention_bwd_long_dq(const T* __restrict__ qkv, const T* __restrict__ qkv_b,
+                      const float* __restrict__ mask, const T* __restrict__ g,
+                      T* __restrict__ dqkv, int L, int H, int Dh, float scale, int vec) {
+  using namespace ccmh::attn_long;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld<T>(Dh);
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sg = sq + kTile * ld;
+  T* sk = sg + kTile * ld;
+  T* sv = sk + kTile * ld;
+  const LongBwd<T> a(qkv, qkv_b, g, dqkv, L, H, Dh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = warp * 16, i0 = a.t0 + m0 + (lane >> 2);
+  const bool active = m0 < a.nt;
+  const int n_dk = pad16(Dh) / 16;
+
+  // the warp's rows' statistics (kernel 1's), read before its dq overwrites them
+  float mx[2], inv[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    mx[r] = inv[r] = dd[r] = 0.f;
+    if (active && i < L) {
+      const T* slot = a.obase + (size_t)i * a.D3;
+      mx[r] = get_stat(slot, 0);
+      inv[r] = get_stat(slot, 1);
+      dd[r] = get_stat(slot, 2);
+    }
+  }
+  load_tile<T>(sq, ld, a.base + (size_t)a.t0 * a.D3, a.D3, a.nt, Dh, a.bq, vec);
+  load_tile<T>(sg, ld, a.gbase + (size_t)a.t0 * a.D, a.D, a.nt, Dh, nullptr, vec);
+  float dq[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int kt = 0; kt < a.n_t; ++kt) {
+    const int k0 = kt * kTile, nk = min(kTile, L - k0);
+    if (kt > 0) __syncthreads();
+    load_kv(a, sk, sv, ld, kt, L, Dh, vec);
+    land(vec);
+    if (vec && qkv_b != nullptr) {
+      if (kt == 0) fold_bias<T>(sq, ld, a.nt, Dh, a.bq, vec);
+      fold_bias<T>(sk, ld, nk, Dh, a.bk, vec);
+      fold_bias<T>(sv, ld, nk, Dh, a.bv, vec);
+      __syncthreads();
+    }
+    if (active) {
+      for (int n0 = 0; n0 < nk; n0 += kChunk) {
+        const int n_blk = chunk_blocks(n0, nk);
+        float s[4][4], dp[4][4];
+        rows_chunk<T>(s, sq, sk, ld, m0, n0, n_blk, n_dk, lane);
+        rows_chunk<T>(dp, sg, sv, ld, m0, n0, n_blk, n_dk, lane);
+        logits_rows(s, n_blk, scale, mask, i0, k0 + n0, L, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = expf(s[j][e] - mx[r]) * inv[r];
+            s[j][e] = p * (dp[j][e] - dd[r]) * scale;     // dS scale, rounded to T below
+          }
+#pragma unroll
+        for (int jb = 0; jb < 2; ++jb)
+          if (jb < n_blk)
+            acc_times<T>(dq, s[2 * jb], s[2 * jb + 1], sk, ld, n0 + jb * 16, n_dk, lane);
+      }
+    }
+  }
+  if (active) {
+    __syncwarp();
+    stage_acc<T>(sq + m0 * ld, ld, dq, 2 * n_dk, lane);
+    __syncwarp();
+    store_rows<T>(a.obase + (size_t)(a.t0 + m0) * a.D3, a.D3, sq + m0 * ld, ld,
+                  min(16, a.nt - m0), Dh, vec, lane);
+  }
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_long_class(const void* qkv, const void* qkv_b, const float* mask,
+                              const void* g, void* dqkv, int B, int L, int H, int Dh,
+                              float scale, bool vec, cudaStream_t stream) {
+  using namespace ccmh::attn_long;
+  const size_t tiles = (size_t)4 * kTile * tile_ld<T>(Dh) * sizeof(T);
+  const size_t stats = (size_t)3 * kTile * sizeof(float);
+  const long long blocks = (long long)B * H * ((L + kTile - 1) / kTile);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const T* q = static_cast<const T*>(qkv);
+  const T* qb = static_cast<const T*>(qkv_b);
+  const T* gg = static_cast<const T*>(g);
+  T* out = static_cast<T*>(dqkv);
+  const int v = vec ? 1 : 0;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_long_stats<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)tiles);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_long_dkdv<T, DMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(tiles + stats));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_long_dq<T, DMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tiles);
+  if (err != cudaSuccess) return err;
+  attention_bwd_long_stats<T><<<(unsigned)blocks, kThreads, tiles, stream>>>(
+      q, qb, mask, gg, out, L, H, Dh, scale, v);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_long_dkdv<T, DMAX><<<(unsigned)blocks, kThreads, tiles + stats, stream>>>(
+      q, qb, mask, gg, out, L, H, Dh, scale, v);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_long_dq<T, DMAX><<<(unsigned)blocks, kThreads, tiles, stream>>>(
+      q, qb, mask, gg, out, L, H, Dh, scale, v);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, const void* g,
+                        void* dqkv, int B, int L, int H, int Dh, float scale,
+                        cudaStream_t stream) {
+  // kernel 1 keeps each row's three fp32 statistics in the row's dq slot
+  if (Dh * sizeof(T) < 3 * sizeof(float)) return cudaErrorInvalidValue;
+  const bool vec = (Dh * sizeof(T)) % 16 == 0 && aligned16(qkv) && aligned16(g) &&
+                   aligned16(dqkv) && (qkv_b == nullptr || aligned16(qkv_b));
+  if (pad16(Dh) <= 64)
+    return launch_long_class<T, 64>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, vec,
+                                    stream);
+  return launch_long_class<T, 128>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, vec,
+                                   stream);
+}
+
 }  // namespace
 
 // qkv and dqkv [B, L, 3*H*Dh], g [B, L, H*Dh], all contiguous in `dtype`;
@@ -533,7 +893,8 @@ extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b
                                   const float* mask, const void* g, void* dqkv, int B,
                                   int L, int H, int Dh, float scale, int dtype,
                                   void* stream) {
-  if (B < 1 || H < 1 || H > 65535 || L < 1 || L > kMaxL || Dh < 1 || Dh > kMaxDh)
+  if (B < 1 || H < 1 || H > 65535 || L < 1 || L > ccmh::attn_long::kMaxL || Dh < 1 ||
+      Dh > kMaxDh)
     return (int)cudaErrorInvalidValue;
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: name the card of the tensors
@@ -542,10 +903,15 @@ extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ccmh::kFloat32:
-      return (int)launch<float>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, s);
+      return (int)(L > kMaxL ? launch_long<float>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
+                                                  scale, s)
+                             : launch<float>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
+                                             scale, s));
     case ccmh::kBFloat16:
-      return (int)launch<__nv_bfloat16>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
-                                        scale, s);
+      return (int)(L > kMaxL ? launch_long<__nv_bfloat16>(qkv, qkv_b, mask, g, dqkv, B, L, H,
+                                                          Dh, scale, s)
+                             : launch<__nv_bfloat16>(device, qkv, qkv_b, mask, g, dqkv, B, L,
+                                                     H, Dh, scale, s));
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,6 +19,12 @@ plus the (B, L) sum for ``d qkv_b`` (``_bwd``); the mask gets no gradient.
 them are the plain PyTorch versions.  A CPU tensor takes the plain versions
 (so the CPU tests exercise the Function's wiring); a CUDA tensor launches
 the kernels or raises.
+
+Sequences past 128 tokens (ViT-B/16's 197, ViT-L/14's 257, ViT-L/14@336's
+577, MITH's concept transformers at K > 128) take the kernels' long path,
+chosen by the C entries from L: the head streams through shared memory in
+64-row tiles, the softmax still normalised before its probabilities are
+rounded, and the backward still free of atomics (``csrc/attention_long.cuh``).
 """
 
 from __future__ import annotations
@@ -35,8 +41,13 @@ from ccmh_torch.ops import build
 launches = 0            # the forward, kernel A
 backward_launches = 0   # the backward, kernel C
 
-MAX_SEQ = 128        # the kernels keep a warp's [16, L] logits in registers
-MAX_HEAD_DIM = 128   # ... and its [16, Dh] products
+# L <= SHORT_SEQ: a warp keeps its [16, L] logits in registers; past it
+# the C entries take the long path, which streams 64-row tiles of the head
+# (csrc/attention_long.cuh) up to MAX_SEQ (its row statistics in shared
+# memory and the mask's int offsets)
+SHORT_SEQ = 128
+MAX_SEQ = 4096
+MAX_HEAD_DIM = 128   # a warp's [16, Dh] products in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -91,6 +102,10 @@ def _check_kernel_inputs(qkv, bias, n_head, qkv_b) -> None:
         raise ValueError(f"the attention kernel takes 1 <= L <= {MAX_SEQ} and "
                          f"1 <= head_dim <= {MAX_HEAD_DIM} (got B={B}, L={L}, "
                          f"head_dim={head_dim})")
+    if L > SHORT_SEQ and head_dim * qkv.element_size() < 12:
+        # the long backward keeps each row's three fp32 statistics in its dq slot
+        raise ValueError(f"past L = {SHORT_SEQ} the attention kernel takes head_dim * "
+                         f"itemsize >= 12 bytes (got head_dim={head_dim}, {qkv.dtype})")
     if qkv_b is not None and qkv_b.dtype != qkv.dtype:
         raise TypeError(f"qkv_b must be {qkv.dtype}, got {qkv_b.dtype}")
     if bias is not None and bias.dtype != torch.float32:

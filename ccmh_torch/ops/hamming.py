@@ -25,7 +25,9 @@ from ccmh_torch.ops.packing import popcount32
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
-MAX_LANES = 8   # W = ceil(K / 32) <= 8, i.e. K <= 256 bits
+# W = ceil(K / 32) <= 64, i.e. K <= 2,048 bits (TwDH's longest centre
+# code); the kernel takes W <= 8 in registers and wider codes in chunks
+MAX_LANES = 64
 
 
 def hamming_distance(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -59,6 +61,15 @@ def _kernel_fn():
     return lib, fn
 
 
+def _check_kernel_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
+    """Raise on lanes the kernel does not take (its C entry refuses them too)."""
+    W = q.shape[1]
+    if not 1 <= W <= MAX_LANES:
+        raise ValueError(f"the popcount kernel takes 1 <= W <= {MAX_LANES}, got {W}")
+    if not (q.is_contiguous() and r.is_contiguous()):
+        raise ValueError("q and r must be contiguous")
+
+
 def hamming_distance_packed(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Packed int32 lanes q [Q, W], r [N, W] -> int32 distances [Q, N].
 
@@ -76,12 +87,9 @@ def hamming_distance_packed(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return hamming_distance_packed_reference(q, r)
     if q.device.type != "cuda":
         raise ValueError(f"hamming_distance_packed runs on cuda or cpu, got {q.device}")
+    _check_kernel_inputs(q, r)
     Q, W = q.shape
     N = r.shape[0]
-    if not 1 <= W <= MAX_LANES:
-        raise ValueError(f"the popcount kernel takes 1 <= W <= {MAX_LANES}, got {W}")
-    if not (q.is_contiguous() and r.is_contiguous()):
-        raise ValueError("q and r must be contiguous")
     out = torch.empty((Q, N), dtype=torch.int32, device=q.device)
     if Q == 0 or N == 0:
         return out

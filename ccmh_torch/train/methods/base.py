@@ -163,24 +163,34 @@ def _cast_floats_f32(out):
                        for t in out])
 
 
+def resolve_remat(cfg: Optional[Config]):
+    """The towers' activation checkpointing in the train step, as ``ccmh``
+    reads it: False, or ``cfg.remat_policy`` ("full" or "dots") under
+    ``cfg.remat``."""
+    if not getattr(cfg, "remat", False):
+        return False
+    return getattr(cfg, "remat_policy", "full")
+
+
 def image_features(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
                    cfg: Optional[Config] = None, *, features: str = "pooled",
-                   dtype=None) -> VisionOutput:
+                   dtype=None, remat=False) -> VisionOutput:
     """The vision tower's outputs in mode ``features``, in the run's compute
     dtype, every floating output in fp32 (model/modelbase.py:69-96)."""
     dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
     return _cast_floats_f32(vision_forward(params["clip"]["visual"], clip_cfg, images,
-                                           dtype=dtype, features=features))
+                                           dtype=dtype, features=features, remat=remat))
 
 
 def text_features(params: Params, clip_cfg: ClipConfig, ids: torch.Tensor,
                   cfg: Optional[Config] = None, *, features: str = "pooled",
-                  key_padding_mask: Optional[torch.Tensor] = None, dtype=None) -> TextOutput:
+                  key_padding_mask: Optional[torch.Tensor] = None, dtype=None,
+                  remat=False) -> TextOutput:
     """The text tower's outputs, as :func:`image_features`."""
     dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
     return _cast_floats_f32(text_forward(params["clip"]["text"], clip_cfg, ids, dtype=dtype,
                                          features=features,
-                                         key_padding_mask=key_padding_mask))
+                                         key_padding_mask=key_padding_mask, remat=remat))
 
 
 def image_embeds(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
@@ -199,8 +209,11 @@ def clip_embeds(params: Params, clip_cfg: ClipConfig, batch: Dict[str, torch.Ten
                 cfg: Optional[Config] = None, *, features: str = "pooled", dtype=None
                 ) -> Tuple[VisionOutput, TextOutput]:
     """Both towers in mode ``features``, fp32 out; the text tower takes the
-    batch's ``key_padding_mask`` where it has one."""
+    batch's ``key_padding_mask`` where it has one.  Every method's loss
+    comes here, and here alone the run's ``remat`` applies, as in ``ccmh``."""
+    remat = resolve_remat(cfg)
     return (image_features(params, clip_cfg, batch["image"], cfg, features=features,
-                           dtype=dtype),
+                           dtype=dtype, remat=remat),
             text_features(params, clip_cfg, batch["text"], cfg, features=features,
-                          key_padding_mask=batch.get("key_padding_mask"), dtype=dtype))
+                          key_padding_mask=batch.get("key_padding_mask"), dtype=dtype,
+                          remat=remat))

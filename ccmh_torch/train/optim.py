@@ -20,8 +20,14 @@ A parameter whose ``.grad`` is None (one the loss never reaches, like
 gradient is an exact zero: its moments decay and weight decay still moves
 it every step.  A textbook optimizer would skip it and drift from ``ccmh``.
 
-The schedule is computed in float32 as ``ccmh`` computes it.  The opt-in
-reduced-dtype moments of ``ccmh`` (``optim_moments_dtype``) are not ported.
+The schedule is computed in float32 as ``ccmh`` computes it.
+
+``moments_dtype`` (``--set optim_moments_dtype=bfloat16``) stores ``m`` and
+``v`` in a reduced type, ``ccmh``'s opt-in departure from the reference:
+the update still runs in fp32 (cast up, accumulate, cast down), and it
+reads the moments as stored, so it is ``ccmh``'s step; storage and the
+optimizer's memory traffic halve.  ``state_dict`` carries them in that
+type and :meth:`BertAdam.load_state_dict` keeps it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ccmh_torch.bridge import tensor_from_numpy
 
 Params = Dict[str, Any]
 
@@ -67,12 +75,13 @@ class BertAdam(torch.optim.Optimizer):
     ``block_stacked`` (clip per axis-0 slice) and carries ``paths`` (the
     tree path of each of its parameters, for :meth:`load_tree_state`).
     The step counter lives in every group (``step``), so it travels with
-    ``state_dict``."""
+    ``state_dict``.  ``moments_dtype`` (None: the parameter's type) stores
+    ``m`` and ``v`` reduced."""
 
     def __init__(self, params, lr: float = 1e-3, *, warmup: float = -1.0,
                  t_total: int = -1, schedule: str = "warmup_cosine", b1: float = 0.9,
                  b2: float = 0.98, eps: float = 1e-6, weight_decay: float = 0.0,
-                 max_grad_norm: float = 1.0):
+                 max_grad_norm: float = 1.0, moments_dtype: Optional[torch.dtype] = None):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}")
         defaults = dict(lr=lr, block_stacked=False, step=0)
@@ -83,6 +92,7 @@ class BertAdam(torch.optim.Optimizer):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.moments_dtype = moments_dtype
 
     def lr_scale(self, step: int) -> np.float32:
         """The schedule multiplier for the update taken at ``step``."""
@@ -118,10 +128,18 @@ class BertAdam(torch.optim.Optimizer):
                 g = self._clip(g, group["block_stacked"])
                 st = self.state[p]
                 if not st:
-                    st["m"] = torch.zeros_like(p)
-                    st["v"] = torch.zeros_like(p)
-                m = st["m"].mul_(b1).add_(g * c1)
-                v = st["v"].mul_(b2).add_(g * c2 * g)
+                    st["m"] = torch.zeros_like(p, dtype=self.moments_dtype)
+                    st["v"] = torch.zeros_like(p, dtype=self.moments_dtype)
+                if self.moments_dtype is None:
+                    m = st["m"].mul_(b1).add_(g * c1)
+                    v = st["v"].mul_(b2).add_(g * c2 * g)
+                else:
+                    # accumulate in fp32: bf16's 8-bit mantissa would swallow
+                    # the (1 - b2)-scale increments of v; then read back the
+                    # moments as stored, as ccmh does
+                    st["m"].copy_(st["m"].float().mul_(b1).add_(g * c1))
+                    st["v"].copy_(st["v"].float().mul_(b2).add_(g * c2 * g))
+                    m, v = st["m"].float(), st["v"].float()
                 upd = m / (v.sqrt() + self.eps)
                 if self.weight_decay > 0:
                     upd = upd + self.weight_decay * p
@@ -129,17 +147,28 @@ class BertAdam(torch.optim.Optimizer):
             group["step"] += 1
         return loss
 
+    def load_state_dict(self, state_dict) -> None:
+        """``torch.optim.Optimizer``'s, which casts every state tensor to its
+        parameter's type; reduced moments are cast back (exactly: they
+        went up to the parameter's fp32 unchanged)."""
+        super().load_state_dict(state_dict)
+        if self.moments_dtype is not None:
+            for st in self.state.values():
+                for name in ("m", "v"):
+                    if name in st:
+                        st[name] = st[name].to(self.moments_dtype)
+
     def load_tree_state(self, m: Params, v: Params, step: int) -> None:
         """Take ``ccmh``'s BertAdam state: the moment trees ``m`` and ``v``
-        (numpy, congruent with the params) and its step counter."""
+        (numpy, congruent with the params; ``ml_dtypes.bfloat16`` leaves
+        of reduced moments come across bit for bit) and its step counter."""
         for group in self.param_groups:
             group["step"] = int(step)
             for p, path in zip(group["params"], group["paths"]):
                 st = self.state[p]
                 for name, tree in (("m", m), ("v", v)):
-                    leaf = _get(tree, path)
-                    st[name] = torch.from_numpy(np.array(leaf, dtype=np.float32)).to(
-                        device=p.device, dtype=p.dtype)
+                    st[name] = tensor_from_numpy(_get(tree, path)).to(
+                        device=p.device, dtype=self.moments_dtype or p.dtype)
 
 
 def _get(tree: Params, path: Tuple[str, ...]):

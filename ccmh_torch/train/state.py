@@ -37,11 +37,8 @@ def make_main_optimizer(cfg: Config, params: Params, steps_per_epoch: int) -> Be
     """BertAdam over clip + heads with the reference param groups: clip at
     ``clip_lr``, the rest at ``lr``; warmup_cosine over
     ``t_total = steps_per_epoch * epochs``; per-layer clipping of the
-    stacked transformer blocks."""
-    if getattr(cfg, "optim_moments_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            "optim_moments_dtype (reduced-dtype BertAdam moments) is not "
-            "ported to ccmh_torch yet; the moments are float32")
+    stacked transformer blocks; ``cfg.optim_moments_dtype`` other than
+    float32 stores the moments in that type (``ccmh``'s opt-in)."""
     return bert_adam_for(
         params, cfg.lr, {"clip": cfg.clip_lr},
         warmup=cfg.warmup_proportion,
@@ -50,7 +47,19 @@ def make_main_optimizer(cfg: Config, params: Params, steps_per_epoch: int) -> Be
         b1=0.9, b2=0.98, eps=1e-6,
         weight_decay=cfg.weight_decay,
         max_grad_norm=1.0,
+        moments_dtype=moments_dtype(getattr(cfg, "optim_moments_dtype", "float32")),
     )
+
+
+def moments_dtype(name: str) -> Optional[torch.dtype]:
+    """BertAdam's ``moments_dtype`` for ``cfg.optim_moments_dtype``: None
+    (the parameters' float32) for "float32", else that floating type."""
+    if name == "float32":
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"optim_moments_dtype must name a floating type, got {name!r}")
+    return dtype
 
 
 def trainable(params: Params) -> Params:

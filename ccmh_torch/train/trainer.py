@@ -43,8 +43,15 @@ copied from pinned memory on a side stream ``prefetch_device`` batches
 ahead (``data/prefetch.py``).  Every transport feeds the step the same
 bits.
 
-Not ported, each raising when asked for: meshes (DP/TP/FSDP), remat,
-profiling, compilation caches, the reduced-precision optimizer state.
+``--remat`` (``--set remat_policy=dots``) checkpoints the towers' blocks in
+the train step, ``--set optim_moments_dtype=bfloat16`` stores BertAdam's
+moments in bf16, and ``--profile`` traces epoch 1 with ``torch.profiler``
+into ``save_dir/profile``.
+
+Not ported, each raising when asked for: meshes (DP/TP/FSDP), compilation
+caches (XLA's; the port builds its kernels once into ``build/``), and
+``param_dtype``, which ``ccmh`` reads nowhere, so that accepting it would
+differ from nothing and mislead.
 """
 
 from __future__ import annotations
@@ -82,14 +89,14 @@ from ccmh_torch.utils import MetricsWriter, get_logger
 def _unported(cfg: Config):
     """(setting, why) for each setting of ``cfg`` the port cannot honour."""
     checks = (
-        (cfg.profile, "--profile"),
-        (bool(cfg.compilation_cache), "--compilation-cache"),
+        (bool(cfg.compilation_cache),
+         "--compilation-cache (XLA's compilation cache; the port builds its "
+         "kernels once into build/)"),
         (tuple(cfg.mesh_shape) != (1,), f"--mesh {cfg.mesh_shape} (DP/TP meshes)"),
         (cfg.fsdp, "--fsdp"),
         (cfg.shard_gallery is not None, "--shard-gallery (mesh eval)"),
-        (cfg.remat, "--remat"),
-        (cfg.optim_moments_dtype != "float32", "optim_moments_dtype"),
-        (cfg.param_dtype != "float32", "param_dtype"),
+        (cfg.param_dtype != "float32",
+         "param_dtype (ccmh reads it nowhere: the parameters are float32)"),
     )
     return [why for bad, why in checks if bad]
 
@@ -436,6 +443,7 @@ class Trainer:
             self.logger.info(f"mid-epoch resume: fast-forwarding {skip_steps} steps")
         step_in_epoch = skip_steps
         n_steps = len(self.train_loader)
+        profiler = self._start_profile() if cfg.profile and epoch == 1 else None
         losses = []
         start = time.time()
         # the epoch rides in every train batch as a device scalar (DMsH_LN's
@@ -464,6 +472,7 @@ class Trainer:
                 self.metrics.write("train", self.global_step, **m)
             if self._preempt and step_in_epoch < n_steps:
                 self.total_time += time.time() - start
+                self._stop_profile(profiler)
                 self.save_full_checkpoint(epoch, step_in_epoch=step_in_epoch)
                 self.logger.info(f"preempted at epoch {epoch} step {step_in_epoch}/{n_steps}; "
                                  "rerun with --resume to continue from this step")
@@ -471,10 +480,33 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.total_time += time.time() - start
+        self._stop_profile(profiler)
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         self.logger.info(
             f">>>>>> [{epoch}/{cfg.epochs}] loss: {mean_loss}, time: {self.total_time}")
         return True
+
+    def _start_profile(self):
+        """``--profile``: trace epoch 1 (epoch 0 pays the kernels' builds
+        and the first calls, as ``ccmh``'s pays its compiles) with
+        ``torch.profiler``, host and, on a card, CUDA activity; the trace
+        is written to ``save_dir/profile`` when it stops."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        out = os.path.join(self.cfg.save_dir, "profile")
+        profiler = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(out))
+        profiler.start()
+        self.logger.info(f"profiling epoch 1 into {out}")
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        if profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            profiler.stop()
 
     def _epoch_tables(self, batches):
         """The epoch's host batches as device tables, one copy each

@@ -2,8 +2,9 @@
 """Drive the ccmh_torch serving and training paths on one NVIDIA card and
 check them: DCHMT serving, DCHMT training, LinearHash training with the
 LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH), the
-methods with extra state (DNPH, DPBE, DGHDGH, TwDH), and the lifecycle
-of a model (tower import, preemption and resume, ``--test``, export).
+methods with extra state (DNPH, DPBE, DGHDGH, TwDH), the lifecycle of a
+model (tower import, preemption and resume, ``--test``, export), the
+real-data input path, and the towers past 128 tokens (ViT-L/14).
 
     python3 chip_smoke.py
 
@@ -145,7 +146,29 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    #4, #5 equal the counts the code implies, none for a skipped step.  It
    prints the bytes of one slot, the ms a synchronous and an asynchronous
    save block the loop, a resume's load ms and ``test()``'s encode, mAP
-   and curve ms.
+   and curve ms;
+13. the real-data input path, LayerNorm kernels on: a 12,000-item JPEG
+   dataset at MIRFlickr-25K's split sizes, decoded on the card's host
+   and held to the fixtures' PIL decodes, BPE rates, four transports and
+   a streamed and a resident epoch bit for bit, JPEG serving, encode at
+   prefetch depth 1 and 2 (``[input]`` lines);
+14. the towers past 128 tokens: the long path of #1 and #2 at ViT-B/16
+   (B=256, L=197, H=12), ViT-L/14 (B=64, L=257, H=16) and ViT-L/14@336
+   (B=64, L=577, H=16), fp32 and bf16, and at the edges L in {1, 129,
+   143, 192, 256, 577} causal and key-padded (each call one launch,
+   within the gates of phase 2); #3 at K = 512 and 2,048 bits (Q = 512,
+   N = 2^18, exact); then, counters set to 0 just before each run and
+   read just after: ``python -m ccmh_torch.tools.bench_vitl 64`` (pairs/s,
+   TFLOP/s); ViT-L/14 DSPH K=64 fp32 through ``ccmh_torch.cli.main`` from a
+   seeded OpenAI-layout ``.pt`` via ``--clip-path``, batch 32, 2 steps
+   with remat off, ``--remat`` and ``--remat --set remat_policy=dots``
+   (losses, parameters and every gradient bit-equal; peak memory and step
+   ms each; #1 twice a block a step under remat), its ``.npz`` serving the
+   trainer's codes and a packed K=512 index ranking as the int8 one;
+   batch 128 with ``--remat`` and bf16 moments; ViT-B/16 from a ``.pt``,
+   its ``.npz`` serving; ViT-B/32 with bf16 moments cut by SIGTERM and
+   resumed bit for bit, and ``--profile`` leaving a trace and the same
+   losses (``[long]`` lines).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -687,11 +710,13 @@ def edge_checks():
 
     refusals = 0
     for call in (
-        lambda: attn.fused_attention(torch.zeros((1, 129, 192), device=dev), None, 3),
+        lambda: attn.fused_attention(torch.zeros((1, attn.MAX_SEQ + 1, 192), device=dev),
+                                     None, 1),
         lambda: attn.fused_attention(torch.zeros((1, 5, 192), device=dev,
                                                  dtype=torch.float16), None, 3),
-        lambda: ham.hamming_distance_packed(torch.zeros((2, 9), device=dev, dtype=torch.int32),
-                                            torch.zeros((2, 9), device=dev, dtype=torch.int32)),
+        lambda: ham.hamming_distance_packed(
+            torch.zeros((2, ham.MAX_LANES + 1), device=dev, dtype=torch.int32),
+            torch.zeros((2, ham.MAX_LANES + 1), device=dev, dtype=torch.int32)),
     ):
         try:
             call()
@@ -2965,6 +2990,473 @@ def input_path():
     return total
 
 
+# -------------------------------------------------------------------- phase 14
+
+# the towers past 128 tokens: (name, B, L, H), head dim 64
+LONG_SHAPES = (("ViT-B/16", 256, 197, 12), ("ViT-L/14", 64, 257, 16),
+               ("ViT-L/14@336", 64, 577, 16))
+LONG_EDGES = (1, 129, 143, 192, 256, 577)    # L at the edge cases, B=4 H=4
+LONG_TIMING = (2, 12)                        # SDPA: (t_12 - t_2) / 10, min of 2
+WIDE_KS = (512, 2048)                        # packed codes past 256 bits
+WIDE_GALLERY = 2 ** 18
+LONG_BATCH, LONG_BIG_BATCH = 32, 128         # ViT-L/14 training batches
+LONG_EVAL_BATCH = 128
+
+
+def _long_inputs(B, L, H, dtype, seed, with_g=True):
+    import torch
+
+    D = H * 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").to(dtype)
+    qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device="cuda")).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype) if with_g else None
+    return qkv, qkv_b, g
+
+
+def _one_launch(fn, what):
+    """``fn()`` must launch its kernel once: the long path ran on the card."""
+    from ccmh_torch.ops import attention as attn
+
+    before = (attn.launches, attn.backward_launches)
+    out = fn()
+    ran = (attn.launches - before[0], attn.backward_launches - before[1])
+    check(sum(ran) == 1, f"{what}: {ran} launches of (#1, #2), not one kernel launch")
+    return out
+
+
+def long_attention_cases(name, B, L, H, dtype):
+    """#1 and #2 at a long tower's shape against their plain versions,
+    with the kernels' ms at their C entries beside the bound, the plain
+    versions' ms and SDPA's (forward; forward + backward minus forward)."""
+    import torch
+
+    from ccmh_torch.ops import attention as attn
+    from ccmh_torch.tools import bench_attn_bwd as bench
+
+    tname = "float32" if dtype == torch.float32 else "bfloat16"
+    qkv, qkv_b, g = _long_inputs(B, L, H, dtype, seed=L * 1000 + H)
+    D, Dh = H * 64, 64
+    cases = []
+    with torch.no_grad():
+        got = _one_launch(lambda: attn.fused_attention(qkv, None, H, qkv_b=qkv_b),
+                          f"attention {name}")
+        want = attn.attention_reference(qkv, None, H, qkv_b=qkv_b)
+        err_f = (got.float() - want.float()).abs().max().item()
+        del got, want
+        dq = _one_launch(lambda: attn.attention_backward(qkv, None, qkv_b, g, H),
+                         f"attention backward {name}")
+        dq_want = attn.attention_backward_reference(qkv, None, qkv_b, g, H)
+        err_b = (dq.float() - dq_want.float()).abs().max().item()
+        scale = max(1.0, dq_want.float().abs().max().item())
+        del dq, dq_want
+        torch.cuda.empty_cache()
+        check(math.isfinite(err_f) and err_f <= ATTN_TOL[tname],
+              f"long attention {name} {tname}: max abs err {err_f} > {ATTN_TOL[tname]}")
+        check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
+              f"long attention backward {name} {tname}: max abs err {err_b} > "
+              f"{ATTN_TOL[tname]} x output scale {scale}")
+        ms = {"fwd": cuda_ms(attention_entry("fwd", qkv, None, qkv_b, H), iters=10),
+              "bwd": cuda_ms(attention_entry("bwd", qkv, None, qkv_b, H, g), iters=10)}
+        plain = {"fwd": cuda_ms(lambda: attn.attention_reference(qkv, None, H, qkv_b=qkv_b),
+                                iters=3, warmup=1),
+                 "bwd": cuda_ms(lambda: attn.attention_backward_reference(qkv, None, qkv_b,
+                                                                          g, H),
+                                iters=3, warmup=1)}
+    torch.cuda.empty_cache()
+    lib = dict(zip(("fwd", "bwd"), bench.sdpa_yardstick(qkv + qkv_b, False, H, LONG_TIMING, 2)))
+    item = qkv.element_size()
+    for kind, err, n_bytes, n_ops in (
+            ("fwd", err_f, (qkv.numel() + qkv_b.numel() + B * L * D) * item,
+             4.0 * B * H * L * L * Dh),
+            ("bwd", err_b, (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item,
+             10.0 * B * H * L * L * Dh)):
+        bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
+        case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
+                "causal": False, "path": "long", "max_abs_err": err, "tol": ATTN_TOL[tname],
+                "ms": ms[kind], "plain_ms": plain[kind], "library_ms": lib[kind],
+                "library": "SDPA fwd" if kind == "fwd" else "SDPA fwd+bwd minus SDPA fwd",
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        if kind == "bwd":
+            case["output_scale"] = scale
+        say("kernel", kernel=f"fused_attention_{kind}", **case)
+        cases.append(case)
+    return cases
+
+
+def long_attention_edges():
+    """#1 and #2 at the edges of the long path (B=4, H=4): L from 1 to 577,
+    causal and with the last third of the keys padded, fp32 and bf16, each
+    call one kernel launch, within the gates of their plain versions."""
+    import torch
+
+    from ccmh_torch.clip.model import causal_mask
+    from ccmh_torch.ops import attention as attn
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = "float32" if dtype == torch.float32 else "bfloat16"
+        for L in LONG_EDGES:
+            for kind in ("causal", "keypad"):
+                qkv, qkv_b, g = _long_inputs(4, L, 4, dtype, seed=L + 7)
+                mask = causal_mask(L, device="cuda")
+                if kind == "keypad":
+                    mask = torch.zeros((L, L), device="cuda")
+                    mask[:, L - L // 3:] = -math.inf
+                with torch.no_grad():
+                    got = _one_launch(lambda: attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b),
+                                      f"attention L={L} {kind}")
+                    want = attn.attention_reference(qkv, mask, 4, qkv_b=qkv_b)
+                    dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
+                                     f"attention backward L={L} {kind}")
+                    dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
+                err = (got.float() - want.float()).abs().max().item()
+                err_b = (dq.float() - dq_want.float()).abs().max().item()
+                scale = max(1.0, dq_want.float().abs().max().item())
+                tag = f"L={L} {kind} {tname}"
+                check(math.isfinite(err) and err <= ATTN_TOL[tname],
+                      f"attention edge {tag}: max abs err {err}")
+                check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
+                      f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
+                worst[tag] = [err, err_b / scale,
+                              "long" if L > attn.SHORT_SEQ else "short"]
+    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_path=worst)
+
+
+def wide_hamming_cases():
+    """#3 at K = 512 and 2,048 bits (Q = 512, N = 2^18) against its plain
+    version, exactly, with its ms beside the bound and the plain ms."""
+    import torch
+
+    from ccmh_torch.ops import hamming as ham
+
+    cases = []
+    for k in WIDE_KS:
+        W = k // 32
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        lo, hi = -2 ** 31, 2 ** 31
+        q = torch.randint(lo, hi, (SEARCH_Q, W), generator=gen, device="cuda", dtype=torch.int32)
+        r = torch.randint(lo, hi, (WIDE_GALLERY, W), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        with torch.inference_mode():
+            before = ham.launches
+            got = ham.hamming_distance_packed(q, r)
+            check(ham.launches == before + 1, f"packed hamming K={k} did not launch its kernel")
+            want = ham.hamming_distance_packed_reference(q, r)
+            check(torch.equal(got, want), f"packed hamming K={k} differs from its plain version")
+            del got, want
+            ms = cuda_ms(lambda: ham.hamming_distance_packed(q, r))
+            plain_ms = cuda_ms(lambda: ham.hamming_distance_packed_reference(q, r), iters=2,
+                               warmup=1)
+        bound_ms, bound_by = bound((q.numel() + r.numel() + SEARCH_Q * WIDE_GALLERY) * 4,
+                                   3.0 * SEARCH_Q * WIDE_GALLERY * W, "int32")
+        case = {"case": f"search int32 K={k}", "shape": [SEARCH_Q, WIDE_GALLERY, W],
+                "max_abs_err": 0, "tol": 0, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        say("kernel", kernel="hamming_distance_packed", **case)
+        cases.append(case)
+    return cases
+
+
+def _long_tower_pt(path, clip_cfg, seed):
+    """A seeded random tower written as an OpenAI-layout ``.pt``."""
+    import torch
+
+    from ccmh_torch.clip.export_ref import export_clip_state_dict
+    from ccmh_torch.clip.model import init_clip_params
+
+    clip0 = init_clip_params(torch.Generator(device="cuda").manual_seed(seed), clip_cfg)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                export_clip_state_dict(clip0, prefix="").items()}, path)
+    del clip0
+    torch.cuda.empty_cache()
+
+
+def _timed_run(argv, step_ms=None):
+    """``ccmh_torch.cli.main(argv)`` with its launches counted, its peak
+    device memory above what was allocated before it and, into
+    ``step_ms``, each train step's host ms (the step synchronised)."""
+    import torch
+
+    from ccmh_torch import cli
+    from ccmh_torch.train import trainer as trainer_mod
+
+    make = trainer_mod.make_train_step
+
+    def make_timed(*args, **kw):
+        inner = make(*args, **kw)
+
+        def step_fn(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+            return out
+        return step_fn
+
+    trainer_mod.make_train_step = make_timed if step_ms is not None else make
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.make_train_step = make
+    return trainer, read_counts(), torch.cuda.max_memory_allocated() - base
+
+
+def _tower_launches(steps, clip_cfg, remat, eval_batches=0):
+    """#1 / #2 launches of ``steps`` DSPH steps (plain LayerNorm): every
+    block of both towers once forward and once backward, and forward once
+    more under remat (the recompute); an eval batch encodes each tower."""
+    blocks = clip_cfg.vision_layers + clip_cfg.transformer_layers
+    return {"fused_attention_fwd": steps * blocks * (2 if remat else 1) + eval_batches * blocks,
+            "fused_attention_bwd": steps * blocks}
+
+
+def _check_tower_launches(what, launches, want):
+    for kernel, n in launches.items():
+        check(n == want.get(kernel, 0), f"long {what}: {n} launches of {kernel}, the code "
+                                        f"implies {want.get(kernel, 0)}")
+
+
+def _grads_by_remat(trainer, batch):
+    """The DSPH loss and every gradient at the trainer's state on ``batch``,
+    with remat off, "full" and "dots"."""
+    import copy
+
+    import torch
+
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    paths, leaves = zip(*tree_leaves_with_path(trainer.state.params))
+    extra = list(tree_leaves_with_path(trainer.state.extra))
+    out = {}
+    for mode in (False, "full", "dots"):
+        cfg = copy.copy(trainer.cfg)
+        cfg.remat, cfg.remat_policy = bool(mode), mode or "full"
+        loss_fn = trainer.method.make_loss_fn(cfg, trainer.clip_cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        loss, _ = loss_fn(trainer.state.params, trainer.state.extra, trainer.state.aux, batch,
+                          gen)
+        grads = torch.autograd.grad(loss, list(leaves) + [e for _, e in extra],
+                                    allow_unused=True)
+        out[mode] = (loss.detach(), grads)
+        del loss
+    return out
+
+
+def long_path():
+    """Phase 14: the towers past 128 tokens.  ViT-L/14 encode rate
+    (bench_vitl); ViT-L/14 DSPH trained through the CLI from a seeded
+    OpenAI-layout .pt at batch 32 with remat off, full and dots (losses,
+    parameters and gradients bit-equal), at batch 128 with remat and bf16
+    moments; its .npz serving the trainer's codes and a packed K=512 index
+    equal to the int8 one; ViT-B/16 from a .pt; ViT-B/32 with bf16 moments
+    cut by SIGTERM and resumed bit for bit; --profile.  Returns the summed
+    launches of the runs and the serving path."""
+    import torch
+
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.models.heads import linear_hash
+    from ccmh_torch.retrieval import HashIndex
+    from ccmh_torch.tools import bench_vitl
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    work = os.path.join(WORK, "long")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    total = {}
+
+    def add(launches):
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+
+    # 1. serving: bench_vitl's bf16 encode pair at B=64
+    reset_counts()
+    row = bench_vitl.main([str(64)])
+    served = read_counts()
+    pairs = bench_vitl.LOOPS[0] + bench_vitl.REPEATS * sum(bench_vitl.LOOPS)
+    vitl = ClipConfig.vit_l14()
+    _check_tower_launches("bench_vitl", served,
+                          {"fused_attention_fwd": pairs * (vitl.vision_layers
+                                                           + vitl.transformer_layers)})
+    add(served)
+    say("long", run="bench_vitl", **{k: row[k] for k in (
+        "B", "vision_tokens", "params_M", "gflop_per_pair", "ms", "pairs_per_s", "tflops")})
+    torch.cuda.empty_cache()
+
+    # 2. ViT-L/14 DSPH from a .pt, batch 32, remat off / full / dots
+    tower = os.path.join(work, "vitl14.pt")
+    t0 = time.perf_counter()
+    _long_tower_pt(tower, vitl, seed=14)
+    pt_s = time.perf_counter() - t0
+    def argv(batch, epochs=1, clip_path=None):
+        """DSPH K=64 on phase 5's data, 2 steps an epoch, no validation."""
+        return (["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
+                 "--data-dir", data, "--epochs", str(epochs), "--query-num", str(TRAIN_QUERY),
+                 "--batch-size", str(batch), "--train-num", str(2 * batch),
+                 "--eval-batch", str(LONG_EVAL_BATCH), "--display-step", "1", "--no-valid",
+                 "--num-workers", "4", "--device", "cuda"]
+                + (["--clip-path", clip_path] if clip_path else []))
+
+    vitl_argv = argv(LONG_BATCH, clip_path=tower)
+    runs, ref = {}, None
+    for mode, flags in (("off", []), ("full", ["--remat"]),
+                        ("dots", ["--remat", "--set", "remat_policy=dots"])):
+        steps = []
+        trainer, launches, peak = _timed_run(
+            vitl_argv + flags + ["--save-dir", os.path.join(work, mode)]
+            + (["--save-model"] if mode == "off" else []), steps)
+        _check_tower_launches(f"ViT-L/14 remat={mode}", launches,
+                              _tower_launches(2, vitl, mode != "off"))
+        add(launches)
+        losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"ViT-L/14 remat={mode}: losses {losses}")
+        runs[mode] = {"losses": losses, "step_ms": steps, "peak_bytes": peak,
+                      "fwd_launches": launches["fused_attention_fwd"],
+                      "bwd_launches": launches["fused_attention_bwd"]}
+        if ref is None:
+            ref = trainer
+        else:
+            diff = _tree_diff(trainer.state.params, ref.state.params)
+            with torch.no_grad():
+                spread = _float_spread(trainer.state.params, ref.state.params) if diff else 0.0
+            check(losses == runs["off"]["losses"] and not diff,
+                  f"ViT-L/14 remat={mode} differs from remat off: losses {losses} vs "
+                  f"{runs['off']['losses']}, parameters at {diff[:4]} (largest {spread})")
+            del trainer
+        torch.cuda.empty_cache()
+    say("long", run="ViT-L/14 DSPH K=64 fp32 batch 32, 2 steps", tower_pt_s=round(pt_s, 1),
+        by_remat=runs, equal="losses and parameters, bit for bit")
+
+    # every gradient at the trained state on one batch, under each mode
+    loader_batch = next(iter(ref.train_loader))
+    batch = ref._put(loader_batch)
+    batch["epoch"] = torch.tensor(0, dtype=torch.int32, device="cuda")
+    grads = _grads_by_remat(ref, batch)
+    base_loss, base_grads = grads[False]
+    for mode in ("full", "dots"):
+        loss, gs = grads[mode]
+        bad = [i for i, (a, b) in enumerate(zip(gs, base_grads))
+               if (a is None) != (b is None) or (a is not None and not torch.equal(a, b))]
+        worst = max([float((gs[i] - base_grads[i]).abs().max()) for i in bad
+                     if gs[i] is not None] or [0.0])
+        check(torch.equal(loss, base_loss) and not bad,
+              f"ViT-L/14 gradients under remat={mode} differ from remat off in {len(bad)} "
+              f"leaves, largest difference {worst}")
+    say("long", run="ViT-L/14 gradients by remat", leaves=len(base_grads),
+        equal="loss and every gradient, off = full = dots")
+    del grads, base_grads, batch
+    torch.cuda.empty_cache()
+
+    # the .npz serves the trainer's codes; a packed K=512 index = int8
+    def code_margin(kind, retriever, cfg, x):
+        embeds = image_embeds if kind == "image" else text_embeds
+        head = retriever.params["img_head" if kind == "image" else "txt_head"]
+        return linear_hash(head, embeds(retriever.params, retriever.clip_cfg, x, cfg)).abs()
+
+    reset_counts()
+    check_served_codes("long", ref, os.path.join(ref.cfg.save_dir, "model-0.npz"), code_margin,
+                       k_bits=K_BITS)
+    del ref
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(14)
+    codes = np.where(rng.rand(2 ** 16, 512) < 0.5, -1, 1).astype(np.int8)
+    queries = np.where(rng.rand(SEARCH_Q, 512) < 0.5, -1, 1).astype(np.int8)
+    before = read_counts()["hamming_distance_packed"]
+    d_packed, i_packed = HashIndex(codes, packed=True, device="cuda").search(queries, k=10)
+    d_int8, i_int8 = HashIndex(codes, packed=False, device="cuda").search(queries, k=10)
+    check(np.array_equal(d_packed, d_int8) and np.array_equal(i_packed, i_int8),
+          "a packed K=512 index ranks otherwise than the int8 one")
+    check(read_counts()["hamming_distance_packed"] > before,
+          "the packed K=512 search never launched the hamming kernel")
+    add(read_counts())
+    say("long", run="packed K=512 index", gallery=len(codes), queries=SEARCH_Q,
+        equal_to_int8="distances and indices")
+
+    # 3. batch 128 with remat and bf16 moments
+    steps = []
+    trainer, launches, peak = _timed_run(
+        argv(LONG_BIG_BATCH, clip_path=tower) + [
+            "--remat", "--set", "optim_moments_dtype=bfloat16",
+            "--save-dir", os.path.join(work, "b128")], steps)
+    _check_tower_launches("ViT-L/14 batch 128", launches, _tower_launches(2, vitl, True))
+    add(launches)
+    moments = [t for st in trainer.optimizer.state.values() for t in (st["m"], st["v"])]
+    check({t.dtype for t in moments} == {torch.bfloat16},
+          "ViT-L/14 batch 128: the moments are not bf16")
+    m_bytes = sum(t.numel() * t.element_size() for t in moments)
+    losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"ViT-L/14 batch 128: losses {losses}")
+    say("long", run="ViT-L/14 DSPH K=64 fp32 batch 128, --remat, bf16 moments, 2 steps",
+        losses=losses, step_ms=steps, peak_bytes=peak, moment_bytes=m_bytes,
+        fp32_moment_bytes=sum(t.numel() * 4 for t in moments))
+    del trainer, moments
+    os.remove(tower)
+    torch.cuda.empty_cache()
+
+    # 4. ViT-B/16 (197 tokens) from a .pt, 2 steps, its .npz serving
+    vitb16 = ClipConfig(vision_patch_size=16)
+    tower = os.path.join(work, "vitb16.pt")
+    _long_tower_pt(tower, vitb16, seed=16)
+    steps = []
+    trainer, launches, peak = _timed_run(
+        argv(LONG_BATCH, clip_path=tower) + ["--save-model", "--save-dir",
+                                             os.path.join(work, "b16")], steps)
+    _check_tower_launches("ViT-B/16", launches, _tower_launches(2, vitb16, False))
+    add(launches)
+    say("long", run="ViT-B/16 DSPH K=64 fp32 batch 32, 2 steps", step_ms=steps,
+        peak_bytes=peak)
+    check_served_codes("long", trainer, os.path.join(trainer.cfg.save_dir, "model-0.npz"),
+                       code_margin, k_bits=K_BITS)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 5. ViT-B/32 with bf16 moments: A; B cut by SIGTERM after global step 3
+    # and resumed; both end in the same bits; --profile on A's run
+    b32 = argv(TRAIN_BATCH, epochs=2) + ["--checkpoint-every", "1",
+                                         "--set", "optim_moments_dtype=bfloat16"]
+
+    def run_dir(name):
+        return os.path.join(work, name, "DSPH", "synthetic", str(K_BITS))
+
+    timings = {}
+    for name, flags, cut in (("A", [], None), ("B", [], 3), ("B", ["--resume"], None),
+                             ("P", ["--profile"], None)):
+        _, launches, _ = _lifecycle_run(b32 + flags + ["--save-dir", os.path.join(work, name)],
+                                        timings, cut_at=cut)
+        n_steps = cut or (1 if "--resume" in flags else 4)
+        _check_tower_launches(f"ViT-B/32 {name}{' '.join(flags)}", launches,
+                              _tower_launches(n_steps, ClipConfig(), False))
+        add(launches)
+    slot_a, rows_a = _final_slot(run_dir("A")), _metric_rows(run_dir("A"))
+    check({t.dtype for st in slot_a["optimizer"]["state"].values() for t in (st["m"], st["v"])}
+          == {torch.bfloat16}, "ViT-B/32: the slot's moments are not bf16")
+    diff = _tree_diff(_final_slot(run_dir("B")), slot_a) + (
+        ["metrics.jsonl"] if _metric_rows(run_dir("B")) != rows_a else [])
+    check(not diff, f"ViT-B/32 bf16 moments: the resumed run differs from A at {diff[:8]}")
+    train_rows = [r["loss"] for r in rows_a if r["event"] == "train"]
+    prof_rows = [r["loss"] for r in _metric_rows(run_dir("P")) if r["event"] == "train"]
+    traces = [n for n in os.listdir(os.path.join(run_dir("P"), "profile"))
+              if n.endswith(".json")]
+    check(traces and prof_rows == train_rows,
+          f"--profile: traces {traces}, losses {prof_rows} vs {train_rows}")
+    say("long", run="ViT-B/32 DSPH bf16 moments", resumed_equal_to_A="params, extra, aux, "
+        "both optimizers (bf16 moments), generator, step, meta, every train row",
+        profile_traces=traces, profile_losses_equal=True,
+        trace_bytes=sum(os.path.getsize(os.path.join(run_dir("P"), "profile", n))
+                        for n in traces), **timings)
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3104,10 +3596,30 @@ def main() -> int:
     say("launches", path="input", **input_launches)
     say("input", phase_seconds=round(time.perf_counter() - t13, 1))
 
+    # the towers past 128 tokens (slice 14): the long path of #1 and #2
+    # and #3 past 256 bits against their plain versions, then ViT-L/14
+    # serving and training, ViT-B/16, bf16 moments and --profile; each run
+    # resets the counts just before it and reads them just after
+    t14 = time.perf_counter()
+    long_cases = {"fwd": [], "bwd": []}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, B, L, H in LONG_SHAPES:
+            fwd_case, bwd_case = long_attention_cases(name, B, L, H, dt)
+            long_cases["fwd"].append(fwd_case)
+            long_cases["bwd"].append(bwd_case)
+            torch.cuda.empty_cache()
+    long_attention_edges()
+    wide_cases = wide_hamming_cases()
+    torch.cuda.empty_cache()
+    long_launches = long_path()
+    say("launches", path="long", **long_launches)
+    say("long", phase_seconds=round(time.perf_counter() - t14, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
                    "token_methods": token[k], "extra_state": extra_state[k],
-                   "lifecycle": lifecycle[k], "input": input_launches.get(k, 0)}
+                   "lifecycle": lifecycle[k], "input": input_launches.get(k, 0),
+                   "long": long_launches.get(k, 0)}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):
@@ -3122,11 +3634,14 @@ def main() -> int:
 
     kernels = [
         entry("fused_attention_fwd", "ccmh_torch/csrc/attention.cu",
-              "ccmh/ops/attention.py:123", training["fused_attention_fwd"], attn_cases),
+              "ccmh/ops/attention.py:123", training["fused_attention_fwd"],
+              attn_cases + long_cases["fwd"]),
         entry("fused_attention_bwd", "ccmh_torch/csrc/attention_bwd.cu",
-              "ccmh/ops/attention.py:235", training["fused_attention_bwd"], bwd_cases),
+              "ccmh/ops/attention.py:235", training["fused_attention_bwd"],
+              bwd_cases + long_cases["bwd"]),
         entry("hamming_distance_packed", "ccmh_torch/csrc/hamming.cu",
-              "ccmh/ops/hamming.py:56", serving["hamming_distance_packed"], [ham_case]),
+              "ccmh/ops/hamming.py:56", serving["hamming_distance_packed"],
+              [ham_case] + wide_cases),
         entry("fused_layer_norm", "ccmh_torch/csrc/layernorm.cu",
               "ccmh/ops/layernorm.py:63", linear_hash["fused_layer_norm"], ln_cases),
         entry("fused_add_layer_norm", "ccmh_torch/csrc/layernorm.cu",

@@ -177,13 +177,66 @@ def test_token_methods_train_and_save_through_the_cli(tmp_path, method):
 
 @pytest.mark.parametrize("flags", [
     ["--compilation-cache", "cache"],
-    ["--mesh", "2"], ["--fsdp"], ["--remat"], ["--profile"],
-    ["--set", "optim_moments_dtype=bfloat16"],
+    ["--mesh", "2"], ["--fsdp"],
+    ["--set", "param_dtype=bfloat16"],
 ], ids=lambda f: f[0].lstrip("-") + (f[1] if len(f) > 1 and f[0] == "--set" else ""))
 def test_unported_flags_raise_instead_of_being_ignored(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         torch_main(["--data-dir", str(tmp_path), "--save-dir", str(tmp_path), "--device", "cpu",
                     "--clip-arch", "tiny", *flags])
+
+
+@pytest.fixture(scope="module")
+def flag_data(tmp_path_factory):
+    return write_synthetic_mat_dataset(str(tmp_path_factory.mktemp("flags") / "data"), n=24,
+                                       n_class=5, resolution=32, seed=4)
+
+
+_PLAIN_RUN = {}
+
+
+def _flag_run(data, save_dir, *flags):
+    return torch_main(["--method", "DCHMT", "--dataset", "synthetic", "--output-dim", str(K),
+                       "--data-dir", data, "--save-dir", str(save_dir), "--epochs", "2",
+                       "--batch-size", "4", "--query-num", "6", "--train-num", "8",
+                       "--eval-batch", "6", "--clip-arch", "tiny", "--display-step", "1",
+                       "--num-workers", "1", "--no-valid", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--remat"], ["--remat", "--set", "remat_policy=dots"], ["--profile"],
+    ["--set", "optim_moments_dtype=bfloat16"],
+], ids=["remat", "remat-dots", "profile", "setoptim_moments_dtype=bfloat16"])
+def test_ported_flags_are_honoured(flag_data, tmp_path, monkeypatch, flags):
+    """Each of ccmh's flags that the port now has takes effect: remat
+    checkpoints the tower blocks in the train step and leaves the losses
+    the same bits; --profile leaves a trace of epoch 1 under
+    save_dir/profile and the same losses; bf16 moments are stored in bf16."""
+    from ccmh_torch.clip import model as cm
+
+    if "plain" not in _PLAIN_RUN:
+        plain = _flag_run(flag_data, tmp_path / "plain")
+        _PLAIN_RUN["plain"] = [r["loss"] for r in _records(plain.cfg.save_dir, "train")]
+    blocks = []
+    real = cm._remat_block
+    monkeypatch.setattr(cm, "_remat_block", lambda *a: blocks.append(a[-1]) or real(*a))
+    trainer = _flag_run(flag_data, tmp_path / "flagged", *flags)
+    losses = [r["loss"] for r in _records(trainer.cfg.save_dir, "train")]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    if "--remat" in flags:
+        policy = "dots" if "remat_policy=dots" in flags else "full"
+        # both towers' 2 blocks in each of the 4 steps
+        assert blocks == [policy] * 16
+        assert losses == _PLAIN_RUN["plain"]
+    else:
+        assert not blocks
+    if "--profile" in flags:
+        traces = os.listdir(os.path.join(trainer.cfg.save_dir, "profile"))
+        assert any(name.endswith(".json") for name in traces), traces
+        assert losses == _PLAIN_RUN["plain"]
+    moments = {st["m"].dtype for st in trainer.optimizer.state.values()}
+    assert moments == ({torch.bfloat16} if "optim_moments_dtype=bfloat16" in flags
+                       else {torch.float32})
 
 
 def test_the_cli_runs_on_cuda_unless_asked_for_cpu(tmp_path):
