@@ -46,8 +46,12 @@
 // 53.0 KB; L=77 34.9 / 66.0 KB; L=128 55.7 / 105.2 KB (Dh=128: 105.2 /
 // 204.3 KB).  Above 48 KB it needs cudaFuncSetAttribute.
 
+#include <type_traits>
+
+#include "attention_family.cuh"
 #include "attention_long.cuh"
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -167,7 +171,9 @@ cudaError_t launch(const void* qkv, const void* qkv_b, const float* mask, void* 
 }
 
 // ---------------------------------------------------------------------------
-// The long path, L > 128 (attention_long.cuh): one block per (batch element,
+// The long path, L > 128, for the shapes the wgmma kernel below does not
+// take (fp32, a head dim other than 64, a pointer not 16-byte aligned:
+// long_family): attention_long.cuh, one block per (batch element,
 // head, 64-query tile), 4 warps of 16 queries.  The block's q tile stays in
 // shared memory; the k tiles stream through twice, first for each row's
 // softmax max and sum (RowStats), then with the v tiles for
@@ -294,6 +300,253 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, v
   return launch_long_class<T, 128>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, vec, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The long path on Hopper's warpgroup products: L > 128 in bf16 with Dh = 64
+// and 16-byte aligned pointers (long_family), which is every CLIP tower past
+// 128 tokens (ViT-B/16's 197, ViT-L/14's 257, @336's 577) and MITH's concept
+// transformers past K = 128.  Replaces ccmh/ops/attention.py
+// `_pallas_forward` / `_kernel` past 128 tokens, with its rounding points:
+// q + b, k + b, v + b rounded to bf16; logits (q . k) * scale + mask in fp32;
+// p = exp(x - max) / sum formed in fp32 from the row's final max and sum,
+// then rounded to bf16; ctx = p . v summed in fp32, stored in bf16.
+//
+// What bounds it on an H100: at ViT-L/14 (B = 64, L = 257, H = 16) bytes,
+// 101 MB of qkv and 34 MB of context, 40 us at 3.35 TB/s; the function's
+// 4 B H L^2 Dh = 17.3 GFLOP take 17.5 us at the bf16 peak (989 TFLOP/s),
+// and the stats pass's second q k^T 8.8 more.  At @336 (L = 577) the
+// products lead: 87.3 GFLOP, 88 us, plus 44 us for the stats pass.  Beside
+// them, what the two passes cost inside an SM: an exponential a logit in
+// each pass at the SFU's 16 a clock (57 us at ViT-L/14 with the padding to
+// 64-key tiles), and the bias fold's shared-memory traffic (without the
+// bias the kernel ran 19-23% faster: PERF.md).  mma.sync on 16-row warp
+// tiles (the kernel above) reached 10-19x the bound: its fragments
+// were reloaded from shared memory for every 16 x 8 product.
+//
+// Design: a block per (batch element, head, 64-query tile), one warpgroup
+// (128 threads).  Its q tile and a ring of kFwdStages k | v buffers are
+// landed by TMA (one 3-D map over qkv, boxes of 64 rows x 64 head dims with
+// the 128-byte swizzle; rows past L arrive as zeros), each buffer's bytes
+// counted on its own mbarrier; thread 0 starts the next buffer's copies as
+// soon as the block has left the buffer (the same __syncthreads that
+// publishes the bias fold), so kFwdStages - 1 tiles are in flight over
+// each tile's products.  The keys stream twice: pass 1 takes S = q k^T
+// (wgmma m64n64k16 x 4, both operands K-major in shared memory) for each
+// row's max and sum (Stats64: once a tile, the sum rescaled as the max
+// grows), pass 2 takes S again, forms p = 2^(s scale log2 e - lse2) with
+// the row's final max and sum inside the exponent (one FMA and one SFU op
+// a logit on a full unmasked tile), rounds it to bf16 in registers as the
+// A operand, and sums ctx += p v with v as the MN-major B operand (the
+// transpose bit).  So Q K^T runs twice (the stats pass), which keeps
+// ccmh's rounding: an online softmax would round an unnormalised p.
+// Logits kept in shared memory instead (64 x 640 fp32 = 160 KB at L = 577)
+// would leave one block an SM; the stats pass keeps four, and occupancy
+// decides here: a third buffer (3 blocks an SM), two warpgroups a block,
+// 128 keys a step (3 blocks), the next tile's q k^T started before this
+// tile's softmax (it spilled) and q as a register operand all measured
+// slower (PERF.md).
+//
+// The fence: the bias is added in bf16 by the block's threads through the
+// swizzle (generic-proxy writes) after a tile lands; wgmma reads its
+// operands through the async proxy, so every writing thread runs
+// fence.proxy.async.shared::cta after its writes and before the
+// __syncthreads that releases the tile to the products.  Without it a
+// product may read the tile without the bias, which shows only sometimes.
+//
+// Shared memory: 1 KB of alignment slack + the q tile (8 KB) + kFwdStages x
+// 16 KB + the barriers: 41 KB at 2 stages; 4 blocks an SM (120 registers).
+// The class-token tail (L = 257 = 4 x 64 + 1, 577 = 9 x 64 + 1; 197 = 3 x
+// 64 + 5): L = 257 cost 49% more than L = 256 (tools/time_torch_attention.py
+// --shapes long, PERF.md), a fifth key tile for every block and a fifth
+// query tile.  A last key tile of <= 16 keys takes m64n16k16 products
+// (a quarter of the columns, products and exponentials: 5-9% of the whole
+// at the towers); the last query tile, one or five rows, still takes a
+// whole block, as wgmma's M is 64.
+
+constexpr int kFwdStages = 2;      // k | v buffers in the ring
+
+template <int STAGES>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 4)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                           const __nv_bfloat16* __restrict__ qkv_b,
+                           const float* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                           int L, int H, float scale, int n_qt) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align1024(smem_raw);
+  unsigned char* ring = sq + kTileBytes;        // STAGES x (k, v)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * kTileBytes);
+  uint64_t* qbar = full + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int qt = blockIdx.x % n_qt, h = (blockIdx.x / n_qt) % H, b = blockIdx.x / (n_qt * H);
+  const int D = H * kDh;
+  const int q0 = qt * kRows;
+  const int n_kt = (L + kRows - 1) / kRows, n_steps = 2 * n_kt;
+  const int i0 = q0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+  const bf16* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const CUtensorMap* map = &qkv_map;
+
+  // step s < n_kt lands k tile s (pass 1), step n_kt + s k and v tile s
+  auto fetch = [&](int step) {
+    const int slot = step % STAGES, kt = step < n_kt ? step : step - n_kt;
+    unsigned char* sk = ring + slot * 2 * kTileBytes;
+    bar_expect_tx(&full[slot], step < n_kt ? kTileBytes : 2 * kTileBytes);
+    tma_load(sk, map, &full[slot], D + h * kDh, kt * kRows, b);
+    if (step >= n_kt) tma_load(sk + kTileBytes, map, &full[slot], 2 * D + h * kDh, kt * kRows, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) bar_init(&full[s], 1);
+    bar_init(qbar, 1);
+    bar_init_fence();
+    bar_expect_tx(qbar, kTileBytes);
+    tma_load(sq, map, qbar, h * kDh, q0, b);
+    for (int s = 0; s < STAGES && s < n_steps; ++s) fetch(s);
+  }
+  __syncthreads();
+  const uint4 cb_k = bias_chunk(bq ? bq + D : nullptr, tid);
+  const uint4 cb_v = bias_chunk(bq ? bq + 2 * D : nullptr, tid);
+  bar_wait(qbar, 0);
+  if (bq != nullptr) fold_tile(sq, min(kRows, L - q0), bias_chunk(bq, tid), tid);
+
+  Stats64 st;
+  st.init();
+  float lb[2] = {0.f, 0.f};   // each row's m log2 e + log2 sum, after pass 1
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    const int slot = step % STAGES;
+    const bool pass2 = step >= n_kt;
+    const int k0 = (pass2 ? step - n_kt : step) * kRows, nk = min(kRows, L - k0);
+    unsigned char* sk = ring + slot * 2 * kTileBytes;
+    unsigned char* sv = sk + kTileBytes;
+    bar_wait(&full[slot], (step / STAGES) & 1);
+    if (bq != nullptr) {
+      fold_tile(sk, nk, cb_k, tid);
+      if (pass2) fold_tile(sv, nk, cb_v, tid);
+    }
+    // every writer's fold (and q's, before step 0) before the async proxy
+    // reads it: fence, then the block syncs, which also says that every
+    // warp is done with step - 1's buffer, whose next copies go out now
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0 && step >= 1 && step - 1 + STAGES < n_steps) fetch(step - 1 + STAGES);
+    // the step over N key columns: 64, or 16 for a last tile of <= 16 keys
+    // (the class token of L = 64 n + 1), whose columns past 16 hold no key
+    auto cols = [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      float s[N / 2];
+      run(s, [&] { rows_times<N>(s, sq, sk); });
+      const Tile tile(mask, k0, L, scale);
+      logits<N>(s, tile, scale, mask, i0, k0, L, t);
+      if (!pass2) {
+        st.add<false, N>(s, s, tile);
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) s[i] = ex2(fmaf(s[i], tile.c, -lb[(i >> 1) & 1]));   // p
+      uint32_t a[N / 16][4];
+      to_a<N>(a, s);
+      run(o, [&] { acc_times(o, a, sv); });
+    };
+    if (nk <= 16)
+      cols(std::integral_constant<int, 16>());
+    else
+      cols(std::integral_constant<int, 64>());
+    if (step == n_kt - 1) {
+      st.finish();
+      lb[0] = st.lse2(0);
+      lb[1] = st.lse2(1);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i < L) {
+      bf16* dst = out + ((size_t)b * L + i) * D + h * kDh + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Which kernel the C entry launches, by the rule of attention_family.cuh
+int long_family(const void* qkv, const void* qkv_b, const void* out, int L, int Dh, int dtype) {
+  return ccmh::attention_family(L, Dh, dtype, qkv, qkv_b, out, nullptr);
+}
+
+cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, void* out, int B,
+                         int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  constexpr int S = kFwdStages;
+  CUtensorMap map;
+  const uint64_t row = (uint64_t)3 * H * kDh;
+  cudaError_t err = make_map(&map, qkv, true, row, L, B, row, kDh);
+  if (err != cudaSuccess) return err;
+  const size_t smem = 1024 + (size_t)(1 + 2 * S) * kTileBytes + 8 * (S + 1);
+  err = cudaFuncSetAttribute(attention_fwd_wgmma_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (L + kRows - 1) / kRows;
+  const long long blocks = (long long)B * H * n_qt;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  attention_fwd_wgmma_kernel<S><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      map, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(out), L, H, scale, n_qt);
+  return cudaGetLastError();
+}
+
+// A check of the wgmma building blocks on one [64][64] product (the tool
+// check_attention_long.py holds it against torch.matmul): mode 0, c = a b^T
+// with both tiles landed by TMA as K-major operands; 1, c = a b with a's
+// fragments in registers and b the MN-major operand; 2, c = (a + bias)
+// (b + bias)^T, the bias folded into both landed tiles through the swizzle.
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads)
+wgmma_selftest_kernel(const __grid_constant__ CUtensorMap a_map,
+                      const __grid_constant__ CUtensorMap b_map, const __nv_bfloat16* a,
+                      const __nv_bfloat16* bias, float* c, int mode) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = align1024(smem_raw);
+  unsigned char* sb = sa + kTileBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sb + kTileBytes);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+    bar_expect_tx(bar, 2 * kTileBytes);
+    tma_load(sa, &a_map, bar, 0, 0, 0);
+    tma_load(sb, &b_map, bar, 0, 0, 0);
+  }
+  __syncthreads();
+  bar_wait(bar, 0);
+  if (mode == 2) {
+    fold_tile(sa, kRows, bias_chunk(bias, tid), tid);
+    fold_tile(sb, kRows, bias_chunk(bias, tid), tid);
+  }
+  fence_async_smem();
+  __syncthreads();
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const int r0 = 16 * warp + g;
+  if (mode == 1) {
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        af[kk][q] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8 * (q & 1)) * kDh + 16 * kk +
+                                                       8 * (q >> 1) + 2 * t);
+    run(d, [&] { acc_times(d, af, sb); });
+  } else {
+    run(d, [&] { rows_times<64>(d, sa, sb); });
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(r0 + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+}
+
 }  // namespace
 
 // qkv [B, L, 3*H*Dh] and out [B, L, H*Dh] contiguous in `dtype`; qkv_b
@@ -317,11 +570,42 @@ extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b
                        ? launch_long<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s)
                        : launch<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s));
     case ccmh::kBFloat16:
-      return (int)(L > kMaxL ? launch_long<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh,
-                                                          scale, s)
-                             : launch<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh,
-                                                     scale, s));
+      switch (long_family(qkv, qkv_b, out, L, Dh, dtype)) {
+        case ccmh::kFamilyShort:
+          return (int)launch<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+        case ccmh::kFamilyLongWgmma:
+          return (int)launch_wgmma(qkv, qkv_b, mask, out, B, L, H, scale, s);
+        default:
+          return (int)launch_long<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+      }
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The kernel family ccmh_attention_fwd launches for these arguments: 0 the
+// short kernel, 1 the long mma.sync kernel, 2 the long wgmma kernel (the
+// wrapper counts its launches by family).
+extern "C" int ccmh_attention_fwd_family(const void* qkv, const void* qkv_b, const void* out,
+                                         int L, int Dh, int dtype) {
+  return long_family(qkv, qkv_b, out, L, Dh, dtype);
+}
+
+// a, b [64][64] bf16, bias [64] bf16 (mode 2), c [64][64] fp32, all
+// contiguous on card `device`: see wgmma_selftest_kernel.
+extern "C" int ccmh_wgmma_selftest(int device, const void* a, const void* b, const void* bias,
+                                   float* c, int mode, void* stream) {
+  using namespace ccmh::wg;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap am, bm;
+  if ((err = make_map(&am, a, true, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
+  if ((err = make_map(&bm, b, true, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
+  const size_t smem = 1024 + 2 * kTileBytes + 8;
+  err = cudaFuncSetAttribute(wgmma_selftest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_selftest_kernel<<<1, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      am, bm, static_cast<const bf16*>(a), static_cast<const bf16*>(bias), c, mode);
+  return (int)cudaGetLastError();
 }

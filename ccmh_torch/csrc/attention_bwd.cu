@@ -68,8 +68,10 @@
 
 #include <type_traits>
 
+#include "attention_family.cuh"
 #include "attention_long.cuh"
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -525,8 +527,9 @@ cudaError_t launch(int device, const void* qkv, const void* qkv_b, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// The long path, L > 128 (attention_long.cuh): three kernels in stream
-// order, each a block per (batch element, head, 64-row tile) of 4 warps,
+// The long path, L > 128, for the shapes the wgmma kernels below do not
+// take (fp32, a head dim other than 64, a pointer not 16-byte aligned:
+// long_family), in attention_long.cuh: three kernels in stream order, each a block per (batch element, head, 64-row tile) of 4 warps,
 // every output element summed by one warp in a fixed order (no atomics:
 // the same bits every run, which bit-equal resume and remat need):
 //   1. stats, query-major: the k and v tiles stream past the block's q and
@@ -883,7 +886,326 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, c
                                    stream);
 }
 
+// ---------------------------------------------------------------------------
+// The long path on Hopper's warpgroup products: L > 128 in bf16 with Dh = 64
+// and 16-byte aligned pointers (long_family), every CLIP tower past 128
+// tokens and MITH's concept transformers past K = 128.  Replaces
+// ccmh/ops/attention.py `_pallas_backward` / `_bwd_kernel` past 128 tokens,
+// with its rounding points (the file's head): the softmax recomputed in
+// fp32, D_i = sum_j p_ij dp_ij over the unrounded p, p and dS scale rounded
+// to bf16 before the three output products, which sum in fp32.
+//
+// What bounds it on an H100: at ViT-L/14 (B = 64, L = 257, H = 16) bytes,
+// 101 MB of qkv and 34 MB of g read and 101 MB of dqkv written, 70 us at
+// 3.35 TB/s, against the function's 10 B H L^2 Dh = 43 GFLOP, 44 us at the
+// bf16 peak; at @336 (L = 577) the products, 218 GFLOP, 221 us.  The three
+// kernels below take nine products where the function has five (q k^T and
+// g v^T three times each): 1.8x the function's operations, the price of
+// gradients without atomics or device-memory scratch; and three
+// exponentials a logit, one a kernel.  At ViT-L/14 the three took 142,
+// 218 and 156 us (torch.profiler), and without the bias fold the whole
+// backward ran 16-20% faster (PERF.md).
+//
+// Design: the dataflow of the mma.sync kernels above, which makes the
+// gradients the same bits every run (remat and resume need them so), on
+// 64-row warpgroup tiles:
+//   1. stats, query-major: a block's q and g tiles stay; the k and v tiles
+//      stream past them; S = q k^T and dP = g v^T (wgmma, both operands
+//      K-major) give each row's max, sum and D_i (Stats64, once a 64-key
+//      tile), written as (max log2 e + log2 sum, D, 0, 0) fp32 over the
+//      first 16 bytes of the row's own dq slot of dqkv (p = 2^(x log2 e -
+//      that): the normalisation inside the exponent);
+//   2. dk and dv, key-major: a block's k and v tiles stay; the q and g
+//      tiles and those rows' 16 bytes of statistics stream past (a third
+//      TMA map reads dqkv as fp32); S^T = k q^T and dP^T = v g^T give p and
+//      dS scale, rounded to bf16 in registers as the A operand of
+//      dv += p^T g and dk += dS^T q (g and q the MN-major B operands);
+//   3. dq, query-major: as 1, each thread's rows' statistics read back
+//      first, dq += dS k (k MN-major), stored over the statistics.
+// Each output element is summed by one warpgroup, tile after tile in a
+// fixed order.  Tiles land by TMA through a ring of kBwdStages buffers, as
+// in the forward (attention.cu), the bias folded in bf16 through the
+// swizzle by the block's threads; each writer's fence.proxy.async.shared::cta
+// and then the block's __syncthreads put the folded tile before the async
+// proxy's reads (wgmma) -- without the fence a product may see the tile
+// unfolded -- and release the buffer that the next copies overwrite.
+// Shared memory: 1 KB slack + 2 resident tiles (16 KB) + 2 stages of 16 KB
+// (+ 1 KB of statistics a stage in kernel 2): 49 / 51 KB; registers set
+// the blocks an SM (4, 2, 3).  A streamed tile of <= 16 rows (the class
+// token's, L = 64 n + 1) takes m64n16k16 products, a quarter of the
+// columns (2-8% of the whole at the towers).  A third stage, two
+// warpgroups a block (sharing each streamed tile) and q and g (k and v) as
+// register operands all measured slower (PERF.md).
+
+constexpr int kBwdStages = 2;   // streamed buffers in the ring
+constexpr int kStatsBytes = ccmh::wg::kRows * 16;   // a tile's rows' (lse2, D, 0, 0)
+enum BwdKernel { kStatsPass = 0, kDkDv = 1, kDq = 2 };
+
+// blocks an SM: the register file at 127 (stats), 174 (dk dv) and 168
+// (dq) registers a thread, without a spill
+template <int KIND, int STAGES>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads,
+                                  KIND == kStatsPass ? 4 : KIND == kDq ? 3 : 2)
+attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
+                    const __grid_constant__ CUtensorMap g_map,
+                    const __grid_constant__ CUtensorMap stats_map,
+                    const __nv_bfloat16* __restrict__ qkv_b, const float* __restrict__ mask,
+                    __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale, int n_t) {
+  using namespace ccmh::wg;
+  constexpr bool KEYS = KIND == kDkDv;   // key-major: k, v stay; q, g, statistics stream
+  constexpr int kStage = 2 * kTileBytes + (KEYS ? kStatsBytes : 0);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* r0 = align1024(smem_raw);   // resident: q | k
+  unsigned char* r1 = r0 + kTileBytes;       // resident: g | v
+  unsigned char* ring = r1 + kTileBytes;     // STAGES x (k, v | q, g, statistics)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * kStage);
+  uint64_t* rbar = full + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int tile = blockIdx.x % n_t, h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
+  const int D = H * kDh, D3 = 3 * D;
+  const int t0 = tile * kRows, nt = min(kRows, L - t0);   // the block's resident rows
+  const int i0 = t0 + 16 * warp + (lane >> 2);   // the thread's rows i0, i0 + 8 (queries | keys)
+  const bf16* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const CUtensorMap* mq = &qkv_map;
+  const CUtensorMap* mg = &g_map;
+  const CUtensorMap* ms = &stats_map;
+
+  // streamed tile `step` (64 rows from step * 64): k and v, or q, g and
+  // their rows' statistics
+  auto fetch = [&](int step) {
+    unsigned char* st = ring + (step % STAGES) * kStage;
+    uint64_t* bar = &full[step % STAGES];
+    const int row = step * kRows;
+    bar_expect_tx(bar, kStage);
+    if (KEYS) {
+      tma_load(st, mq, bar, h * kDh, row, b);
+      tma_load(st + kTileBytes, mg, bar, h * kDh, row, b);
+      tma_load(st + 2 * kTileBytes, ms, bar, h * kDh / 2, row, b);
+    } else {
+      tma_load(st, mq, bar, D + h * kDh, row, b);
+      tma_load(st + kTileBytes, mq, bar, 2 * D + h * kDh, row, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) bar_init(&full[s], 1);
+    bar_init(rbar, 1);
+    bar_init_fence();
+    bar_expect_tx(rbar, 2 * kTileBytes);
+    if (KEYS) {
+      tma_load(r0, mq, rbar, D + h * kDh, t0, b);
+      tma_load(r1, mq, rbar, 2 * D + h * kDh, t0, b);
+    } else {
+      tma_load(r0, mq, rbar, h * kDh, t0, b);
+      tma_load(r1, mg, rbar, h * kDh, t0, b);
+    }
+    for (int s = 0; s < STAGES && s < n_t; ++s) fetch(s);
+  }
+  __syncthreads();
+  // the bias chunks of the streamed tiles: q | k and - | v
+  const uint4 cb_a = bias_chunk(bq ? (KEYS ? bq : bq + D) : nullptr, tid);
+  const uint4 cb_b = bias_chunk(bq && !KEYS ? bq + 2 * D : nullptr, tid);
+  bar_wait(rbar, 0);
+  if (bq != nullptr) {
+    fold_tile(r0, nt, bias_chunk(KEYS ? bq + D : bq, tid), tid);
+    if (KEYS) fold_tile(r1, nt, bias_chunk(bq + 2 * D, tid), tid);
+  }
+
+  // kernel 3: the thread's rows' statistics, read before its dq overwrites them
+  float lb[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  if (KIND == kDq) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        const float4 v = *reinterpret_cast<const float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh);
+        lb[r] = v.x;
+        dd[r] = v.y;
+      }
+    }
+  }
+  Stats64 st;
+  st.init();
+  float acc0[32], acc1[32];   // dq | dk, and dv
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  for (int step = 0; step < n_t; ++step) {
+    unsigned char* sa = ring + (step % STAGES) * kStage;   // k | q
+    unsigned char* sb = sa + kTileBytes;                   // v | g
+    const float* sst = reinterpret_cast<const float*>(sb + kTileBytes);   // q's statistics
+    const int s0 = step * kRows, ns = min(kRows, L - s0);
+    bar_wait(&full[step % STAGES], (step / STAGES) & 1);
+    if (bq != nullptr) {
+      fold_tile(sa, ns, cb_a, tid);
+      if (!KEYS) fold_tile(sb, ns, cb_b, tid);
+    }
+    fence_async_smem();   // the folds (and the resident tiles') before the async proxy reads them
+    __syncthreads();      // ... and every warp done with step - 1's buffer
+    if (tid == 0 && step >= 1 && step - 1 + STAGES < n_t) fetch(step - 1 + STAGES);
+    // the step over N columns of the streamed tile: 64, or 16 for a last
+    // tile of <= 16 rows (the class token of L = 64 n + 1)
+    auto cols = [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      // S = q k^T, dP = g v^T (query-major); S^T = k q^T, dP^T = v g^T (key-major)
+      float s[N / 2], dp[N / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      rows_times<N>(s, r0, sa);
+      rows_times<N>(dp, r1, sb);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      if (KIND == kStatsPass) {
+        const Tile tile(mask, s0, L, scale);
+        logits<N>(s, tile, scale, mask, i0, s0, L, t);
+        st.add<true, N>(s, dp, tile);
+        return;
+      }
+      if (KIND == kDq) {
+        const Tile tile(mask, s0, L, scale);
+        logits<N>(s, tile, scale, mask, i0, s0, L, t);
+#pragma unroll
+        for (int x = 0; x < N / 2; ++x) {
+          const int r = (x >> 1) & 1;
+          const float p = ex2(fmaf(s[x], tile.c, -lb[r]));
+          s[x] = p * (dp[x] - dd[r]) * scale;     // dS scale, rounded to bf16 by to_a
+        }
+        uint32_t a[N / 16][4];
+        to_a<N>(a, s);
+        run(acc0, [&] { acc_times(acc0, a, sa); });   // dq += dS k
+        return;
+      }
+      // key-major: rows are keys i0 + 8 r, columns the queries s0 + c; a
+      // query past L (its q, g and statistics rows are TMA's zero fill) gets
+      // p = 0, so it adds nothing to dv or dk
+      const Tile tile(mask, t0, L, scale);   // the block's keys all below L, no mask
+      if (!tile.plain) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = s0 + 8 * j + 2 * t + (e & 1);
+            s[4 * j + e] = logit(s[4 * j + e], scale, mask, i, i0 + 8 * (e >> 1), L);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e, c = 8 * j + 2 * t + (e & 1);
+          const float2 q = *reinterpret_cast<const float2*>(sst + 4 * c);   // (lse2, D)
+          const float p = s0 + c < L ? ex2(fmaf(s[x], tile.c, -q.x)) : 0.f;
+          s[x] = p;
+          dp[x] = p * (dp[x] - q.y) * scale;
+        }
+      uint32_t ap[N / 16][4], ads[N / 16][4];
+      to_a<N>(ap, s);
+      to_a<N>(ads, dp);
+      fence_regs(acc0);
+      fence_regs(acc1);
+      wg_fence();
+      acc_times(acc1, ap, sb);    // dv += p^T g
+      acc_times(acc0, ads, sa);   // dk += dS^T q
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc0);
+      fence_regs(acc1);
+    };
+    if (ns <= 16)
+      cols(std::integral_constant<int, 16>());
+    else
+      cols(std::integral_constant<int, 64>());
+  }
+
+  if (KIND == kStatsPass) {
+    st.finish();
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + 8 * r;
+        if (i < L) {
+          *reinterpret_cast<float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh) =
+              make_float4(st.lse2(r), st.dn[r] * (1.f / st.l[r]), 0.f, 0.f);
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i < L) {
+      bf16* row = dqkv + ((size_t)b * L + i) * D3 + h * kDh + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(row + (KEYS ? D : 0) + 8 * j) =
+            pack_bf16(acc0[4 * j + 2 * r], acc0[4 * j + 2 * r + 1]);
+        if (KEYS)
+          *reinterpret_cast<uint32_t*>(row + 2 * D + 8 * j) =
+              pack_bf16(acc1[4 * j + 2 * r], acc1[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int KIND>
+cudaError_t launch_bwd_wgmma_kernel(const CUtensorMap& mq, const CUtensorMap& mg,
+                                    const CUtensorMap& ms, const void* qkv_b, const float* mask,
+                                    void* dqkv, int B, int L, int H, float scale,
+                                    cudaStream_t stream) {
+  using namespace ccmh::wg;
+  constexpr int S = kBwdStages;
+  const size_t smem = 1024 + 2 * kTileBytes +
+                      (size_t)S * (2 * kTileBytes + (KIND == kDkDv ? kStatsBytes : 0)) +
+                      8 * (S + 1);
+  auto kernel = attention_bwd_wgmma<KIND, S>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_t = (L + kRows - 1) / kRows;
+  const long long blocks = (long long)B * H * n_t;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      mq, mg, ms, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(dqkv), L, H, scale,
+      n_t);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, const void* g,
+                         void* dqkv, int B, int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  const uint64_t D = (uint64_t)H * kDh;
+  CUtensorMap mq, mg, ms;
+  cudaError_t err = make_map(&mq, qkv, true, 3 * D, L, B, 3 * D, kDh);
+  if (err == cudaSuccess) err = make_map(&mg, g, true, D, L, B, D, kDh);
+  // dqkv as fp32 rows of 3 D / 2 words: each row's statistics at word 32 h
+  if (err == cudaSuccess) err = make_map(&ms, dqkv, false, 3 * D / 2, L, B, 3 * D / 2, 4);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma_kernel<kStatsPass>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale,
+                                              stream);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma_kernel<kDkDv>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma_kernel<kDq>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
+  return err;
+}
+
+// Which kernels the C entry launches, by the rule of attention_family.cuh
+int long_family(const void* qkv, const void* qkv_b, const void* g, const void* dqkv, int L,
+                int Dh, int dtype) {
+  return ccmh::attention_family(L, Dh, dtype, qkv, qkv_b, g, dqkv);
+}
+
 }  // namespace
+
+// The kernel family ccmh_attention_bwd launches for these arguments: 0 the
+// short kernel, 1 the long mma.sync kernels, 2 the long wgmma kernels (the
+// wrapper counts its launches by family).
+extern "C" int ccmh_attention_bwd_family(const void* qkv, const void* qkv_b, const void* g,
+                                         const void* dqkv, int L, int Dh, int dtype) {
+  return long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype);
+}
 
 // qkv and dqkv [B, L, 3*H*Dh], g [B, L, H*Dh], all contiguous in `dtype`;
 // qkv_b [3*H*Dh] in `dtype` or null; mask [L, L] fp32 or null; scale is
@@ -908,10 +1230,16 @@ extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b
                              : launch<float>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
                                              scale, s));
     case ccmh::kBFloat16:
-      return (int)(L > kMaxL ? launch_long<__nv_bfloat16>(qkv, qkv_b, mask, g, dqkv, B, L, H,
-                                                          Dh, scale, s)
-                             : launch<__nv_bfloat16>(device, qkv, qkv_b, mask, g, dqkv, B, L,
-                                                     H, Dh, scale, s));
+      switch (long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype)) {
+        case ccmh::kFamilyShort:
+          return (int)launch<__nv_bfloat16>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
+                                            scale, s);
+        case ccmh::kFamilyLongWgmma:
+          return (int)launch_wgmma(qkv, qkv_b, mask, g, dqkv, B, L, H, scale, s);
+        default:
+          return (int)launch_long<__nv_bfloat16>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale,
+                                                 s);
+      }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,40 @@
+// The fixed rule by which the C entries of the attention kernels #1
+// (attention.cu) and #2 (attention_bwd.cu) choose a kernel family, which
+// they also report (ccmh_attention_{fwd,bwd}_family) so the wrapper counts
+// launches by family.  Plain C++ with no CUDA header, so the CPU tests
+// compile this same rule with the host compiler.
+//   0 short: L <= 128, a warp's [16, L] logits in registers;
+//   2 long wgmma: past it, bf16 with head dim 64 and every pointer 16-byte
+//     aligned (TMA's boxes and the bias's 16-byte chunks; the packed rows,
+//     3 H 64 and H 64 bf16, are multiples of 16 bytes): every CLIP tower
+//     past 128 tokens and MITH's concept transformers past K = 128;
+//   1 long mma.sync: the other shapes past 128 (fp32, other head dims,
+//     views at odd offsets), attention_long.cuh.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace ccmh {
+
+enum AttentionFamily : int { kFamilyShort = 0, kFamilyLongMma = 1, kFamilyLongWgmma = 2 };
+
+constexpr int kShortMaxL = 128;      // the short kernels' L
+constexpr int kWgmmaHeadDim = 64;    // the head dim of the wgmma kernels
+constexpr int kWgmmaDType = 1;       // bf16 (ccmh::kBFloat16)
+
+inline bool aligned16_or_null(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// p0..p3: the entry's tensors (#1: qkv, qkv_b, out; #2: qkv, qkv_b, g,
+// dqkv), null where absent
+inline int attention_family(int L, int Dh, int dtype, const void* p0, const void* p1,
+                            const void* p2, const void* p3) {
+  if (L <= kShortMaxL) return kFamilyShort;
+  const bool wgmma = dtype == kWgmmaDType && Dh == kWgmmaHeadDim && aligned16_or_null(p0) &&
+                     aligned16_or_null(p1) && aligned16_or_null(p2) && aligned16_or_null(p3);
+  return wgmma ? kFamilyLongWgmma : kFamilyLongMma;
+}
+
+}  // namespace ccmh

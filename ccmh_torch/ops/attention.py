@@ -24,7 +24,14 @@ Sequences past 128 tokens (ViT-B/16's 197, ViT-L/14's 257, ViT-L/14@336's
 577, MITH's concept transformers at K > 128) take the kernels' long path,
 chosen by the C entries from L: the head streams through shared memory in
 64-row tiles, the softmax still normalised before its probabilities are
-rounded, and the backward still free of atomics (``csrc/attention_long.cuh``).
+rounded, and the backward still free of atomics.  In bf16 with head dim 64
+and 16-byte aligned tensors (every tower) the long path runs on Hopper's
+warpgroup products (``wgmma``) fed by TMA (``csrc/wgmma_tiles.cuh``); other
+long shapes take the ``mma.sync`` kernels of ``csrc/attention_long.cuh``.
+The C entries choose by that fixed rule and report the family they took
+(``ccmh_attention_{fwd,bwd}_family``); the wrapper counts launches by
+family in :data:`launches_by_family` and
+:data:`backward_launches_by_family`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ from ccmh_torch.ops import build
 # launches of the CUDA kernels since the counts were last set to 0
 launches = 0            # the forward, kernel A
 backward_launches = 0   # the backward, kernel C
+# the same launches by the kernel family the C entry took: "short" (L <= 128),
+# "long_mma" (the long path on mma.sync), "long_wgmma" (on wgmma)
+FAMILIES = ("short", "long_mma", "long_wgmma")   # the C entries' family codes 0, 1, 2
+launches_by_family = dict.fromkeys(FAMILIES, 0)
+backward_launches_by_family = dict.fromkeys(FAMILIES, 0)
 
 # L <= SHORT_SEQ: a warp keeps its [16, L] logits in registers; past it
 # the C entries take the long path, which streams 64-row tiles of the head
@@ -164,6 +176,16 @@ def _entry(name: str):
     return lib, fn
 
 
+def _family(kind: str, ptrs, L: int, head_dim: int, dtype: torch.dtype) -> str:
+    """The family of the kernel that the C entry of ``kind`` launches for
+    these pointers and shape, as that entry reports it."""
+    lib = build.load("attention" if kind == "fwd" else "attention_bwd")
+    fn = getattr(lib, f"ccmh_attention_{kind}_family")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3
+    return FAMILIES[fn(*ptrs, L, head_dim, _DTYPE_CODES[dtype])]
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -189,6 +211,8 @@ def _forward(qkv, bias, n_head, qkv_b):
              _DTYPE_CODES[qkv.dtype], stream)
     build.raise_on_error(lib, "ccmh_attention_fwd", err)
     launches += 1
+    launches_by_family[_family("fwd", (_ptr(qkv), _ptr(qkv_b), _ptr(out)), L, head_dim,
+                               qkv.dtype)] += 1
     return out
 
 
@@ -221,6 +245,8 @@ def attention_backward(qkv: torch.Tensor, bias: Optional[torch.Tensor],
              _DTYPE_CODES[qkv.dtype], stream)
     build.raise_on_error(lib, "ccmh_attention_bwd", err)
     backward_launches += 1
+    backward_launches_by_family[_family("bwd", (_ptr(qkv), _ptr(qkv_b), _ptr(g), _ptr(dqkv)),
+                                        L, head_dim, qkv.dtype)] += 1
     return dqkv
 
 

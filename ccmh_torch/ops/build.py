@@ -108,6 +108,29 @@ def build_log(name: str) -> Optional[str]:
         return fh.read()
 
 
+def sass_counts(name: str, opcode: str = "HGMMA") -> Optional[Dict[str, int]]:
+    """Instructions of ``opcode`` in each kernel of the built library
+    ``name`` (mangled kernel name -> count), read from ``cuobjdump -sass``
+    beside ``nvcc``; None where the toolkit has no ``cuobjdump``."""
+    try:
+        tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    except RuntimeError:
+        return None
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", build_all([name])[name]], capture_output=True,
+                         text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    kernel = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and opcode in line:
+            counts[kernel] += 1
+    return counts
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

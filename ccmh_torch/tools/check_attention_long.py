@@ -4,8 +4,13 @@ versions.
 
     python -m ccmh_torch.tools.check_attention_long
 
-It builds the three libraries, prints the card's name and power limit and
-each library's register and spill report, then one JSON line per case:
+It builds the three libraries, prints the card's name and power limit,
+each library's register and spill report and the ``HGMMA`` instructions
+in each kernel (``cuobjdump -sass``), checks the ``wgmma`` building blocks
+(``csrc/wgmma_tiles.cuh``: TMA tiles, the K-major and MN-major operands,
+the bias folded through the swizzle) on one [64, 64] product against
+``torch.matmul``, then one JSON line per case with the kernel family each
+call took (``short``, ``long_mma``, ``long_wgmma``):
 the kernels' max abs error against the plain versions (fp32 within 1e-4,
 bf16 within 2e-2, the backward's times its output scale), whether two
 backward calls give the same bits, and at the towers' shapes the ms per
@@ -20,6 +25,7 @@ CUDA card.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -64,6 +70,38 @@ def _mask(L, kind, dev):
     return None
 
 
+SELFTEST_MODES = ("a b^T", "a b (a in registers, b MN-major)", "(a + bias) (b + bias)^T")
+
+
+def wgmma_selftest(dev) -> list:
+    """The wgmma building blocks on one [64, 64] bf16 product per mode
+    against torch.matmul in fp32 (exact products, fp32 sums: 1e-3)."""
+    gen = torch.Generator(device=dev).manual_seed(64)
+    a = torch.randn((64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((64,), generator=gen, device=dev).to(torch.bfloat16)
+    lib = build.load("attention")
+    fn = lib.ccmh_wgmma_selftest
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    rows = []
+    for mode, what in enumerate(SELFTEST_MODES):
+        c = torch.full((64, 64), float("nan"), device=dev)
+        err = fn(dev.index or 0, a.data_ptr(), b.data_ptr(), bias.data_ptr(), c.data_ptr(), mode,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        build.raise_on_error(lib, "ccmh_wgmma_selftest", err)
+        torch.cuda.synchronize()
+        if mode == 0:
+            want = a.float() @ b.float().T
+        elif mode == 1:
+            want = a.float() @ b.float()
+        else:
+            want = (a + bias).float() @ (b + bias).float().T
+        e = (c - want).abs().max().item()
+        rows.append({"selftest": what, "max_abs_err": e, "ok": math.isfinite(e) and e <= 1e-3})
+    return rows
+
+
 def attention_case(B, L, H, Dh, kind, dtype, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(L * 7 + H)
     D = H * Dh
@@ -71,6 +109,7 @@ def attention_case(B, L, H, Dh, kind, dtype, dev) -> dict:
     qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
     g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
     mask = _mask(L, kind, dev)
+    before = (dict(attn.launches_by_family), dict(attn.backward_launches_by_family))
     with torch.no_grad():
         out = attn.fused_attention(qkv, mask, H, qkv_b=qkv_b)
         want = attn.attention_reference(qkv, mask, H, qkv_b=qkv_b)
@@ -85,7 +124,10 @@ def attention_case(B, L, H, Dh, kind, dtype, dev) -> dict:
           and err_b <= TOL[dtype] * scale and same_bits)
     row = {"B": B, "L": L, "H": H, "Dh": Dh, "mask": kind, "dtype": str(dtype),
            "fwd_err": err, "bwd_err": err_b, "bwd_scale": scale, "same_bits": same_bits,
-           "ok": ok}
+           "ok": ok,
+           "families": [[f for f in attn.FAMILIES if counts[f] > was[f]]
+                        for counts, was in zip((attn.launches_by_family,
+                                                attn.backward_launches_by_family), before)]}
     if B >= 64:
         with torch.no_grad():
             row["fwd_ms"] = _ms(lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
@@ -119,8 +161,12 @@ def main() -> int:
     for name in names:
         print(json.dumps({"build": name, "ptxas": [
             ln.strip() for ln in (build.build_log(name) or "").splitlines()
-            if "registers" in ln or "spill" in ln]}), flush=True)
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln],
+            "hgmma": build.sass_counts(name)}), flush=True)
     failed = 0
+    for row in wgmma_selftest(dev):
+        failed += not row["ok"]
+        print(json.dumps(row), flush=True)
     for case in CASES:
         for dtype in (torch.float32, torch.bfloat16):
             row = attention_case(*case, dtype, dev)

@@ -183,6 +183,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -243,6 +244,9 @@ def reset_counts() -> None:
     from ccmh_torch.ops import layernorm as ln
 
     attn.launches = attn.backward_launches = ham.launches = 0
+    for by_family in (attn.launches_by_family, attn.backward_launches_by_family):
+        for family in by_family:
+            by_family[family] = 0
     ln.launches = ln.add_launches = 0
     av.backward_x_launches = av.forward_stacked_launches = av.backward_savedp_launches = 0
     av.backward_merged_launches = av.backward_headpair_launches = 0
@@ -264,6 +268,15 @@ def read_counts() -> dict:
             "backward_savedp": av.backward_savedp_launches,
             "backward_merged": av.backward_merged_launches,
             "backward_headpair": av.backward_headpair_launches}
+
+
+def family_counts() -> dict:
+    """#1's and #2's launches by the kernel family their C entries took
+    (short, long_mma, long_wgmma) since the counts were last set to 0."""
+    from ccmh_torch.ops import attention as attn
+
+    return {"fused_attention_fwd": dict(attn.launches_by_family),
+            "fused_attention_bwd": dict(attn.backward_launches_by_family)}
 
 
 def say(phase: str, **fields) -> None:
@@ -2959,11 +2972,14 @@ def input_path():
     texts = [str(np.ravel(np.asarray(c, dtype=object))[0]) for c in raw.captions[:10000]]
     rates = input_rates(native, paths, texts)
 
-    total = {}
+    total, families = {}, {}
 
     def add(launches):
         for kernel, n in launches.items():
             total[kernel] = total.get(kernel, 0) + n
+        for kernel, counts in family_counts().items():
+            for family, n in counts.items():
+                families.setdefault(kernel, dict.fromkeys(counts, 0))[family] += n
 
     n_steps = -(-INPUT_TRAIN // TRAIN_BATCH)
     eval_batches = (-(-INPUT_QUERY // INPUT_EVAL_BATCH)
@@ -3014,14 +3030,57 @@ def _long_inputs(B, L, H, dtype, seed, with_g=True):
     return qkv, qkv_b, g
 
 
-def _one_launch(fn, what):
-    """``fn()`` must launch its kernel once: the long path ran on the card."""
+def wgmma_report(name):
+    """Phase 14: the long wgmma kernels of library ``name``: each one's ptxas line
+    (registers, spills) and its HGMMA instructions from ``cuobjdump
+    -sass``; fails if one has none, or if one spills."""
+    from ccmh_torch.ops import build
+
+    kernels, current = {}, None
+    for ln in (build.build_log(name) or "").splitlines():
+        if "Compiling entry function" in ln:
+            current = ln.split("'")[1] if "'" in ln else None
+        elif current and "wgmma" in current and ("spill" in ln or "registers" in ln):
+            kernels.setdefault(current, []).append(ln.strip())
+    counts = build.sass_counts(name)
+    check(kernels, f"{name}: no wgmma kernel in the ptxas report")
+    for kernel, lines in kernels.items():
+        spills = [ln for ln in lines
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+        check(not spills, f"{name}: {kernel} spills: {spills}")
+        if counts is not None:
+            check(counts.get(kernel, 0) > 0, f"{name}: no HGMMA in {kernel}'s SASS")
+    say("build", library=name, wgmma_kernels={
+        k: {"ptxas": v, "hgmma": None if counts is None else counts.get(k)}
+        for k, v in kernels.items()},
+        sass="cuobjdump -sass" if counts is not None else "no cuobjdump in the toolkit")
+
+
+def _long_family(L, dtype):
+    """The kernel family the C entries take (csrc/attention_family.cuh)
+    for these tensors, all contiguous and fresh (16-byte aligned)."""
+    import torch
+
+    from ccmh_torch.ops import attention as attn
+
+    if L <= attn.SHORT_SEQ:
+        return "short"
+    return "long_wgmma" if dtype == torch.bfloat16 else "long_mma"
+
+
+def _one_launch(fn, what, family):
+    """``fn()`` must launch its kernel once, of ``family``: the long path
+    ran on the card, in the family the entry's rule gives."""
     from ccmh_torch.ops import attention as attn
 
     before = (attn.launches, attn.backward_launches)
+    fam_before = family_counts()
     out = fn()
     ran = (attn.launches - before[0], attn.backward_launches - before[1])
     check(sum(ran) == 1, f"{what}: {ran} launches of (#1, #2), not one kernel launch")
+    took = [f for kernel, counts in family_counts().items() for f, n in counts.items()
+            if n > fam_before[kernel][f]]
+    check(took == [family], f"{what}: took the {took} kernels, the rule gives {family}")
     return out
 
 
@@ -3038,14 +3097,15 @@ def long_attention_cases(name, B, L, H, dtype):
     qkv, qkv_b, g = _long_inputs(B, L, H, dtype, seed=L * 1000 + H)
     D, Dh = H * 64, 64
     cases = []
+    family = _long_family(L, dtype)
     with torch.no_grad():
         got = _one_launch(lambda: attn.fused_attention(qkv, None, H, qkv_b=qkv_b),
-                          f"attention {name}")
+                          f"attention {name}", family)
         want = attn.attention_reference(qkv, None, H, qkv_b=qkv_b)
         err_f = (got.float() - want.float()).abs().max().item()
         del got, want
         dq = _one_launch(lambda: attn.attention_backward(qkv, None, qkv_b, g, H),
-                         f"attention backward {name}")
+                         f"attention backward {name}", family)
         dq_want = attn.attention_backward_reference(qkv, None, qkv_b, g, H)
         err_b = (dq.float() - dq_want.float()).abs().max().item()
         scale = max(1.0, dq_want.float().abs().max().item())
@@ -3073,7 +3133,7 @@ def long_attention_cases(name, B, L, H, dtype):
              10.0 * B * H * L * L * Dh)):
         bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
         case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
-                "causal": False, "path": "long", "max_abs_err": err, "tol": ATTN_TOL[tname],
+                "causal": False, "path": family, "max_abs_err": err, "tol": ATTN_TOL[tname],
                 "ms": ms[kind], "plain_ms": plain[kind], "library_ms": lib[kind],
                 "library": "SDPA fwd" if kind == "fwd" else "SDPA fwd+bwd minus SDPA fwd",
                 "bound_ms": bound_ms, "bound_by": bound_by}
@@ -3103,12 +3163,13 @@ def long_attention_edges():
                 if kind == "keypad":
                     mask = torch.zeros((L, L), device="cuda")
                     mask[:, L - L // 3:] = -math.inf
+                family = _long_family(L, dtype)
                 with torch.no_grad():
                     got = _one_launch(lambda: attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b),
-                                      f"attention L={L} {kind}")
+                                      f"attention L={L} {kind}", family)
                     want = attn.attention_reference(qkv, mask, 4, qkv_b=qkv_b)
                     dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
-                                     f"attention backward L={L} {kind}")
+                                     f"attention backward L={L} {kind}", family)
                     dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
                 err = (got.float() - want.float()).abs().max().item()
                 err_b = (dq.float() - dq_want.float()).abs().max().item()
@@ -3118,9 +3179,8 @@ def long_attention_edges():
                       f"attention edge {tag}: max abs err {err}")
                 check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
                       f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
-                worst[tag] = [err, err_b / scale,
-                              "long" if L > attn.SHORT_SEQ else "short"]
-    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_path=worst)
+                worst[tag] = [err, err_b / scale, family]
+    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_family=worst)
 
 
 def wide_hamming_cases():
@@ -3256,8 +3316,10 @@ def long_path():
     parameters and gradients bit-equal), at batch 128 with remat and bf16
     moments; its .npz serving the trainer's codes and a packed K=512 index
     equal to the int8 one; ViT-B/16 from a .pt; ViT-B/32 with bf16 moments
-    cut by SIGTERM and resumed bit for bit; --profile.  Returns the summed
-    launches of the runs and the serving path."""
+    cut by SIGTERM and resumed bit for bit; --profile; ViT-L/14 with bf16
+    towers (the long path's wgmma kernels forward and backward).  Returns
+    the summed launches of the runs and the serving path, and #1's and
+    #2's by kernel family."""
     import torch
 
     from ccmh_torch.clip.model import ClipConfig
@@ -3270,11 +3332,14 @@ def long_path():
     work = os.path.join(WORK, "long")
     os.makedirs(work, exist_ok=True)
     data = os.path.join(WORK, "train_data")      # written by phase 5
-    total = {}
+    total, families = {}, {}
 
     def add(launches):
         for kernel, n in launches.items():
             total[kernel] = total.get(kernel, 0) + n
+        for kernel, counts in family_counts().items():
+            for family, n in counts.items():
+                families.setdefault(kernel, dict.fromkeys(counts, 0))[family] += n
 
     # 1. serving: bench_vitl's bf16 encode pair at B=64
     reset_counts()
@@ -3399,6 +3464,28 @@ def long_path():
         losses=losses, step_ms=steps, peak_bytes=peak, moment_bytes=m_bytes,
         fp32_moment_bytes=sum(t.numel() * 4 for t in moments))
     del trainer, moments
+    torch.cuda.empty_cache()
+
+    # 3b. bf16 towers (--compute-dtype bfloat16), batch 32: the vision
+    # tower's 24 blocks on the long path's wgmma kernels, forward and
+    # backward; the text tower's 12 on the short kernels
+    steps = []
+    trainer, launches, peak = _timed_run(
+        argv(LONG_BATCH, clip_path=tower) + ["--compute-dtype", "bfloat16", "--save-dir",
+                                             os.path.join(work, "bf16")], steps)
+    _check_tower_launches("ViT-L/14 bf16", launches, _tower_launches(2, vitl, False))
+    took = family_counts()
+    add(launches)
+    want = {"short": 2 * vitl.transformer_layers, "long_mma": 0,
+            "long_wgmma": 2 * vitl.vision_layers}
+    check(took["fused_attention_fwd"] == want and took["fused_attention_bwd"] == want,
+          f"ViT-L/14 bf16: kernel families {took}, the code implies {want} each")
+    losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"ViT-L/14 bf16: losses {losses}")
+    say("long", run="ViT-L/14 DSPH K=64 bf16 towers batch 32, 2 steps", losses=losses,
+        step_ms=steps, peak_bytes=peak, families=took)
+    del trainer
     os.remove(tower)
     torch.cuda.empty_cache()
 
@@ -3454,7 +3541,12 @@ def long_path():
         trace_bytes=sum(os.path.getsize(os.path.join(run_dir("P"), "profile", n))
                         for n in traces), **timings)
     shutil.rmtree(work, ignore_errors=True)
-    return total
+    for kernel in ("fused_attention_fwd", "fused_attention_bwd"):
+        check(families[kernel]["long_wgmma"] > 0 and families[kernel]["long_mma"] > 0,
+              f"phase 14 launched {kernel} by family {families[kernel]}: the long path "
+              f"needs both the wgmma (bf16) and the mma.sync (fp32) kernels")
+    say("long", launches_by_family=families)
+    return total, families
 
 
 # --------------------------------------------------------------------- main
@@ -3601,6 +3693,8 @@ def main() -> int:
     # serving and training, ViT-B/16, bf16 moments and --profile; each run
     # resets the counts just before it and reads them just after
     t14 = time.perf_counter()
+    for name in ("attention", "attention_bwd"):
+        wgmma_report(name)
     long_cases = {"fwd": [], "bwd": []}
     for dt in (torch.float32, torch.bfloat16):
         for name, B, L, H in LONG_SHAPES:
@@ -3611,7 +3705,7 @@ def main() -> int:
     long_attention_edges()
     wide_cases = wide_hamming_cases()
     torch.cuda.empty_cache()
-    long_launches = long_path()
+    long_launches, long_families = long_path()
     say("launches", path="long", **long_launches)
     say("long", phase_seconds=round(time.perf_counter() - t14, 1))
 
@@ -3626,6 +3720,8 @@ def main() -> int:
         top = cases[0]   # vision fp32 (the default's dominant call) or the search
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by_path[name],
+                **({"long_launches_by_family": long_families[name]}
+                   if name in long_families else {}),
                 "max_abs_err": top["max_abs_err"], "ms": top["ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],

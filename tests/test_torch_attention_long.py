@@ -12,20 +12,30 @@ interpret mode on the CPU, as ccmh's own tests run them.
   (rtol 1e-5; the two packages sum the products in other orders), the
   backward 1e-5 of its output scale; bf16 2e-2 (7.8e-3 is one bf16 ulp at
   unit scale, and both round the probabilities and dS to bf16).
-* The long kernels' schedule emulated in plain PyTorch, against ccmh: the
-  keys in 64-row tiles taken 32 columns at a time, each row's max and sum
-  streamed and the sum rescaled as the max grows, the probabilities
-  normalised in fp32 before they are rounded to T, the backward's D_i
-  streamed with the same rescale over the unrounded probabilities, dq
-  summed query-major and dk, dv key-major; fp32 products as 3xTF32 split
-  toward zero.  The card holds the kernels to fp32 1e-4 and bf16 2e-2
-  (``chip_smoke.py``); the emulation sits 10x under the fp32 gate and
-  within the bf16 gate.
+* The long kernels' schedules emulated in plain PyTorch, against ccmh: the
+  keys in 64-row tiles taken CHUNK columns at a time (the ``mma.sync``
+  kernels of ``attention_long.cuh`` 32, the ``wgmma`` kernels 64: one
+  accumulator of a warpgroup), each row's max and sum streamed and the
+  sum rescaled as the max grows, the probabilities normalised in fp32
+  before they are rounded to T, the backward's D_i streamed with the same
+  rescale over the unrounded probabilities, dq summed query-major and dk,
+  dv key-major; fp32 products as 3xTF32 split toward zero.  The card holds
+  the kernels to fp32 1e-4 and bf16 2e-2 (``chip_smoke.py``); the
+  emulation sits 10x under the fp32 gate and within the bf16 gate.
+* The C entries' rule for the kernel family past 128 tokens
+  (``csrc/attention_family.cuh``), compiled here with the host compiler:
+  which (L, head dim, type, alignment) take the ``wgmma`` kernels and
+  which the ``mma.sync`` ones of ``attention_long.cuh``; and the wrapper's count by the family
+  an entry reports.
 * The two faults found on the card: the kernels' checks refused L > 128
   and codes of more than 256 bits.
 """
 
+import ctypes
 import math
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -40,7 +50,9 @@ from ccmh_torch.clip.model import causal_mask
 from ccmh_torch.ops import attention as attn
 from ccmh_torch.ops import hamming as ham
 
-TILE, CHUNK = 64, 32      # the long kernels' key tile and logit chunk
+TILE = 64                 # the long kernels' key tile
+# the logit columns a warp (mma.sync) or a warpgroup (wgmma) holds at a time
+SCHEDULES = [pytest.param(32, id="mma_sync"), pytest.param(64, id="wgmma")]
 GATE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # the card's gates
 MARGIN = 10.0             # the emulated fp32 chain sits this far under its gate
 
@@ -137,18 +149,18 @@ def _logits(q, k, cols, mask, dtype, scale):
     return s + mask[:, cols] if mask is not None else s
 
 
-def _chunks(L):
+def _chunks(L, chunk):
     for k0 in range(0, L, TILE):
-        for n0 in range(k0, min(k0 + TILE, L), CHUNK):
-            yield slice(n0, min(n0 + CHUNK, L))
+        for n0 in range(k0, min(k0 + TILE, L), chunk):
+            yield slice(n0, min(n0 + chunk, L))
 
 
-def _stats(q, k, v, gh, mask, dtype, scale):
+def _stats(q, k, v, gh, mask, dtype, scale, chunk):
     """Pass 1: each row's max, sum and (with gh) D numerator, streamed."""
     mx = torch.full(q.shape[:-1], -math.inf)
     l = torch.zeros(q.shape[:-1])
     dn = torch.zeros(q.shape[:-1])
-    for cols in _chunks(q.shape[-2]):
+    for cols in _chunks(q.shape[-2], chunk):
         s = _logits(q, k, cols, mask, dtype, scale)
         nm = torch.maximum(mx, s.amax(-1))
         corr = torch.where(mx == -math.inf, torch.zeros(()), torch.exp(mx - nm))
@@ -160,24 +172,24 @@ def _stats(q, k, v, gh, mask, dtype, scale):
     return mx, l, dn
 
 
-def forward_long(qkv, b, mask, H, dtype):
+def forward_long(qkv, b, mask, H, dtype, chunk):
     q, k, v = _heads(qkv, b, H, dtype)
     B, _, L, Dh = q.shape
     scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
-    mx, l, _ = _stats(q, k, v, None, mask, dtype, scale)
+    mx, l, _ = _stats(q, k, v, None, mask, dtype, scale, chunk)
     ctx = torch.zeros_like(q)
-    for cols in _chunks(L):
+    for cols in _chunks(L, chunk):
         p = torch.exp(_logits(q, k, cols, mask, dtype, scale) - mx[..., None]) * (1.0 / l)[..., None]
         ctx = ctx + _mm(p.to(dtype).float(), v[..., cols, :], dtype)
     return ctx.permute(0, 2, 1, 3).reshape(B, L, H * Dh).to(dtype)
 
 
-def backward_long(qkv, b, mask, g, H, dtype):
+def backward_long(qkv, b, mask, g, H, dtype, chunk):
     q, k, v = _heads(qkv, b, H, dtype)
     B, _, L, Dh = q.shape
     scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
     gh = g.to(dtype).float().reshape(B, L, H, Dh).permute(0, 2, 1, 3)
-    mx, l, dn = _stats(q, k, v, gh, mask, dtype, scale)
+    mx, l, dn = _stats(q, k, v, gh, mask, dtype, scale, chunk)
     inv = 1.0 / l
     d = dn * inv
 
@@ -192,11 +204,11 @@ def backward_long(qkv, b, mask, g, H, dtype):
 
     everyone = slice(0, L)
     dq = torch.zeros_like(q)          # phase 1, query-major: dq over the key chunks
-    for cols in _chunks(L):
+    for cols in _chunks(L, chunk):
         _, ds = p_ds(everyone, cols)
         dq = dq + _mm(ds.to(dtype).float(), k[..., cols, :], dtype)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)   # phase 2, key-major
-    for rows in _chunks(L):
+    for rows in _chunks(L, chunk):
         p, ds = p_ds(rows, everyone)
         dv = dv + _mm(p.to(dtype).float().transpose(-1, -2), gh[..., rows, :], dtype)
         dk = dk + _mm(ds.to(dtype).float().transpose(-1, -2), q[..., rows, :], dtype)
@@ -204,21 +216,104 @@ def backward_long(qkv, b, mask, g, H, dtype):
     return out.reshape(B, L, 3 * H * Dh).to(dtype)
 
 
+@pytest.mark.parametrize("chunk", SCHEDULES)
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,L,H,Dh,kind", CASES)
-def test_long_schedule_matches_ccmh(B, L, H, Dh, kind, dtype, direction):
+def test_long_schedule_matches_ccmh(B, L, H, Dh, kind, dtype, direction, chunk):
     qkv, b, g = _port_inputs(B, L, H, Dh, dtype)
     out, dqkv = _ccmh(B, L, H, Dh, kind, dtype)
     mask = _mask(L, kind)
     if direction == "forward":
-        got, want, scale = forward_long(qkv, b, mask, H, dtype), out, 1.0
+        got, want, scale = forward_long(qkv, b, mask, H, dtype, chunk), out, 1.0
     else:
-        got, want = backward_long(qkv, b, mask, g, H, dtype), dqkv
+        got, want = backward_long(qkv, b, mask, g, H, dtype, chunk), dqkv
         scale = max(1.0, float(np.abs(dqkv).max()))
     err = float(np.abs(got.float().numpy() - want).max())
     gate = GATE[dtype] * scale / (MARGIN if dtype == torch.float32 else 1.0)
     assert math.isfinite(err) and err <= gate, (err, gate)
+
+
+# ---- the kernel family past 128 tokens: the C entries' rule, and the count
+
+_CSRC = os.path.join(os.path.dirname(attn.__file__), os.pardir, "csrc")
+ALIGNED, ODD = 1 << 20, (1 << 20) + 8      # addresses only: the rule reads no memory
+# (L, head dim, dtype code, which pointer is 8 bytes off 16-byte alignment, family)
+FAMILY_CASES = [
+    (257, 64, 1, None, "long_wgmma"),       # ViT-L/14, bf16
+    (197, 64, 1, None, "long_wgmma"),       # ViT-B/16
+    (577, 64, 1, None, "long_wgmma"),       # ViT-L/14@336
+    (129, 64, 1, None, "long_wgmma"),
+    (4096, 64, 1, None, "long_wgmma"),
+    (128, 64, 1, None, "short"),
+    (50, 64, 0, None, "short"),
+    (257, 64, 0, None, "long_mma"),         # fp32
+    (200, 128, 1, None, "long_mma"),
+    (150, 30, 1, None, "long_mma"),
+    (257, 64, 1, 0, "long_mma"),            # qkv a view at an odd offset
+    (257, 64, 1, 1, "long_mma"),            # the projection bias
+    (257, 64, 1, 2, "long_mma"),            # out (#1) or g (#2)
+]
+
+
+@pytest.fixture(scope="module")
+def family_rule(tmp_path_factory):
+    """The C entries' family rule (csrc/attention_family.cuh), built with
+    the host compiler into a small library."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("family")
+    src = d / "family.cc"
+    src.write_text('#include "attention_family.cuh"\n'
+                   'extern "C" int family(int L, int Dh, int dt, const void* a, const void* b,'
+                   ' const void* c, const void* e) {\n'
+                   '  return ccmh::attention_family(L, Dh, dt, a, b, c, e);\n}\n')
+    lib = d / "family.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-I",
+                    os.path.abspath(_CSRC), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).family
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    return fn
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("L,Dh,dtype,odd,want", FAMILY_CASES)
+def test_entries_take_the_wgmma_kernels_for_every_tower(family_rule, L, Dh, dtype, odd, want,
+                                                        kernel):
+    # #1 passes qkv, qkv_b, out; #2 qkv, qkv_b, g, dqkv
+    ptrs = [ALIGNED] * (3 if kernel == "fwd" else 4) + [None] * (1 if kernel == "fwd" else 0)
+    if odd is not None:
+        ptrs[odd] = ODD
+    assert attn.FAMILIES[family_rule(L, Dh, dtype, *ptrs)] == want
+    if odd != 1:      # no projection bias at all takes the same family
+        ptrs[1] = None
+        assert attn.FAMILIES[family_rule(L, Dh, dtype, *ptrs)] == want
+
+
+def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
+    calls = []
+
+    def entry(code):
+        def fn(*args):
+            calls.append(args)
+            return code
+        return fn
+
+    class Lib:
+        ccmh_attention_fwd_family = entry(2)
+        ccmh_attention_bwd_family = entry(1)
+
+    monkeypatch.setattr(attn.build, "load", lambda name: Lib)
+    assert attn._family("fwd", (16, None, 32), 257, 64, torch.bfloat16) == "long_wgmma"
+    assert attn._family("bwd", (16, 48, 32, 64), 257, 64, torch.float32) == "long_mma"
+    assert calls == [(16, None, 32, 257, 64, 1), (16, 48, 32, 64, 257, 64, 0)]
+    assert len(Lib.ccmh_attention_fwd_family.argtypes) == 3 + 3
+    assert len(Lib.ccmh_attention_bwd_family.argtypes) == 4 + 3
+    assert attn.FAMILIES == ("short", "long_mma", "long_wgmma")
+    assert set(attn.launches_by_family) == set(attn.backward_launches_by_family) == set(
+        attn.FAMILIES)
 
 
 # ---- the two faults: the kernels' checks refused what ccmh runs

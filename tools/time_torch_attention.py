@@ -7,6 +7,7 @@ the ablation bench's #6 (``backward_x``), #7 (``forward_stacked``), #8
 
     python3 tools/time_torch_attention.py [--root DIR] [--kernels 1,2,6,7,8,9,10]
                                           [--merged-plans] [--bwd-x-plans]
+                                          [--shapes short,long]
 
 ``--root`` (default: this checkout) is the directory holding the
 ``ccmh_torch`` to time, so two versions compare inside one call on one
@@ -20,6 +21,15 @@ C entries (``fwd_ms``, ``bwd_ms``) and through their Python wrappers
 same biased q, k, v (forward, and forward + backward minus forward).  One
 JSON line per shape and type, with each kernel's max abs error against
 its plain version; the card's name and power limit first.
+
+``--shapes`` (default ``short``) picks the shapes of #1 and #2: ``short``
+the two above, ``long`` the towers past 128 tokens, where the C entries
+take the long path: ViT-B/16 B=256 L=197 H=12, ViT-L/14 B=64 L=257 H=16,
+the same at L=256 (no class token: beside L=257 it prices the last
+query tile, which holds one row), and ViT-L/14@336 B=64 L=577 H=16, no
+mask, with the kernel family each call took (``short``, ``long_mma``,
+``long_wgmma``) where the checkout counts it; their wrapper times are
+not taken (the wrapper adds the same microseconds to a millisecond).
 
 ``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
 ``6``, ``7``, ``8``, ``9`` and ``10`` add one line per shape, type and
@@ -55,6 +65,8 @@ import sys
 LOOPS = (40, 240)
 REPEATS = 3
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
+LONG_SHAPES = (("ViT-B/16", 256, 197, 12, False), ("ViT-L/14", 64, 257, 16, False),
+               ("ViT-L/14 L=256", 64, 256, 16, False), ("ViT-L/14@336", 64, 577, 16, False))
 KERNELS = ("1", "2", "6", "7", "8", "9", "10")
 BWD_X_MODES = ("full", "stacked", "pair", "nomax", "nosoftmax", "novjp", "bf16vjp", "fewstores")
 # (kernel, bb, #6's mode)
@@ -292,7 +304,13 @@ def main(argv=None) -> int:
                     help="with 9: time every plan #9's entry takes")
     ap.add_argument("--bwd-x-plans", action="store_true",
                     help="with 6 or 10: time every plan their entries take")
+    ap.add_argument("--shapes", default="short",
+                    help="#1 and #2 at the short shapes, the long (towers past 128 "
+                         "tokens) or both: short, long or short,long")
     args = ap.parse_args(argv)
+    shape_sets = args.shapes.split(",")
+    if not set(shape_sets) <= {"short", "long"}:
+        ap.error("--shapes takes short, long or short,long")
     kernels = set(args.kernels.split(","))
     if not kernels <= set(KERNELS):
         ap.error(f"--kernels takes a comma-separated subset of {','.join(KERNELS)}")
@@ -314,9 +332,11 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(json.dumps({"root": root, "card": card.stdout.strip().splitlines()[0]}), flush=True)
     dev = torch.device("cuda")
+    shapes = [(sh, "short") for sh in SHAPES] * ("short" in shape_sets) + [
+        (sh, "long") for sh in LONG_SHAPES] * ("long" in shape_sets)
     for dtype in (torch.bfloat16, torch.float32):
-        for tag, B, L, H, causal in SHAPES:
-            if kernels & {"6", "7", "8", "9", "10"}:
+        for (tag, B, L, H, causal), kind in shapes:
+            if kernels & {"6", "7", "8", "9", "10"} and kind == "short":
                 time_variants(kernels, dtype, tag, B, L, H, causal, args.merged_plans,
                               args.bwd_x_plans)
             if not kernels & {"1", "2"}:
@@ -328,6 +348,9 @@ def main(argv=None) -> int:
             qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
             g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
             mask = causal_mask(L, device=dev) if causal else None
+            by_family = [getattr(attn, n, None) for n in ("launches_by_family",
+                                                         "backward_launches_by_family")]
+            before = [dict(c) if c is not None else None for c in by_family]
             with torch.no_grad():
                 fwd_err = (attn.fused_attention(qkv, mask, H, qkv_b=qkv_b).float()
                            - attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
@@ -335,12 +358,16 @@ def main(argv=None) -> int:
                 want = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
                 bwd_err = (attn.attention_backward(qkv, mask, qkv_b, g, H).float() - want
                            ).abs().max().item()
+                families = [None if c is None else [f for f in c if c[f] > was[f]]
+                            for c, was in zip(by_family, before)]
                 fwd_ms = steady_ms(entry_call(attn, "fwd", qkv, mask, qkv_b, H))
                 bwd_ms = steady_ms(entry_call(attn, "bwd", qkv, mask, qkv_b, H, g))
-                fwd_wrapper_ms = steady_ms(
-                    lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
-                bwd_wrapper_ms = steady_ms(
-                    lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
+                fwd_wrapper_ms = bwd_wrapper_ms = None
+                if kind == "short":
+                    fwd_wrapper_ms = steady_ms(
+                        lambda: attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
+                    bwd_wrapper_ms = steady_ms(
+                        lambda: attn.attention_backward(qkv, mask, qkv_b, g, H))
             x = (qkv + qkv_b).detach().requires_grad_()
             g_heads = g.view(B, L, H, Dh).transpose(1, 2)
 
@@ -356,7 +383,10 @@ def main(argv=None) -> int:
                 "fwd_wrapper_ms": fwd_wrapper_ms, "bwd_wrapper_ms": bwd_wrapper_ms,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_both - sdpa_fwd,
                 "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-                "bwd_output_scale": want.abs().max().item()}), flush=True)
+                "bwd_output_scale": want.abs().max().item(),
+                **({"families": families} if families[0] is not None else {})}), flush=True)
+            del qkv, g, want, x
+            torch.cuda.empty_cache()
     return 0
 
 

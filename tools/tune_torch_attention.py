@@ -2,7 +2,8 @@
 """Compile variants of the attention kernels' sources side by side and time
 each through its C entry, on one CUDA card.
 
-    python3 tools/tune_torch_attention.py [VARIANTS.json]
+    python3 tools/tune_torch_attention.py [VARIANTS.json] [--shapes short|long]
+                                          [--dtypes bf16,fp32]
 
 The checkout's ``ccmh_torch/csrc/attention.cu`` and ``attention_bwd.cu``
 are always built (``fwd_new``, ``bwd_new``).  VARIANTS.json lists more:
@@ -33,6 +34,13 @@ CUDA events) and whether it agrees with the plain version (fp32 1e-4, bf16
 2e-2, the backward relative to its output scale; a variant that computes
 something else on purpose, an ablation, prints BAD with its error), and
 SDPA's forward and forward + backward minus forward beside them.
+``--shapes long`` takes the towers past 128 tokens instead (ViT-B/16 B=256
+L=197 H=12, ViT-L/14 B=64 L=257 H=16, ViT-L/14@336 B=64 L=577 H=16, no
+mask), where the C entries take the long path; ``--dtypes`` picks the
+types (default both); ``--no-bias`` calls #1 and #2 without the
+projection bias (nothing to fold into the tiles); ``--profile`` adds, for
+each #1 and #2 variant, the device µs a call of each kernel it launches
+(``torch.profiler`` over 10 calls: the backward's kernels one by one).
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "ccmh_torch", "csrc")
 OUT = os.path.join(REPO, "build", "tune_attention")
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
+LONG_SHAPES = (("ViT-B/16", 256, 197, 12, False), ("ViT-L/14", 64, 257, 16, False),
+               ("ViT-L/14@336", 64, 577, 16, False))
 
 
 def variant(name, src, subs=(), srcdir=CSRC):
@@ -112,12 +122,42 @@ def entry(lib, kind, n_ints=0):
     return fn
 
 
+def kernel_us(fn, calls: int = 10) -> dict:
+    """Device µs a call of each kernel ``fn`` launches, by kernel name
+    (``torch.profiler`` over ``calls`` calls after one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0:
+            out[ev.key[:90]] = us / calls
+    return out
+
+
 def kind_of(name):
     return next((k for k in ("fwd", "stacked", "bwd_x", "savedp") if name.startswith(k)), "bwd")
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="?", help="JSON list of source variants")
+    ap.add_argument("--shapes", choices=("short", "long"), default="short")
+    ap.add_argument("--dtypes", default="bf16,fp32")
+    ap.add_argument("--no-bias", action="store_true",
+                    help="#1 and #2 without the projection bias")
+    ap.add_argument("--profile", action="store_true",
+                    help="the device us a call of each kernel #1 and #2 launch")
+    args_ns = ap.parse_args(sys.argv[1:] if argv is None else argv)
     sys.path.insert(0, REPO)
     import torch
 
@@ -129,7 +169,9 @@ def main(argv=None) -> int:
     from ccmh_torch.ops import attention_variants as av
     from ccmh_torch.tools import bench_attn_bwd as bench
 
-    specs = json.load(open(argv[0])) if argv else []
+    specs = json.load(open(args_ns.variants)) if args_ns.variants else []
+    dtypes = [{"bf16": torch.bfloat16, "fp32": torch.float32}[d]
+              for d in args_ns.dtypes.split(",")]
     vs = [variant("fwd_new", "attention.cu"), variant("bwd_new", "attention_bwd.cu")]
     vs += [variant(sp["name"], sp["src"], [tuple(x) for x in sp.get("subs", [])],
                    sp.get("srcdir", CSRC)) for sp in specs]
@@ -144,17 +186,20 @@ def main(argv=None) -> int:
         run(40)
         return bench._events_ms(run, 40, 240, 3)
 
-    for dtype in (torch.bfloat16, torch.float32):
-        for tag, B, L, H, causal in SHAPES:
+    for dtype in dtypes:
+        for tag, B, L, H, causal in (LONG_SHAPES if args_ns.shapes == "long" else SHAPES):
             Dh, D = 64, H * 64
             gen = torch.Generator(device=dev).manual_seed(L)
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
             qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device=dev)).to(dtype)
             g = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+            if args_ns.no_bias:
+                qkv_b = None
             mask = causal_mask(L, device=dev) if causal else None
             want_f = attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
             want_b = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
-            want_s = av.forward_stacked_reference(qkv, mask, H).float()
+            want_s = av.forward_stacked_reference(qkv, mask, H).float() \
+                if any(kind_of(n) == "stacked" for n, _ in vs) else None
             scale = max(1.0, want_b.abs().max().item())
             code = 0 if dtype == torch.float32 else 1
             stream = torch.cuda.current_stream().cuda_stream
@@ -194,7 +239,8 @@ def main(argv=None) -> int:
                     args = [0, qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, H, Dh, 16,
                             1.0 / math.sqrt(Dh), code, stream]
                 else:
-                    args = [0, qkv.data_ptr(), qkv_b.data_ptr(), mask_ptr]
+                    args = [0, qkv.data_ptr(), None if qkv_b is None else qkv_b.data_ptr(),
+                            mask_ptr]
                     args += ([] if fwd else [g.data_ptr()]) + [
                         out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
                 fn = entry(libs[name], kind, 4 + len(ints))
@@ -211,7 +257,10 @@ def main(argv=None) -> int:
                 tol = (1e-4 if code == 0 else 2e-2) * (1.0 if fwd else out_scale)
                 row[name] = [1e3 * steady_ms(lambda: fn(*args)),
                              "ok" if e <= tol else f"BAD {e}"]
-            f, b = bench.sdpa_yardstick(qkv + qkv_b, causal, H, (40, 240), 3)
+                if args_ns.profile and kind in ("fwd", "bwd"):
+                    row[name].append(kernel_us(lambda: fn(*args)))
+            f, b = bench.sdpa_yardstick(qkv if qkv_b is None else qkv + qkv_b, causal, H,
+                                        (40, 240), 3)
             row["sdpa_fwd"], row["sdpa_bwd"] = 1e3 * f, 1e3 * b
             print(json.dumps(row), flush=True)
     return 0
