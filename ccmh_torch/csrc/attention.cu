@@ -57,7 +57,6 @@ namespace {
 
 using namespace ccmh::mma;
 
-constexpr int kMaxL = 128;
 constexpr int kMaxDh = 128;
 
 // bf16 at L, Dh <= 64: 8 blocks an SM (64 registers), which measured
@@ -171,8 +170,8 @@ cudaError_t launch(const void* qkv, const void* qkv_b, const float* mask, void* 
 }
 
 // ---------------------------------------------------------------------------
-// The long path, L > 128, for the shapes the wgmma kernel below does not
-// take (fp32, a head dim other than 64, a pointer not 16-byte aligned:
+// The long path, L > 128, for the shapes the wgmma kernels below do not
+// take (a head dim other than 64, a pointer not 16-byte aligned:
 // long_family): attention_long.cuh, one block per (batch element,
 // head, 64-query tile), 4 warps of 16 queries.  The block's q tile stays in
 // shared memory; the k tiles stream through twice, first for each row's
@@ -334,10 +333,12 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, v
 // row's max and sum (Stats64: once a tile, the sum rescaled as the max
 // grows), pass 2 takes S again, forms p = 2^(s scale log2 e - lse2) with
 // the row's final max and sum inside the exponent (one FMA and one SFU op
-// a logit on a full unmasked tile), rounds it to bf16 in registers as the
-// A operand, and sums ctx += p v with v as the MN-major B operand (the
-// transpose bit).  So Q K^T runs twice (the stats pass), which keeps
-// ccmh's rounding: an online softmax would round an unnormalised p.
+// a logit on a full tile; a call with a mask takes 2^((x - m) log2 e -
+// log2 sum), its own instance of the kernel: Tile), rounds it to bf16 in
+// registers as the A operand, and sums ctx += p v with v as the MN-major
+// B operand (the transpose bit).  So Q K^T runs twice (the stats pass),
+// which keeps ccmh's rounding: an online softmax would round an
+// unnormalised p.
 // Logits kept in shared memory instead (64 x 640 fp32 = 160 KB at L = 577)
 // would leave one block an SM; the stats pass keeps four, and occupancy
 // decides here: a third buffer (3 blocks an SM), two warpgroups a block,
@@ -364,7 +365,7 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, v
 
 constexpr int kFwdStages = 2;      // k | v buffers in the ring
 
-template <int STAGES>
+template <int STAGES, bool MASK>
 __global__ void __launch_bounds__(ccmh::wg::kWgThreads, 4)
 attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
                            const __nv_bfloat16* __restrict__ qkv_b,
@@ -409,7 +410,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
 
   Stats64 st;
   st.init();
-  float lb[2] = {0.f, 0.f};   // each row's m log2 e + log2 sum, after pass 1
+  RowLse rl[2] = {};          // each row's statistics, after pass 1
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
@@ -439,11 +440,10 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
       const Tile tile(mask, k0, L, scale);
       logits<N>(s, tile, scale, mask, i0, k0, L, t);
       if (!pass2) {
-        st.add<false, N>(s, s, tile);
+        st.add<false, MASK, N>(s, s, tile);
         return;
       }
-#pragma unroll
-      for (int i = 0; i < N / 2; ++i) s[i] = ex2(fmaf(s[i], tile.c, -lb[(i >> 1) & 1]));   // p
+      probs<MASK, N>(s, tile, rl);   // p
       uint32_t a[N / 16][4];
       to_a<N>(a, s);
       run(o, [&] { acc_times(o, a, sv); });
@@ -454,8 +454,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
       cols(std::integral_constant<int, 64>());
     if (step == n_kt - 1) {
       st.finish();
-      lb[0] = st.lse2(0);
-      lb[1] = st.lse2(1);
+      rl[0] = st.row(0);
+      rl[1] = st.row(1);
     }
   }
 #pragma unroll
@@ -466,6 +466,169 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 long path on the same warpgroup products: L > 128 in fp32 with
+// Dh = 64 and 16-byte aligned pointers (long_family), every CLIP tower past
+// 128 tokens in ccmh's default compute type.  Replaces ccmh/ops/attention.py
+// `_pallas_forward` / `_kernel` past 128 tokens in fp32: q + b, k + b, v + b
+// in fp32; logits (q . k) * scale + mask; p = exp(x - max) / sum from the
+// row's final max and sum; ctx = p . v, all in fp32, the products as
+// 3xTF32 on wgmma .tf32 (wgmma_tiles.cuh: hi and lo split toward zero,
+// lo.hi' + hi.lo' + hi.hi', 8 columns a step).
+//
+// What bounds it on an H100: the products.  At ViT-L/14 (B = 64, L = 257,
+// H = 16) the function's 17.3 GFLOP take 105 us at a third of the 495
+// TFLOP/s TF32 peak, against 81 us for its 270 MB of qkv and context at
+// 3.35 TB/s; the stats pass's second q k^T adds half of the products
+// again.  Beside them, each landed k and v tile is split into hi and lo by
+// the block's threads (v transposed as well), a pass over shared memory.
+//
+// Design: the bf16 kernel's dataflow (a block per (batch element, head,
+// 64-query tile), one warpgroup, the stats pass, then S again and ctx += p
+// v) with what .tf32 asks for:
+//   * its shared-memory operands are K-major only, with no transpose bit.
+//     S = q k^T reads k's rows as they land.  ctx += p v sums over the
+//     keys, which v's rows hold: the block's threads write v transposed
+//     (split_tile_t), hi and lo, once a tile -- FlashAttention-3's fp8
+//     path transposes v the same way -- and p's accumulator enters as the
+//     register A operand with no shuffle, since the transposed tile lists
+//     its keys in the order the accumulator's columns give (design (a),
+//     with (b)'s register order: acc_to_a32);
+//   * q's hi and lo A fragments stay in registers for the whole block (64
+//     registers), so q takes no shared memory;
+//   * every tile is split after it lands, the bias added in fp32 first,
+//     into hi and lo tiles of its own: k before S, v^T while S is taken.
+//     A landing buffer is free once split, and the next tile's copies go
+//     out then, over this tile's products and softmax.  The tensor cores
+//     ignore the low 13 bits of a raw fp32 operand (ccmh_wgmma_selftest
+//     mode 6 against 7, on the H100), but the split clears them all the
+//     same: the bias fold rewrites every tile anyway.
+// Shared memory: 1 KB of slack + k, v as landed + k's hi, lo + v^T's hi,
+// lo, 16 KB each (q lands in v^T's before pass 2 needs it) = 97 KB, so two
+// blocks an SM.  A last key tile of <= 16 keys takes m64n16k8 products and
+// splits 16 rows.
+
+template <bool MASK>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 2)
+attention_fwd_wgmma32_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                             const float* __restrict__ qkv_b, const float* __restrict__ mask,
+                             float* __restrict__ out, int L, int H, float scale, int n_qt) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* rk = align1024(smem_raw);   // k as landed
+  unsigned char* rv = rk + kTile32;          // v as landed
+  unsigned char* kh = rv + kTile32;          // k's hi and lo
+  unsigned char* kl = kh + kTile32;
+  unsigned char* vh = kl + kTile32;          // v transposed, hi and lo (q lands here first)
+  unsigned char* vl = vh + kTile32;
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(vl + kTile32);
+  uint64_t* vbar = kbar + 1;
+  uint64_t* qbar = kbar + 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int qt = blockIdx.x % n_qt, h = (blockIdx.x / n_qt) % H, b = blockIdx.x / (n_qt * H);
+  const int D = H * kDh;
+  const int q0 = qt * kRows;
+  const int n_kt = (L + kRows - 1) / kRows, n_steps = 2 * n_kt;
+  const int i0 = q0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+  const float* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const float* bk = qkv_b ? bq + D : nullptr;
+  const float* bv = qkv_b ? bq + 2 * D : nullptr;
+  const CUtensorMap* map = &qkv_map;
+
+  // step s < n_kt lands k tile s (pass 1), step n_kt + s k tile s; v tile s
+  // lands for step n_kt + s, the first one at the start
+  if (tid == 0) {
+    bar_init(kbar, 1);
+    bar_init(vbar, 1);
+    bar_init(qbar, 1);
+    bar_init_fence();
+    bar_expect_tx(qbar, kTile32);
+    tma_tile32(vh, map, qbar, h * kDh, q0, b);
+    bar_expect_tx(kbar, kTile32);
+    tma_tile32(rk, map, kbar, D + h * kDh, 0, b);
+    bar_expect_tx(vbar, kTile32);
+    tma_tile32(rv, map, vbar, 2 * D + h * kDh, 0, b);
+  }
+  __syncthreads();
+  uint32_t qh[8][4], ql[8][4];   // q + b, split: the A operand of S = q k^T
+  bar_wait(qbar, 0);
+  a_rows32(qh, ql, vh, L - q0, bq, warp, lane);
+
+  Stats64 st;
+  st.init();
+  RowLse rl[2] = {};          // each row's statistics, after pass 1
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    const bool pass2 = step >= n_kt;
+    const int kt = pass2 ? step - n_kt : step;
+    const int k0 = kt * kRows, nk = min(kRows, L - k0);
+    bar_wait(kbar, step & 1);
+    if (pass2) bar_wait(vbar, kt & 1);
+    __syncthreads();   // every warp is done with the last step's hi and lo tiles (and q)
+    // the step over N key columns: 64, or 16 for a last tile of <= 16 keys
+    auto cols = [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      split_tile<N>(kh, kl, rk, nk, bk, tid);
+      // the split's writes before the async proxy reads them, and its reads
+      // of the landing buffer before the next copies overwrite it
+      fence_async_smem();
+      __syncthreads();
+      if (tid == 0 && step + 1 < n_steps) {
+        const int next = step + 1 < n_kt ? step + 1 : step + 1 - n_kt;
+        bar_expect_tx(kbar, kTile32);
+        tma_tile32(rk, map, kbar, D + h * kDh, next * kRows, b);
+      }
+      float s[N / 2];
+      fence_regs(s);
+      wg_fence();
+      rows_times32<N>(s, qh, ql, kh, kl);
+      wg_commit();
+      if (pass2) split_tile_t<N>(vh, vl, rv, nk, bv, tid);   // v^T, while S is taken
+      wg_wait0();
+      fence_regs(s);
+      if (pass2) {
+        fence_async_smem();
+        __syncthreads();
+        if (tid == 0 && kt + 1 < n_kt) {
+          bar_expect_tx(vbar, kTile32);
+          tma_tile32(rv, map, vbar, 2 * D + h * kDh, (kt + 1) * kRows, b);
+        }
+      }
+      const Tile tile(mask, k0, L, scale);
+      logits<N>(s, tile, scale, mask, i0, k0, L, t);
+      if (!pass2) {
+        st.add<false, MASK, N>(s, s, tile);
+        return;
+      }
+      probs<MASK, N>(s, tile, rl);   // p
+      uint32_t ah[N / 8][4], al[N / 8][4];
+      acc_to_a32<N>(ah, al, s);
+      run(o, [&] { acc_times32<N / 8>(o, ah, al, vh, vl); });
+    };
+    if (nk <= 16)
+      cols(std::integral_constant<int, 16>());
+    else
+      cols(std::integral_constant<int, 64>());
+    if (step == n_kt - 1) {
+      st.finish();
+      rl[0] = st.row(0);
+      rl[1] = st.row(1);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i < L) {
+      float* dst = out + ((size_t)b * L + i) * D + h * kDh + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -481,17 +644,36 @@ cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, 
   constexpr int S = kFwdStages;
   CUtensorMap map;
   const uint64_t row = (uint64_t)3 * H * kDh;
-  cudaError_t err = make_map(&map, qkv, true, row, L, B, row, kDh);
+  cudaError_t err = make_map(&map, qkv, kMapBf16, row, L, B, row, kDh);
   if (err != cudaSuccess) return err;
   const size_t smem = 1024 + (size_t)(1 + 2 * S) * kTileBytes + 8 * (S + 1);
-  err = cudaFuncSetAttribute(attention_fwd_wgmma_kernel<S>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = mask ? attention_fwd_wgmma_kernel<S, true> : attention_fwd_wgmma_kernel<S, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_qt = (L + kRows - 1) / kRows;
   const long long blocks = (long long)B * H * n_qt;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  attention_fwd_wgmma_kernel<S><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
       map, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(out), L, H, scale, n_qt);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma32(const void* qkv, const void* qkv_b, const float* mask, void* out,
+                           int B, int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  CUtensorMap map;
+  const uint64_t row = (uint64_t)3 * H * kDh;
+  cudaError_t err = make_map(&map, qkv, kMapF32, row, L, B, row, 32);
+  if (err != cudaSuccess) return err;
+  const size_t smem = 1024 + (size_t)6 * kTile32 + 8 * 3;
+  auto kernel = mask ? attention_fwd_wgmma32_kernel<true> : attention_fwd_wgmma32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (L + kRows - 1) / kRows;
+  const long long blocks = (long long)B * H * n_qt;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      map, static_cast<const float*>(qkv_b), mask, static_cast<float*>(out), L, H, scale, n_qt);
   return cudaGetLastError();
 }
 
@@ -547,6 +729,79 @@ wgmma_selftest_kernel(const __grid_constant__ CUtensorMap a_map,
     for (int e = 0; e < 4; ++e) c[(r0 + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
 }
 
+// The same check of the fp32 building blocks (3xTF32 on wgmma .tf32), a
+// and b [64][64] fp32 landed by TMA as two swizzle atoms each: mode 3, c =
+// (a + bias) (b + bias)^T with both tiles split in shared memory; 4, the
+// same with a's fragments in registers (the forward's q); 5, c = a (b +
+// bias) with a in an accumulator's registers and b transposed by
+// split_tile_t (p v, and the backward's sums over rows); 6, one tf32 pass
+// c = a b^T over the tiles as they landed; 7, one pass over their hi
+// tiles (the low 13 mantissa bits cleared): 6 and 7 agree bit for bit
+// iff the tensor cores ignore those bits.
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads)
+wgmma32_selftest_kernel(const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map, const float* a,
+                        const float* bias, float* c, int mode) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = align1024(smem_raw);
+  unsigned char* sb = sa + kTile32;
+  unsigned char* ah = sb + kTile32;
+  unsigned char* al = ah + kTile32;
+  unsigned char* bh = al + kTile32;
+  unsigned char* bl = bh + kTile32;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bl + kTile32);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+    bar_expect_tx(bar, 2 * kTile32);
+    tma_tile32(sa, &a_map, bar, 0, 0, 0);
+    tma_tile32(sb, &b_map, bar, 0, 0, 0);
+  }
+  __syncthreads();
+  bar_wait(bar, 0);
+  const float* fb = mode >= 6 ? nullptr : bias;
+  split_tile<64>(ah, al, sa, kRows, fb, tid);
+  if (mode == 5)
+    split_tile_t<64>(bh, bl, sb, kRows, bias, tid);
+  else
+    split_tile<64>(bh, bl, sb, kRows, fb, tid);
+  fence_async_smem();
+  __syncthreads();
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const int r0 = 16 * warp + g;
+  if (mode == 4) {
+    uint32_t xh[8][4], xl[8][4];
+    a_rows32(xh, xl, sa, kRows, bias, warp, lane);
+    run(d, [&] { rows_times32<64>(d, xh, xl, bh, bl); });
+  } else if (mode == 5) {
+    float p[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[4 * j + e] = a[(r0 + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)];
+    uint32_t xh[8][4], xl[8][4];
+    acc_to_a32<64>(xh, xl, p);
+    run(d, [&] { acc_times32<8>(d, xh, xl, bh, bl); });
+  } else if (mode >= 6) {
+    const unsigned char* x = mode == 6 ? sa : ah;
+    const unsigned char* y = mode == 6 ? sb : bh;
+    run(d, [&] {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) mma32_ss<64>(d, desc_k32(x, kk), desc_k32(y, kk), kk > 0);
+    });
+  } else {
+    run(d, [&] { rows_times32<64>(d, ah, al, bh, bl); });
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(r0 + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+}
+
 }  // namespace
 
 // qkv [B, L, 3*H*Dh] and out [B, L, H*Dh] contiguous in `dtype`; qkv_b
@@ -566,9 +821,14 @@ extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ccmh::kFloat32:
-      return (int)(L > kMaxL
-                       ? launch_long<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s)
-                       : launch<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s));
+      switch (long_family(qkv, qkv_b, out, L, Dh, dtype)) {
+        case ccmh::kFamilyShort:
+          return (int)launch<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+        case ccmh::kFamilyLongWgmma:
+          return (int)launch_wgmma32(qkv, qkv_b, mask, out, B, L, H, scale, s);
+        default:
+          return (int)launch_long<float>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
+      }
     case ccmh::kBFloat16:
       switch (long_family(qkv, qkv_b, out, L, Dh, dtype)) {
         case ccmh::kFamilyShort:
@@ -591,16 +851,29 @@ extern "C" int ccmh_attention_fwd_family(const void* qkv, const void* qkv_b, con
   return long_family(qkv, qkv_b, out, L, Dh, dtype);
 }
 
-// a, b [64][64] bf16, bias [64] bf16 (mode 2), c [64][64] fp32, all
-// contiguous on card `device`: see wgmma_selftest_kernel.
+// a, b [64][64] bf16, bias [64] bf16 (modes 0-2), or fp32 (modes 3-7), c
+// [64][64] fp32, all contiguous on card `device`: see wgmma_selftest_kernel
+// and wgmma32_selftest_kernel.
 extern "C" int ccmh_wgmma_selftest(int device, const void* a, const void* b, const void* bias,
                                    float* c, int mode, void* stream) {
   using namespace ccmh::wg;
+  if (mode < 0 || mode > 7) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap am, bm;
-  if ((err = make_map(&am, a, true, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
-  if ((err = make_map(&bm, b, true, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
+  if (mode >= 3) {
+    if ((err = make_map(&am, a, kMapF32, kDh, kRows, 1, kDh, 32)) != cudaSuccess) return (int)err;
+    if ((err = make_map(&bm, b, kMapF32, kDh, kRows, 1, kDh, 32)) != cudaSuccess) return (int)err;
+    const size_t smem = 1024 + 6 * kTile32 + 8;
+    err = cudaFuncSetAttribute(wgmma32_selftest_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wgmma32_selftest_kernel<<<1, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        am, bm, static_cast<const float*>(a), static_cast<const float*>(bias), c, mode);
+    return (int)cudaGetLastError();
+  }
+  if ((err = make_map(&am, a, kMapBf16, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
+  if ((err = make_map(&bm, b, kMapBf16, kDh, kRows, 1, kDh, kDh)) != cudaSuccess) return (int)err;
   const size_t smem = 1024 + 2 * kTileBytes + 8;
   err = cudaFuncSetAttribute(wgmma_selftest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

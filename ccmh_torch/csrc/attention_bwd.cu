@@ -77,7 +77,6 @@ namespace {
 
 using namespace ccmh::mma;
 
-constexpr int kMaxL = 128;
 constexpr int kMaxDh = 128;
 constexpr int kScratchLd = 20;   // the recompute path's [16][20] fp32 scratch
 
@@ -912,9 +911,11 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, c
 //   1. stats, query-major: a block's q and g tiles stay; the k and v tiles
 //      stream past them; S = q k^T and dP = g v^T (wgmma, both operands
 //      K-major) give each row's max, sum and D_i (Stats64, once a 64-key
-//      tile), written as (max log2 e + log2 sum, D, 0, 0) fp32 over the
-//      first 16 bytes of the row's own dq slot of dqkv (p = 2^(x log2 e -
-//      that): the normalisation inside the exponent);
+//      tile), written as (max log2 e + log2 sum, D, max, log2 sum) fp32
+//      over the first 16 bytes of the row's own dq slot of dqkv (p = 2^(x
+//      log2 e - the first), the normalisation inside the exponent; in a
+//      call with a mask 2^((x - max) log2 e - log2 sum): wgmma_tiles.cuh
+//      Tile);
 //   2. dk and dv, key-major: a block's k and v tiles stay; the q and g
 //      tiles and those rows' 16 bytes of statistics stream past (a third
 //      TMA map reads dqkv as fp32); S^T = k q^T and dP^T = v g^T give p and
@@ -938,12 +939,12 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, c
 // register operands all measured slower (PERF.md).
 
 constexpr int kBwdStages = 2;   // streamed buffers in the ring
-constexpr int kStatsBytes = ccmh::wg::kRows * 16;   // a tile's rows' (lse2, D, 0, 0)
+constexpr int kStatsBytes = ccmh::wg::kRows * 16;   // a tile's rows' (lse2, D, m, log2 sum)
 enum BwdKernel { kStatsPass = 0, kDkDv = 1, kDq = 2 };
 
 // blocks an SM: the register file at 127 (stats), 174 (dk dv) and 168
 // (dq) registers a thread, without a spill
-template <int KIND, int STAGES>
+template <int KIND, int STAGES, bool MASK>
 __global__ void __launch_bounds__(ccmh::wg::kWgThreads,
                                   KIND == kStatsPass ? 4 : KIND == kDq ? 3 : 2)
 attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
@@ -1011,14 +1012,15 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   }
 
   // kernel 3: the thread's rows' statistics, read before its dq overwrites them
-  float lb[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  RowLse rl[2] = {};
+  float dd[2] = {0.f, 0.f};
   if (KIND == kDq) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = i0 + 8 * r;
       if (i < L) {
         const float4 v = *reinterpret_cast<const float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh);
-        lb[r] = v.x;
+        rl[r] = {v.x, v.z, v.w};
         dd[r] = v.y;
       }
     }
@@ -1059,17 +1061,17 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
       if (KIND == kStatsPass) {
         const Tile tile(mask, s0, L, scale);
         logits<N>(s, tile, scale, mask, i0, s0, L, t);
-        st.add<true, N>(s, dp, tile);
+        st.add<true, MASK, N>(s, dp, tile);
         return;
       }
       if (KIND == kDq) {
         const Tile tile(mask, s0, L, scale);
         logits<N>(s, tile, scale, mask, i0, s0, L, t);
+        probs<MASK, N>(s, tile, rl);
 #pragma unroll
         for (int x = 0; x < N / 2; ++x) {
           const int r = (x >> 1) & 1;
-          const float p = ex2(fmaf(s[x], tile.c, -lb[r]));
-          s[x] = p * (dp[x] - dd[r]) * scale;     // dS scale, rounded to bf16 by to_a
+          s[x] = s[x] * (dp[x] - dd[r]) * scale;     // dS scale, rounded to bf16 by to_a
         }
         uint32_t a[N / 16][4];
         to_a<N>(a, s);
@@ -1094,8 +1096,8 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int x = 4 * j + e, c = 8 * j + 2 * t + (e & 1);
-          const float2 q = *reinterpret_cast<const float2*>(sst + 4 * c);   // (lse2, D)
-          const float p = s0 + c < L ? ex2(fmaf(s[x], tile.c, -q.x)) : 0.f;
+          const float4 q = *reinterpret_cast<const float4*>(sst + 4 * c);   // (lse2, D, m, l2)
+          const float p = s0 + c < L ? prob<MASK>(s[x], tile, {q.x, q.z, q.w}) : 0.f;
           s[x] = p;
           dp[x] = p * (dp[x] - q.y) * scale;
         }
@@ -1125,8 +1127,9 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
       for (int r = 0; r < 2; ++r) {
         const int i = i0 + 8 * r;
         if (i < L) {
+          const RowLse q = st.row(r);
           *reinterpret_cast<float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh) =
-              make_float4(st.lse2(r), st.dn[r] * (1.f / st.l[r]), 0.f, 0.f);
+              make_float4(q.lse2, st.dn[r] * (1.f / st.l[r]), q.m, q.l2);
         }
       }
     }
@@ -1159,7 +1162,7 @@ cudaError_t launch_bwd_wgmma_kernel(const CUtensorMap& mq, const CUtensorMap& mg
   const size_t smem = 1024 + 2 * kTileBytes +
                       (size_t)S * (2 * kTileBytes + (KIND == kDkDv ? kStatsBytes : 0)) +
                       8 * (S + 1);
-  auto kernel = attention_bwd_wgmma<KIND, S>;
+  auto kernel = mask ? attention_bwd_wgmma<KIND, S, true> : attention_bwd_wgmma<KIND, S, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1177,10 +1180,10 @@ cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, 
   using namespace ccmh::wg;
   const uint64_t D = (uint64_t)H * kDh;
   CUtensorMap mq, mg, ms;
-  cudaError_t err = make_map(&mq, qkv, true, 3 * D, L, B, 3 * D, kDh);
-  if (err == cudaSuccess) err = make_map(&mg, g, true, D, L, B, D, kDh);
+  cudaError_t err = make_map(&mq, qkv, kMapBf16, 3 * D, L, B, 3 * D, kDh);
+  if (err == cudaSuccess) err = make_map(&mg, g, kMapBf16, D, L, B, D, kDh);
   // dqkv as fp32 rows of 3 D / 2 words: each row's statistics at word 32 h
-  if (err == cudaSuccess) err = make_map(&ms, dqkv, false, 3 * D / 2, L, B, 3 * D / 2, 4);
+  if (err == cudaSuccess) err = make_map(&ms, dqkv, kMapF32Plain, 3 * D / 2, L, B, 3 * D / 2, 4);
   if (err == cudaSuccess)
     err = launch_bwd_wgmma_kernel<kStatsPass>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale,
                                               stream);
@@ -1188,6 +1191,434 @@ cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, 
     err = launch_bwd_wgmma_kernel<kDkDv>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
   if (err == cudaSuccess)
     err = launch_bwd_wgmma_kernel<kDq>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 long path on the same warpgroup products: L > 128 in fp32 with
+// Dh = 64 and 16-byte aligned pointers (long_family), every CLIP tower past
+// 128 tokens in ccmh's default compute type.  Replaces ccmh/ops/attention.py
+// `_pallas_backward` / `_bwd_kernel` past 128 tokens in fp32, every step in
+// fp32, the products as 3xTF32 on wgmma .tf32 (wgmma_tiles.cuh).
+//
+// What bounds it on an H100: the products.  At ViT-L/14 (B = 64, L = 257,
+// H = 16) the function's 43 GFLOP take 262 us at a third of the 495
+// TFLOP/s TF32 peak (its 472 MB of qkv, g and dqkv 141 us at 3.35 TB/s);
+// the three kernels take nine products where the function has five, as the
+// bf16 kernels do.
+//
+// Design: the bf16 kernels' three-kernel dataflow (stats; dk and dv
+// key-major; dq query-major; no atomics, so the gradients are the same bits
+// every run; the rows' statistics (lse2, D, m, log2 sum) in fp32 over the
+// first 16 bytes of each row's dq slot), with what .tf32 asks for (the
+// forward, attention.cu): every landed tile is split into hi and lo tiles
+// by the block's threads, the bias added in fp32 first, and a product that
+// sums over a streamed tile's rows reads a transposed copy that the same
+// split writes, in the order in which the accumulator's columns enter as
+// the register A operand: dq += dS k reads k^T (kernel 3); dv += p^T g and
+// dk += dS^T q read g^T and q^T (kernel 2).  Kernels 2 and 3 (below): the
+// resident tiles (k, v or q, g) are split once, into hi and lo tiles; one
+// landing buffer a streamed tensor, transposed while S and dP are taken,
+// then free for the next tile's copies, which go out over this tile's
+// softmax, and split into hi and lo while the previous tile's output
+// products run (so the split that S and dP wait for is hidden too).
+// Kernel 2 carries the
+// next q tile's statistics in registers (threads 0..63, a row each) and
+// stores them beside the split.  16 KB tiles: kernel 3 twelve (q, g hi and
+// lo; k, v landed, their hi and lo; k^T hi and lo), kernel 2 fourteen (k, v
+// hi and lo; q, g landed, their hi and lo and transposed) + 1 KB of
+// statistics: 193 and 226 KB, one block an SM.  Kernel 1
+// (attention_bwd_wgmma32_stats) six, two blocks an SM.  A streamed tile of
+// <= 16 rows (the class token's) takes m64n16k8 products and 16-row splits.
+
+template <int KIND, bool MASK>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 1)
+attention_bwd_wgmma32(const __grid_constant__ CUtensorMap qkv_map,
+                      const __grid_constant__ CUtensorMap g_map,
+                      const float* __restrict__ qkv_b, const float* __restrict__ mask,
+                      float* __restrict__ dqkv, int L, int H, float scale, int n_t) {
+  using namespace ccmh::wg;
+  static_assert(KIND == kDkDv || KIND == kDq, "kernel 1 is attention_bwd_wgmma32_stats");
+  constexpr bool KEYS = KIND == kDkDv;   // key-major: k, v stay; q, g, statistics stream
+  constexpr int kTiles = KEYS ? 14 : 12;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* r0h = align1024(smem_raw);   // resident: q | k, hi and lo
+  unsigned char* r0l = r0h + kTile32;
+  unsigned char* r1h = r0l + kTile32;         // resident: g | v
+  unsigned char* r1l = r1h + kTile32;
+  unsigned char* ra = r1l + kTile32;          // streamed, as landed: k | q
+  unsigned char* rb = ra + kTile32;           // v | g
+  unsigned char* sah = rb + kTile32;          // their hi and lo (the resident tiles land here)
+  unsigned char* sal = sah + kTile32;
+  unsigned char* sbh = sal + kTile32;
+  unsigned char* sbl = sbh + kTile32;
+  unsigned char* tah = sbl + kTile32;         // k | q transposed, hi and lo
+  unsigned char* tal = tah + kTile32;
+  unsigned char* tbh = tal + kTile32;         // KEYS: g transposed
+  unsigned char* tbl = tbh + kTile32;
+  float* sst = reinterpret_cast<float*>(r0h + kTiles * kTile32);   // KEYS: q's (lse2, D, m, l2)
+  uint64_t* sbar = reinterpret_cast<uint64_t*>(r0h + kTiles * kTile32 + (KEYS ? kStatsBytes : 0));
+  uint64_t* rbar = sbar + 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int tile = blockIdx.x % n_t, h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
+  const int D = H * kDh, D3 = 3 * D;
+  const int t0 = tile * kRows, nt = min(kRows, L - t0);   // the block's resident rows
+  const int i0 = t0 + 16 * warp + (lane >> 2);   // the thread's rows i0, i0 + 8 (queries | keys)
+  const float* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  // the bias of the resident tiles (q | k, - | v) and of the streamed ones (k | q, v | -)
+  const float* b_r0 = bq ? (KEYS ? bq + D : bq) : nullptr;
+  const float* b_r1 = bq && KEYS ? bq + 2 * D : nullptr;
+  const float* b_sa = bq ? (KEYS ? bq : bq + D) : nullptr;
+  const float* b_sb = bq && !KEYS ? bq + 2 * D : nullptr;
+  const CUtensorMap* mq = &qkv_map;
+  const CUtensorMap* mg = &g_map;
+  // the statistics of row i, over the first 16 bytes of its dq slot
+  auto slot = [&](int i) { return dqkv + ((size_t)b * L + i) * D3 + h * kDh; };
+
+  // streamed tile `step` (64 rows from step * 64): k and v, or q and g
+  auto fetch = [&](int step) {
+    const int row = step * kRows;
+    bar_expect_tx(sbar, 2 * kTile32);
+    if (KEYS) {
+      tma_tile32(ra, mq, sbar, h * kDh, row, b);
+      tma_tile32(rb, mg, sbar, h * kDh, row, b);
+    } else {
+      tma_tile32(ra, mq, sbar, D + h * kDh, row, b);
+      tma_tile32(rb, mq, sbar, 2 * D + h * kDh, row, b);
+    }
+  };
+  if (tid == 0) {
+    bar_init(sbar, 1);
+    bar_init(rbar, 1);
+    bar_init_fence();
+    bar_expect_tx(rbar, 2 * kTile32);
+    if (KEYS) {
+      tma_tile32(sah, mq, rbar, D + h * kDh, t0, b);
+      tma_tile32(sbh, mq, rbar, 2 * D + h * kDh, t0, b);
+    } else {
+      tma_tile32(sah, mq, rbar, h * kDh, t0, b);
+      tma_tile32(sbh, mg, rbar, h * kDh, t0, b);
+    }
+    fetch(0);
+  }
+  __syncthreads();
+  bar_wait(rbar, 0);
+  split_tile<64>(r0h, r0l, sah, nt, b_r0, tid);
+  split_tile<64>(r1h, r1l, sbh, nt, b_r1, tid);
+
+  // kernel 3: the thread's rows' statistics, read before its dq overwrites them
+  RowLse rl[2] = {};
+  float dd[2] = {0.f, 0.f};
+  if (KIND == kDq) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        const float4 v = *reinterpret_cast<const float4*>(slot(i));
+        rl[r] = {v.x, v.z, v.w};
+        dd[r] = v.y;
+      }
+    }
+  }
+  // kernel 2: thread tid < 64 carries the statistics of query row 64 step + tid
+  auto stats_of = [&](int step) {
+    const int i = step * kRows + tid;
+    return tid < kRows && i < L ? *reinterpret_cast<const float4*>(slot(i))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 next_st = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (KEYS) next_st = stats_of(0);
+
+  // the hi and lo tiles of streamed tile `step` as landed: 64 rows, or 16
+  // for a last tile of <= 16 rows (the class token of L = 64 n + 1)
+  auto split_rows = [&](int step) {
+    const int ns = min(kRows, L - step * kRows);
+    bar_wait(sbar, step & 1);
+    if (ns <= 16) {
+      split_tile<16>(sah, sal, ra, ns, b_sa, tid);
+      split_tile<16>(sbh, sbl, rb, ns, b_sb, tid);
+    } else {
+      split_tile<64>(sah, sal, ra, ns, b_sa, tid);
+      split_tile<64>(sbh, sbl, rb, ns, b_sb, tid);
+    }
+  };
+  __syncthreads();   // the resident tiles' splits read sah and sbh
+  split_rows(0);
+
+  float acc0[32], acc1[32];   // dq | dk, and dv
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  // Step s: S and dP over streamed tile s (split before: the prologue, or
+  // step s - 1's tail), its transposed tiles split while they run, then
+  // the output products, and tile s + 1's split while those run
+  for (int step = 0; step < n_t; ++step) {
+    const int s0 = step * kRows, ns = min(kRows, L - s0);
+    if constexpr (KEYS) {
+      __syncthreads();   // every warp is done with step - 1's statistics
+      if (tid < kRows) *reinterpret_cast<float4*>(sst + 4 * tid) = next_st;
+    }
+    fence_async_smem();   // the splits before the async proxy reads them
+    __syncthreads();
+    auto cols = [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      // S = q k^T, dP = g v^T (query-major); S^T = k q^T, dP^T = v g^T (key-major)
+      float s[N / 2], dp[N / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      rows_times32<N>(s, r0h, r0l, sah, sal);
+      rows_times32<N>(dp, r1h, r1l, sbh, sbl);
+      wg_commit();
+      // the transposed tiles of the output products, split while these run
+      split_tile_t<N>(tah, tal, ra, ns, b_sa, tid);
+      if constexpr (KEYS) split_tile_t<N>(tbh, tbl, rb, ns, b_sb, tid);
+      if (KEYS && step + 1 < n_t) next_st = stats_of(step + 1);
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      fence_async_smem();
+      __syncthreads();    // the transposed tiles, and the landing buffers free
+      if (tid == 0 && step + 1 < n_t) fetch(step + 1);
+      if (KIND == kDq) {
+        const Tile tile(mask, s0, L, scale);
+        logits<N>(s, tile, scale, mask, i0, s0, L, t);
+        probs<MASK, N>(s, tile, rl);
+#pragma unroll
+        for (int x = 0; x < N / 2; ++x) {
+          const int r = (x >> 1) & 1;
+          s[x] = s[x] * (dp[x] - dd[r]) * scale;   // dS scale
+        }
+        uint32_t ah[N / 8][4], al[N / 8][4];
+        acc_to_a32<N>(ah, al, s);
+        fence_regs(acc0);
+        wg_fence();
+        acc_times32<N / 8>(acc0, ah, al, tah, tal);   // dq += dS k
+        wg_commit();
+        if (step + 1 < n_t) split_rows(step + 1);
+        wg_wait0();
+        fence_regs(acc0);
+        return;
+      }
+      // key-major: rows are keys i0 + 8 r, columns the queries s0 + c; a
+      // query past L (its q, g and statistics rows zeros) gets p = 0
+      const Tile tile(mask, t0, L, scale);   // the block's keys all below L, no mask
+      // p and dS scale of element x (column c), from the query's (lse2, D, m, l2)
+      auto p_ds = [&](int x, int c) {
+        const float4 q = *reinterpret_cast<const float4*>(sst + 4 * c);
+        const float p = s0 + c < L ? prob<MASK>(s[x], tile, {q.x, q.z, q.w}) : 0.f;
+        s[x] = p;
+        dp[x] = p * (dp[x] - q.y) * scale;
+      };
+      if constexpr (MASK) {
+        // a column block at a time: its mask and statistics loads hoisted
+        // all at once (four floats a query here) spill
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e, c = 8 * j + 2 * t + (e & 1);
+            s[x] = logit(s[x], scale, mask, s0 + c, i0 + 8 * (e >> 1), L);
+            p_ds(x, c);
+          }
+          asm volatile("" ::: "memory");
+        }
+      } else {
+        if (!tile.plain) {
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = s0 + 8 * j + 2 * t + (e & 1);
+              s[4 * j + e] = logit(s[4 * j + e], scale, mask, i, i0 + 8 * (e >> 1), L);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p_ds(4 * j + e, 8 * j + 2 * t + (e & 1));
+      }
+      if constexpr (MASK) {
+        // the A fragments four k-steps at a time: the instance with a
+        // mask spilled with all eight's beside the accumulators
+        acc_times32_halves<N>(acc1, s, tbh, tbl);   // dv += p^T g
+        acc_times32_halves<N>(acc0, dp, tah, tal);  // dk += dS^T q
+        if (step + 1 < n_t) split_rows(step + 1);
+        return;
+      }
+      {
+        uint32_t ah[N / 8][4], al[N / 8][4];
+        acc_to_a32<N>(ah, al, s);
+        run(acc1, [&] { acc_times32<N / 8>(acc1, ah, al, tbh, tbl); });   // dv += p^T g
+      }
+      uint32_t ah[N / 8][4], al[N / 8][4];
+      acc_to_a32<N>(ah, al, dp);
+      fence_regs(acc0);
+      wg_fence();
+      acc_times32<N / 8>(acc0, ah, al, tah, tal);     // dk += dS^T q
+      wg_commit();
+      if (step + 1 < n_t) split_rows(step + 1);       // the next tile's, while they run
+      wg_wait0();
+      fence_regs(acc0);
+    };
+    if (ns <= 16)
+      cols(std::integral_constant<int, 16>());
+    else
+      cols(std::integral_constant<int, 64>());
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i < L) {
+      float* row = slot(i) + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(row + (KEYS ? D : 0) + 8 * j) =
+            make_float2(acc0[4 * j + 2 * r], acc0[4 * j + 2 * r + 1]);
+        if (KEYS)
+          *reinterpret_cast<float2*>(row + 2 * D + 8 * j) =
+              make_float2(acc1[4 * j + 2 * r], acc1[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Kernel 1 in fp32, apart: it takes only S = q k^T and dP = g v^T, so it
+// keeps q's A fragments in registers (a_rows32) and splits the landed k and
+// v tiles in place (hi over the landed values, lo beside them): six tiles,
+// 97 KB, two blocks an SM where the ten tiles of kernels 2 and 3's layout
+// allowed one.  The next tiles' copies go out once the products have read
+// the landed tiles; the SM's other block covers them.
+template <bool MASK>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 2)
+attention_bwd_wgmma32_stats(const __grid_constant__ CUtensorMap qkv_map,
+                      const __grid_constant__ CUtensorMap g_map,
+                      const float* __restrict__ qkv_b, const float* __restrict__ mask,
+                      float* __restrict__ dqkv, int L, int H, float scale, int n_t) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gh = align1024(smem_raw);   // g, landed and split in place: hi
+  unsigned char* gl = gh + kTile32;          //   and lo
+  unsigned char* kh = gl + kTile32;          // k, landed and split in place (q lands in kl)
+  unsigned char* kl = kh + kTile32;
+  unsigned char* vh = kl + kTile32;          // v
+  unsigned char* vl = vh + kTile32;
+  uint64_t* sbar = reinterpret_cast<uint64_t*>(vl + kTile32);
+  uint64_t* rbar = sbar + 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int tile = blockIdx.x % n_t, h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
+  const int D = H * kDh, D3 = 3 * D;
+  const int t0 = tile * kRows, nt = min(kRows, L - t0);
+  const int i0 = t0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+  const float* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const float* bk = qkv_b ? bq + D : nullptr;
+  const float* bv = qkv_b ? bq + 2 * D : nullptr;
+  const CUtensorMap* mq = &qkv_map;
+
+  auto fetch = [&](int step) {
+    bar_expect_tx(sbar, 2 * kTile32);
+    tma_tile32(kh, mq, sbar, D + h * kDh, step * kRows, b);
+    tma_tile32(vh, mq, sbar, 2 * D + h * kDh, step * kRows, b);
+  };
+  if (tid == 0) {
+    bar_init(sbar, 1);
+    bar_init(rbar, 1);
+    bar_init_fence();
+    bar_expect_tx(rbar, 2 * kTile32);
+    tma_tile32(kl, mq, rbar, h * kDh, t0, b);
+    tma_tile32(gh, &g_map, rbar, h * kDh, t0, b);
+    fetch(0);
+  }
+  __syncthreads();
+  uint32_t qh[8][4], ql[8][4];   // q + b, split: the A operand of S = q k^T
+  bar_wait(rbar, 0);
+  a_rows32(qh, ql, kl, nt, bq, warp, lane);
+  split_tile<64>(gh, gl, gh, nt, nullptr, tid);
+
+  Stats64 st;
+  st.init();
+  for (int step = 0; step < n_t; ++step) {
+    const int s0 = step * kRows, ns = min(kRows, L - s0);
+    bar_wait(sbar, step & 1);
+    __syncthreads();   // q's fragments read before kl is overwritten
+    auto cols = [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      split_tile<N>(kh, kl, kh, ns, bk, tid);
+      split_tile<N>(vh, vl, vh, ns, bv, tid);
+      fence_async_smem();   // the splits (and g's) before the async proxy reads them
+      __syncthreads();
+      float s[N / 2], dp[N / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      rows_times32<N>(s, qh, ql, kh, kl);
+      rows_times32<N>(dp, gh, gl, vh, vl);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      __syncthreads();   // every warp's products done with the landed tiles
+      if (tid == 0 && step + 1 < n_t) fetch(step + 1);
+      const Tile tile(mask, s0, L, scale);
+      logits<N>(s, tile, scale, mask, i0, s0, L, t);
+      st.add<true, MASK, N>(s, dp, tile);
+    };
+    if (ns <= 16)
+      cols(std::integral_constant<int, 16>());
+    else
+      cols(std::integral_constant<int, 64>());
+  }
+  st.finish();
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        const RowLse q = st.row(r);
+        *reinterpret_cast<float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh) =
+            make_float4(q.lse2, st.dn[r] * (1.f / st.l[r]), q.m, q.l2);
+      }
+    }
+  }
+}
+
+template <int KIND>
+cudaError_t launch_bwd_wgmma32_kernel(const CUtensorMap& mq, const CUtensorMap& mg,
+                                      const void* qkv_b, const float* mask, void* dqkv, int B,
+                                      int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  constexpr int tiles = KIND == kStatsPass ? 6 : KIND == kDq ? 12 : 14;
+  const size_t smem = 1024 + (size_t)tiles * kTile32 + (KIND == kDkDv ? kStatsBytes : 0) + 16;
+  auto kernel = [mask] {
+    if constexpr (KIND == kStatsPass)
+      return mask ? attention_bwd_wgmma32_stats<true> : attention_bwd_wgmma32_stats<false>;
+    else
+      return mask ? attention_bwd_wgmma32<KIND, true> : attention_bwd_wgmma32<KIND, false>;
+  }();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_t = (L + kRows - 1) / kRows;
+  const long long blocks = (long long)B * H * n_t;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      mq, mg, static_cast<const float*>(qkv_b), mask, static_cast<float*>(dqkv), L, H, scale, n_t);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma32(const void* qkv, const void* qkv_b, const float* mask, const void* g,
+                           void* dqkv, int B, int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  const uint64_t D = (uint64_t)H * kDh;
+  CUtensorMap mq, mg;
+  cudaError_t err = make_map(&mq, qkv, kMapF32, 3 * D, L, B, 3 * D, 32);
+  if (err == cudaSuccess) err = make_map(&mg, g, kMapF32, D, L, B, D, 32);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma32_kernel<kStatsPass>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma32_kernel<kDkDv>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
+  if (err == cudaSuccess)
+    err = launch_bwd_wgmma32_kernel<kDq>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
   return err;
 }
 
@@ -1225,10 +1656,14 @@ extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ccmh::kFloat32:
-      return (int)(L > kMaxL ? launch_long<float>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
-                                                  scale, s)
-                             : launch<float>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
-                                             scale, s));
+      switch (long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype)) {
+        case ccmh::kFamilyShort:
+          return (int)launch<float>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, s);
+        case ccmh::kFamilyLongWgmma:
+          return (int)launch_wgmma32(qkv, qkv_b, mask, g, dqkv, B, L, H, scale, s);
+        default:
+          return (int)launch_long<float>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, s);
+      }
     case ccmh::kBFloat16:
       switch (long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype)) {
         case ccmh::kFamilyShort:

@@ -4,12 +4,13 @@
 // launches by family.  Plain C++ with no CUDA header, so the CPU tests
 // compile this same rule with the host compiler.
 //   0 short: L <= 128, a warp's [16, L] logits in registers;
-//   2 long wgmma: past it, bf16 with head dim 64 and every pointer 16-byte
-//     aligned (TMA's boxes and the bias's 16-byte chunks; the packed rows,
-//     3 H 64 and H 64 bf16, are multiples of 16 bytes): every CLIP tower
-//     past 128 tokens and MITH's concept transformers past K = 128;
-//   1 long mma.sync: the other shapes past 128 (fp32, other head dims,
-//     views at odd offsets), attention_long.cuh.
+//   2 long wgmma: past it, head dim 64 and every pointer 16-byte aligned
+//     (TMA's boxes and the bias's 16-byte chunks; the packed rows, 3 H 64
+//     and H 64 values, are multiples of 16 bytes), in bf16 or in fp32 (as
+//     3xTF32): every CLIP tower past 128 tokens and MITH's concept
+//     transformers past K = 128, in either compute type;
+//   1 long mma.sync: the other shapes past 128 (other head dims, views at
+//     odd offsets), attention_long.cuh.
 
 #pragma once
 
@@ -21,18 +22,17 @@ enum AttentionFamily : int { kFamilyShort = 0, kFamilyLongMma = 1, kFamilyLongWg
 
 constexpr int kShortMaxL = 128;      // the short kernels' L
 constexpr int kWgmmaHeadDim = 64;    // the head dim of the wgmma kernels
-constexpr int kWgmmaDType = 1;       // bf16 (ccmh::kBFloat16)
 
 inline bool aligned16_or_null(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // p0..p3: the entry's tensors (#1: qkv, qkv_b, out; #2: qkv, qkv_b, g,
-// dqkv), null where absent
+// dqkv), null where absent; dtype the entries' code (0 fp32, 1 bf16)
 inline int attention_family(int L, int Dh, int dtype, const void* p0, const void* p1,
                             const void* p2, const void* p3) {
   if (L <= kShortMaxL) return kFamilyShort;
-  const bool wgmma = dtype == kWgmmaDType && Dh == kWgmmaHeadDim && aligned16_or_null(p0) &&
+  const bool wgmma = (dtype == 0 || dtype == 1) && Dh == kWgmmaHeadDim && aligned16_or_null(p0) &&
                      aligned16_or_null(p1) && aligned16_or_null(p2) && aligned16_or_null(p3);
   return wgmma ? kFamilyLongWgmma : kFamilyLongMma;
 }

@@ -1,9 +1,10 @@
 // The long-sequence path of the attention kernels #1 (attention.cu) and #2
 // (attention_bwd.cu) on mma.sync: the building blocks both share.  Since
-// the wgmma kernels (wgmma_tiles.cuh) took bf16 with head dim 64 and
-// 16-byte aligned tensors, which is every tower, these kernels serve only
-// the shapes TMA and those kernels do not take (attention_family.cuh):
-// fp32, other head dims (Dh = 30, 6, 128), views at odd offsets.
+// the wgmma kernels (wgmma_tiles.cuh) took head dim 64 with 16-byte
+// aligned tensors in bf16 and fp32, which is every tower, these kernels
+// serve only the shapes TMA and those kernels do not take
+// (attention_family.cuh): other head dims (Dh = 30, 6, 128), views at odd
+// offsets.
 //
 // Past L = 128 one head's q, k and v no longer fit a block's shared memory
 // beside a warp's [16, L] logits in registers (the short kernels' design):

@@ -1,9 +1,12 @@
 // Hopper building blocks of the long path of the attention kernels #1
-// (attention.cu) and #2 (attention_bwd.cu) in bf16: warpgroup wgmma
-// products on 64-row tiles, tiles landed by TMA in shared memory with the
-// 128-byte swizzle, mbarriers that count the bytes landed, and the tensor
-// maps that describe the packed qkv, g and dqkv rows to the TMA unit.
+// (attention.cu) and #2 (attention_bwd.cu): warpgroup wgmma products on
+// 64-row tiles, tiles landed by TMA in shared memory with the 128-byte
+// swizzle, mbarriers that count the bytes landed, and the tensor maps that
+// describe the packed qkv, g and dqkv rows to the TMA unit; the row
+// softmax's statistics and exponentials; in fp32 the 3xTF32 products on
+// wgmma .tf32 and the splits they read (the section "fp32 as 3xTF32").
 //
+// In bf16:
 // A tile is [64 rows][64 bf16] = 8 KB: one head's 64 head-dim values of 64
 // sequence rows, row r at byte r * 128 with its 16-byte chunk c stored at
 // chunk c ^ (r & 7) (CU_TENSOR_MAP_SWIZZLE_128B, which TMA writes and the
@@ -188,6 +191,54 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same over 8 columns in tf32 (the fp32 kernels, 3xTF32 below): A
+// [64][8] K-major from shared memory or from registers (a[q]: rows g + 8 (q
+// & 1), column t + 4 (q >> 1) of the warp's 16, wgmma's tf32 A layout), B
+// [N][8] K-major from shared memory.  tf32 has no transpose bit.
+template <int N>
+__device__ __forceinline__ void mma32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 16, "m64n64k8 or m64n16k8");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " CCMH_WG_D32
+        ", %32, %33, p, 1, 1;\n}\n"
+        : CCMH_WG_OUT32(d)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void mma32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 16, "m64n64k8 or m64n16k8");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " CCMH_WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : CCMH_WG_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
 #undef CCMH_WG_D32
 #undef CCMH_WG_OUT32
 
@@ -267,11 +318,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// m log2 e for a row max m (0 for m = -inf, whose row's x are all -inf:
-// then 2^-inf = 0)
-__device__ __forceinline__ float max_log2e(float m) {
-  return m == -CUDART_INF_F ? 0.f : m * kLog2e;
-}
+// a row max m as the exponents take it: 0 for m = -inf, whose row's x are
+// all -inf (then 2^-inf = 0)
+__device__ __forceinline__ float finite_max(float m) { return m == -CUDART_INF_F ? 0.f : m; }
+
+// m log2 e for a row max m (0 for m = -inf)
+__device__ __forceinline__ float max_log2e(float m) { return finite_max(m) * kLog2e; }
 
 // A tile's logits x = (q . k) * scale + mask in fp32, -inf past L.  A full
 // tile without a mask (every tile of a tower but the last) keeps the raw
@@ -279,7 +331,13 @@ __device__ __forceinline__ float max_log2e(float m) {
 // their multiply-add: exp(x - m) = 2^(s c - m log2 e) with c = scale log2
 // e (the same value up to fp32 rounding of the exponent, far under bf16's
 // rounding of p).  Tile::c and Tile::cm are the multipliers of s in an
-// exponent and in a max.
+// exponent and in a max.  The exponent's form is the call's (a kernel's
+// MASK parameter): without a mask every tile, the last one too (keys past
+// L at -inf), takes that single multiply-add; with one, every tile forms
+// it from x - m first, exact where x = m: a row that a large finite mask
+// covers entirely (x = m = -1e9, say) has m log2 e rounded by up to 64
+// there, which the multiply-add would carry into the exponent (a row
+// summing to 2^+-64), where ccmh and the plain softmax give a uniform row.
 struct Tile {
   bool plain;
   float c, cm;
@@ -303,10 +361,37 @@ __device__ __forceinline__ void logits(float (&s)[N / 2], const Tile& tile, floa
                                       j0 + 8 * j + 2 * t + (e & 1), L);
 }
 
+// A row's softmax statistics after the stats pass, in the two forms the
+// exponentials take (Tile): lse2 = m log2 e + log2 sum for the single
+// multiply-add of a call without a mask, m and log2 sum apart for one with
+// a mask.  m is the row max, 0 for a row with no key; log2 sum is then
+// -inf and p NaN, as the plain softmax's.
+struct RowLse {
+  float lse2, m, l2;
+};
+
+// p = exp(x - m) / sum of one element of a tile: s the raw product on a
+// plain tile, else the logit x
+template <bool MASK>
+__device__ __forceinline__ float prob(float s, const Tile& tile, const RowLse& r) {
+  if constexpr (MASK)
+    return ex2(fmaf(s - r.m, kLog2e, -r.l2));
+  else
+    return ex2(fmaf(s, tile.c, -r.lse2));
+}
+
+// p in place over a tile's N columns of the rows g and g + 8
+template <bool MASK, int N>
+__device__ __forceinline__ void probs(float (&s)[N / 2], const Tile& tile, const RowLse (&rl)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = prob<MASK>(s[i], tile, rl[(i >> 1) & 1]);
+}
+
 // Row statistics over the tiles of an accumulator (the rows g and g + 8 of
 // a thread): the running max mx, l = sum_j exp(x_j - mx) and dn = sum_j
 // exp(x_j - mx) dp_j (the backward's D numerator), rescaled as mx grows,
-// once a tile.  Partial sums stay per lane until finish().
+// once a tile, each exponential in the call's form (Tile).  Partial sums
+// stay per lane until finish().
 struct Stats64 {
   float mx[2], l[2], dn[2];
 
@@ -316,8 +401,8 @@ struct Stats64 {
   }
 
   // s: a tile's N columns of logits, or its raw products on the plain
-  // path (Tile)
-  template <bool DP, int N>
+  // path (Tile); MASK: the call has a mask
+  template <bool DP, bool MASK, int N>
   __device__ void add(const float (&s)[N / 2], const float (&dp)[N / 2], const Tile& tile) {
     float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
@@ -336,21 +421,22 @@ struct Stats64 {
         dn[r] *= corr;
         mx[r] = nm;
       }
-      mb[r] = max_log2e(mx[r]);
+      mb[r] = MASK ? finite_max(mx[r]) : max_log2e(mx[r]);
     }
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
       const int r = (i >> 1) & 1;
-      const float p = ex2(fmaf(s[i], tile.c, -mb[r]));
+      const float p = MASK ? ex2((s[i] - mb[r]) * kLog2e) : ex2(fmaf(s[i], tile.c, -mb[r]));
       l[r] += p;
       if (DP) dn[r] += p * dp[i];
     }
   }
 
-  // row r's m log2 e + log2 sum after finish(): p = exp(x - m) / sum =
-  // 2^(x log2 e - lse2), the normalisation inside the exponent (-inf for
-  // a row with no key, whose p are then NaN, as the plain softmax's)
-  __device__ float lse2(int r) const { return max_log2e(mx[r]) + log2f(l[r]); }
+  // row r's statistics after finish() in the forms prob() takes
+  __device__ RowLse row(int r) const {
+    const float l2 = log2f(l[r]);
+    return {max_log2e(mx[r]) + l2, finite_max(mx[r]), l2};
+  }
 
   __device__ void finish() {
 #pragma unroll
@@ -360,6 +446,215 @@ struct Stats64 {
     }
   }
 };
+
+// ---- fp32 as 3xTF32 (the fp32 kernels)
+//
+// wgmma's .tf32 products (m64nNk8: 8 fp32 columns a step) read their
+// shared-memory operands only K-major.  An fp32 tile of [64 rows][64 fp32]
+// = 16 KB is two 128-byte swizzle atoms: atom a holds columns 32 a .. 32 a
+// + 31 of every row (8 KB; row r at byte r * 128, its 16-byte chunk c at
+// chunk c ^ (r & 7)), which TMA lands as two boxes of [64][32] fp32 with
+// the 128-byte swizzle; k-step kk reads 32 bytes of each row of atom kk /
+// 4.  Every operand x is split into hi = x with its low 13 mantissa bits
+// cleared and lo = x - hi the same way (toward zero, split_tz), and a
+// product is lo.hi' + hi.lo' + hi.hi' summed in fp32, each k-step in that
+// order.  The block's threads write the hi and lo tiles of a landed tile
+// (split_tile), the projection bias added in fp32 first.  A product that
+// sums over a tile's rows (P V, P^T dO, dS^T Q, dS K) reads it transposed,
+// which split_tile_t writes, its rows in the order in which an
+// accumulator's columns enter as the A operand from registers
+// (acc_to_a32): no shuffle, and no transposed copy of P or dS.
+
+constexpr int kAtomBytes = kRows * 128;     // 8 KB: [64 rows][32 fp32]
+constexpr int kTile32 = 2 * kAtomBytes;     // 16 KB: [64 rows][64 fp32]
+
+// byte offset of element (r, c) of an fp32 tile
+__device__ __forceinline__ int off32(int r, int c) {
+  return (c >> 5) * kAtomBytes + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// an fp32 tile as a K-major tf32 operand, k-step kk of 8 columns
+__device__ __forceinline__ uint64_t desc_k32(const void* tile, int kk) {
+  return desc(static_cast<const unsigned char*>(tile) + (kk >> 2) * kAtomBytes + 32 * (kk & 3), 16,
+              1024);
+}
+
+__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
+  uint32_t h, l;
+  ccmh::mma::split_tz(x.x, h, l);
+  hi.x = __uint_as_float(h), lo.x = __uint_as_float(l);
+  ccmh::mma::split_tz(x.y, h, l);
+  hi.y = __uint_as_float(h), lo.y = __uint_as_float(l);
+  ccmh::mma::split_tz(x.z, h, l);
+  hi.z = __uint_as_float(h), lo.z = __uint_as_float(l);
+  ccmh::mma::split_tz(x.w, h, l);
+  hi.w = __uint_as_float(h), lo.w = __uint_as_float(l);
+}
+
+// The hi and lo tiles of rows 0..NR-1 of a landed fp32 tile (NR = 64, or
+// 16 for a last tile of <= 16 rows), bias[c] (device memory, or null) added
+// first to the rows below nb: rows past the sequence landed as zeros and
+// stay so.  16-byte chunks, kept in their swizzled places.
+template <int NR>
+__device__ __forceinline__ void split_tile(unsigned char* hi, unsigned char* lo,
+                                           const unsigned char* raw, int nb,
+                                           const float* __restrict__ bias, int tid) {
+#pragma unroll
+  for (int i = 0; i < 2 * NR * 8 / kWgThreads; ++i) {
+    const int q = tid + i * kWgThreads;
+    const int a = q / (NR * 8), r = (q >> 3) % NR, c = q & 7;
+    const int off = a * kAtomBytes + r * 128 + c * 16;
+    float4 x = *reinterpret_cast<const float4*>(raw + off);
+    if (bias != nullptr && r < nb) {
+      const float4 b = __ldg(reinterpret_cast<const float4*>(bias + 32 * a + 4 * (c ^ (r & 7))));
+      x.x += b.x;
+      x.y += b.y;
+      x.z += b.z;
+      x.w += b.w;
+    }
+    float4 h, l;
+    split4(x, h, l);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// The hi and lo tiles of the transpose of rows 0..NX-1 of a landed fp32
+// tile, bias[n] added first to the rows below nb: row n of the result
+// holds column n, row x = 8 j + 2 i + h of the source at column 8 j + 4 h
+// + i (the k order of acc_to_a32).  Thread tid writes row n = tid % 64, a
+// 16-byte chunk at a time; each warp reads 32 columns of a source row
+// and writes 32 rows, without bank conflicts.
+template <int NX>
+__device__ __forceinline__ void split_tile_t(unsigned char* hi, unsigned char* lo,
+                                             const unsigned char* raw, int nb,
+                                             const float* __restrict__ bias, int tid) {
+  const int n = tid & 63;
+  const float b = bias != nullptr ? __ldg(bias + n) : 0.f;
+#pragma unroll
+  for (int it = 0; it < NX / 8; ++it) {
+    const int cc = 2 * it + (tid >> 6);      // the 16-byte chunk of row n: columns 4 cc ..
+    const int x0 = 8 * (cc >> 1) + (cc & 1);
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int x = x0 + 2 * i;
+      v[i] = *reinterpret_cast<const float*>(raw + off32(x, n));
+      if (x < nb) v[i] += b;
+    }
+    float4 h, l;
+    split4(make_float4(v[0], v[1], v[2], v[3]), h, l);
+    *reinterpret_cast<float4*>(hi + off32(n, 4 * cc)) = h;
+    *reinterpret_cast<float4*>(lo + off32(n, 4 * cc)) = l;
+  }
+}
+
+// The A fragments (hi, lo) of the warp's rows 16 w + g and + 8 of a landed
+// fp32 tile, bias[c] added first to the rows below nb: k-step kk takes
+// columns 8 kk + t and 8 kk + t + 4 (mma32_rs).
+__device__ __forceinline__ void a_rows32(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4],
+                                         const unsigned char* raw, int nb,
+                                         const float* __restrict__ bias, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 16 * warp + g + 8 * (q & 1), c = 8 * kk + t + 4 * (q >> 1);
+      float x = *reinterpret_cast<const float*>(raw + off32(r, c));
+      if (bias != nullptr && r < nb) x += __ldg(bias + c);
+      ccmh::mma::split_tz(x, hi[kk][q], lo[kk][q]);
+    }
+}
+
+// Columns 8 J0 .. 8 (J0 + KK) - 1 of an accumulator p as the A operand
+// (hi, lo) of KK tf32 k-steps: columns 8 j + 2 t and 8 j + 2 t + 1 are k =
+// t and t + 4 of step j, so the B tile lists its rows in that order
+// (split_tile_t).
+template <int J0, int KK, int M>
+__device__ __forceinline__ void acc_to_a32_part(uint32_t (&hi)[KK][4], uint32_t (&lo)[KK][4],
+                                                const float (&p)[M]) {
+#pragma unroll
+  for (int i = 0; i < KK; ++i) {
+    const int j = J0 + i;
+    ccmh::mma::split_tz(p[4 * j + 0], hi[i][0], lo[i][0]);
+    ccmh::mma::split_tz(p[4 * j + 2], hi[i][1], lo[i][1]);
+    ccmh::mma::split_tz(p[4 * j + 1], hi[i][2], lo[i][2]);
+    ccmh::mma::split_tz(p[4 * j + 3], hi[i][3], lo[i][3]);
+  }
+}
+
+// all N columns
+template <int N>
+__device__ __forceinline__ void acc_to_a32(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
+                                           const float (&p)[N / 2]) {
+  acc_to_a32_part<0, N / 8>(hi, lo, p);
+}
+
+// d = X Y^T over the 64 columns, 3xTF32: X's 64 rows (hi, lo tiles) and
+// the first N rows of Y's (hi, lo tiles)
+template <int N>
+__device__ __forceinline__ void rows_times32(float (&d)[N / 2], const void* xh, const void* xl,
+                                             const void* yh, const void* yl) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    mma32_ss<N>(d, desc_k32(xl, kk), desc_k32(yh, kk), kk > 0);
+    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32(yl, kk), 1);
+    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32(yh, kk), 1);
+  }
+}
+
+// the same with X's A fragments in registers (a_rows32)
+template <int N>
+__device__ __forceinline__ void rows_times32(float (&d)[N / 2], const uint32_t (&xh)[8][4],
+                                             const uint32_t (&xl)[8][4], const void* yh,
+                                             const void* yl) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    mma32_rs<N>(d, xl[kk], desc_k32(yh, kk), kk > 0);
+    mma32_rs<N>(d, xh[kk], desc_k32(yl, kk), 1);
+    mma32_rs<N>(d, xh[kk], desc_k32(yh, kk), 1);
+  }
+}
+
+// d += A Y over rows 8 J0 .. 8 (J0 + KK) - 1 of Y: A = acc_to_a32_part of
+// an accumulator, Y transposed in the tiles th, tl (split_tile_t), 3xTF32
+template <int KK, int J0 = 0>
+__device__ __forceinline__ void acc_times32(float (&d)[32], const uint32_t (&ah)[KK][4],
+                                            const uint32_t (&al)[KK][4], const void* th,
+                                            const void* tl) {
+#pragma unroll
+  for (int i = 0; i < KK; ++i) {
+    const int j = J0 + i;
+    mma32_rs<64>(d, al[i], desc_k32(th, j), 1);
+    mma32_rs<64>(d, ah[i], desc_k32(tl, j), 1);
+    mma32_rs<64>(d, ah[i], desc_k32(th, j), 1);
+  }
+}
+
+// d += A Y over the first N rows of Y with A = the accumulator p, its A
+// fragments made and taken four k-steps at a time (32 registers, not 64)
+template <int N>
+__device__ __forceinline__ void acc_times32_halves(float (&d)[32], const float (&p)[N / 2],
+                                                   const void* th, const void* tl) {
+  constexpr int KK = N / 8 < 4 ? N / 8 : 4;
+  auto part = [&](auto j0) {
+    constexpr int J0 = decltype(j0)::value;
+    uint32_t ah[KK][4], al[KK][4];
+    acc_to_a32_part<J0, KK>(ah, al, p);
+    run(d, [&] { acc_times32<KK, J0>(d, ah, al, th, tl); });
+  };
+  part(std::integral_constant<int, 0>());
+  if constexpr (N / 8 > 4) part(std::integral_constant<int, 4>());
+}
+
+// the two TMA boxes of an fp32 tile (64 rows from row c1, columns c0 ..
+// c0 + 63), counted on bar
+__device__ __forceinline__ void tma_tile32(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                           int c1, int c2) {
+  tma_load(dst, map, bar, c0, c1, c2);
+  tma_load(static_cast<unsigned char*>(dst) + kAtomBytes, map, bar, c0 + 32, c1, c2);
+}
 
 // ---- host: tensor maps through cuTensorMapEncodeTiled, its entry point
 // fetched by the CUDA runtime (so the library links no -lcuda)
@@ -385,23 +680,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// How a tensor map lands its boxes: bf16 with the 128-byte swizzle (box =
+// 64 values, one swizzle row), fp32 with it (box = 32, one atom of an fp32
+// tile), or fp32 unswizzled (the bf16 backward's row statistics, box = 4).
+enum MapKind { kMapBf16 = 0, kMapF32 = 1, kMapF32Plain = 2 };
+
 // A [batch][rows][width] tensor whose rows are `ld` elements apart, in boxes
-// of [1][64][box] elements from column c0 (the kernel's coordinate):
-// bf16 with the 128-byte swizzle (box = 64), or fp32 unswizzled (the
-// backward's row statistics, box = 4).
-inline cudaError_t make_map(CUtensorMap* map, const void* base, bool is_bf16, uint64_t width,
+// of [1][64][box] elements from column c0 (the kernel's coordinate).
+inline cudaError_t make_map(CUtensorMap* map, const void* base, MapKind kind, uint64_t width,
                             uint64_t rows, uint64_t batch, uint64_t ld, uint32_t box) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const uint64_t item = is_bf16 ? 2 : 4;
+  const uint64_t item = kind == kMapBf16 ? 2 : 4;
   const cuuint64_t dims[3] = {width, rows, batch};
   const cuuint64_t strides[2] = {ld * item, rows * ld * item};
   const cuuint32_t boxes[3] = {box, static_cast<cuuint32_t>(kRows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+  const CUresult r = fn(map, kind == kMapBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                         3, const_cast<void*>(base), dims, strides, boxes, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        is_bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        kind == kMapF32Plain ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

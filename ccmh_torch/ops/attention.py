@@ -24,10 +24,11 @@ Sequences past 128 tokens (ViT-B/16's 197, ViT-L/14's 257, ViT-L/14@336's
 577, MITH's concept transformers at K > 128) take the kernels' long path,
 chosen by the C entries from L: the head streams through shared memory in
 64-row tiles, the softmax still normalised before its probabilities are
-rounded, and the backward still free of atomics.  In bf16 with head dim 64
-and 16-byte aligned tensors (every tower) the long path runs on Hopper's
-warpgroup products (``wgmma``) fed by TMA (``csrc/wgmma_tiles.cuh``); other
-long shapes take the ``mma.sync`` kernels of ``csrc/attention_long.cuh``.
+rounded, and the backward still free of atomics.  With head dim 64 and
+16-byte aligned tensors (every tower), bf16 or fp32, the long path runs on
+Hopper's warpgroup products (``wgmma``) fed by TMA
+(``csrc/wgmma_tiles.cuh``; fp32 as 3xTF32 on ``wgmma .tf32``); other long
+shapes take the ``mma.sync`` kernels of ``csrc/attention_long.cuh``.
 The C entries choose by that fixed rule and report the family they took
 (``ccmh_attention_{fwd,bwd}_family``); the wrapper counts launches by
 family in :data:`launches_by_family` and

@@ -3012,6 +3012,12 @@ def input_path():
 LONG_SHAPES = (("ViT-B/16", 256, 197, 12), ("ViT-L/14", 64, 257, 16),
                ("ViT-L/14@336", 64, 577, 16))
 LONG_EDGES = (1, 129, 143, 192, 256, 577)    # L at the edge cases, B=4 H=4
+# rows 0, 1 and L - 1 masked entirely by these finite values (the plain
+# softmax, and ccmh's, give each a uniform row)
+MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
+# the long shapes the wgmma kernels leave to the mma.sync ones: (L, head
+# dim, bytes by which qkv, g and the outputs sit off 16-byte alignment)
+LONG_MMA_EDGES = ((200, 128, 0), (257, 64, 8))
 LONG_TIMING = (2, 12)                        # SDPA: (t_12 - t_2) / 10, min of 2
 WIDE_KS = (512, 2048)                        # packed codes past 256 bits
 WIDE_GALLERY = 2 ** 18
@@ -3019,14 +3025,26 @@ LONG_BATCH, LONG_BIG_BATCH = 32, 128         # ViT-L/14 training batches
 LONG_EVAL_BATCH = 128
 
 
-def _long_inputs(B, L, H, dtype, seed, with_g=True):
+def _long_inputs(B, L, H, dtype, seed, with_g=True, Dh=64, offset=0):
+    """Seeded qkv, its bias and g; ``offset`` bytes past a 16-byte aligned
+    start (contiguous views of a larger buffer)."""
     import torch
 
-    D = H * 64
+    D = H * Dh
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").to(dtype)
+
+    def randn(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if not offset:
+            return x
+        skip = offset // x.element_size()
+        buf = torch.empty(x.numel() + skip, dtype=dtype, device="cuda")
+        view = buf[skip:].view(shape)
+        view.copy_(x)
+        return view
+    qkv = randn(B, L, 3 * D)
     qkv_b = (0.1 * torch.randn((3 * D,), generator=gen, device="cuda")).to(dtype)
-    g = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype) if with_g else None
+    g = randn(B, L, D) if with_g else None
     return qkv, qkv_b, g
 
 
@@ -3056,16 +3074,15 @@ def wgmma_report(name):
         sass="cuobjdump -sass" if counts is not None else "no cuobjdump in the toolkit")
 
 
-def _long_family(L, dtype):
+def _long_family(L, Dh=64, aligned=True):
     """The kernel family the C entries take (csrc/attention_family.cuh)
-    for these tensors, all contiguous and fresh (16-byte aligned)."""
-    import torch
-
+    for these tensors, fp32 or bf16: past 128 tokens the wgmma kernels at
+    head dim 64 with every pointer 16-byte aligned, else mma.sync."""
     from ccmh_torch.ops import attention as attn
 
     if L <= attn.SHORT_SEQ:
         return "short"
-    return "long_wgmma" if dtype == torch.bfloat16 else "long_mma"
+    return "long_wgmma" if Dh == 64 and aligned else "long_mma"
 
 
 def _one_launch(fn, what, family):
@@ -3097,7 +3114,7 @@ def long_attention_cases(name, B, L, H, dtype):
     qkv, qkv_b, g = _long_inputs(B, L, H, dtype, seed=L * 1000 + H)
     D, Dh = H * 64, 64
     cases = []
-    family = _long_family(L, dtype)
+    family = _long_family(L)
     with torch.no_grad():
         got = _one_launch(lambda: attn.fused_attention(qkv, None, H, qkv_b=qkv_b),
                           f"attention {name}", family)
@@ -3146,41 +3163,74 @@ def long_attention_cases(name, B, L, H, dtype):
 
 def long_attention_edges():
     """#1 and #2 at the edges of the long path (B=4, H=4): L from 1 to 577,
-    causal and with the last third of the keys padded, fp32 and bf16, each
-    call one kernel launch, within the gates of their plain versions."""
+    causal and with the last third of the keys padded; rows that a finite
+    mask covers entirely (-1e9, -1e30, finfo.min / 2) on the wgmma kernels
+    and on mma.sync; the shapes the wgmma kernels leave to mma.sync (head
+    dim 128, tensors off 16-byte alignment); fp32 and bf16, each call one
+    kernel launch of the family the rule gives, within the gates of their
+    plain versions.  Returns the launches by family."""
     import torch
 
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
 
+    cases = [(L, kind, 64, 0) for L in LONG_EDGES for kind in ("causal", "keypad")]
+    cases += [(257, "rows", 64, 0), (200, "rows", 128, 0)]
+    cases += [(L, "causal", Dh, off) for L, Dh, off in LONG_MMA_EDGES]
     worst = {}
+    reset_counts()
     for dtype in (torch.float32, torch.bfloat16):
         tname = "float32" if dtype == torch.float32 else "bfloat16"
-        for L in LONG_EDGES:
-            for kind in ("causal", "keypad"):
-                qkv, qkv_b, g = _long_inputs(4, L, 4, dtype, seed=L + 7)
-                mask = causal_mask(L, device="cuda")
-                if kind == "keypad":
-                    mask = torch.zeros((L, L), device="cuda")
-                    mask[:, L - L // 3:] = -math.inf
-                family = _long_family(L, dtype)
-                with torch.no_grad():
-                    got = _one_launch(lambda: attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b),
-                                      f"attention L={L} {kind}", family)
-                    want = attn.attention_reference(qkv, mask, 4, qkv_b=qkv_b)
-                    dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
-                                     f"attention backward L={L} {kind}", family)
-                    dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
-                err = (got.float() - want.float()).abs().max().item()
-                err_b = (dq.float() - dq_want.float()).abs().max().item()
-                scale = max(1.0, dq_want.float().abs().max().item())
-                tag = f"L={L} {kind} {tname}"
-                check(math.isfinite(err) and err <= ATTN_TOL[tname],
-                      f"attention edge {tag}: max abs err {err}")
-                check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
-                      f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
-                worst[tag] = [err, err_b / scale, family]
-    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_family=worst)
+        for L, kind, Dh, off in cases:
+            qkv, qkv_b, g = _long_inputs(4, L, 4, dtype, seed=L + 7, Dh=Dh, offset=off)
+            mask = causal_mask(L, device="cuda")
+            if kind == "keypad":
+                mask = torch.zeros((L, L), device="cuda")
+                mask[:, L - L // 3:] = -math.inf
+            elif kind == "rows":
+                mask = torch.zeros((L, L), device="cuda")
+                for row, value in zip((0, 1, L - 1), MASKED_ROWS):
+                    mask[row] = value
+            family = _long_family(L, Dh, aligned=not off)
+            with torch.no_grad():
+                got = _one_launch(lambda: attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b),
+                                  f"attention L={L} {kind} Dh={Dh}", family)
+                want = attn.attention_reference(qkv, mask, 4, qkv_b=qkv_b)
+                dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
+                                 f"attention backward L={L} {kind} Dh={Dh}", family)
+                dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
+            err = (got.float() - want.float()).abs().max().item()
+            err_b = (dq.float() - dq_want.float()).abs().max().item()
+            scale = max(1.0, dq_want.float().abs().max().item())
+            tag = f"L={L} {kind} Dh={Dh}{f' +{off} B' if off else ''} {tname}"
+            check(math.isfinite(err) and err <= ATTN_TOL[tname],
+                  f"attention edge {tag}: max abs err {err}")
+            check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
+                  f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
+            worst[tag] = [err, err_b / scale, family]
+    families = family_counts()
+    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_family=worst,
+        launches_by_family=families)
+    return families
+
+
+def tf32_selftest():
+    """The fp32 building blocks of the wgmma kernels on one [64, 64] product
+    each (3xTF32: shared-memory and register operands, the transposed
+    split; check_attention_long's selftest, with the bf16 ones), and whether
+    the tensor cores ignore the low 13 mantissa bits of a raw fp32 operand,
+    printed on a line of its own."""
+    import torch
+
+    from ccmh_torch.tools import check_attention_long as cal
+
+    for row in cal.wgmma_selftest(torch.device("cuda", 0)):
+        if "tf32_low_13_bits" in row:
+            say("tf32_low_13_bits", answer=row["tf32_low_13_bits"],
+                raw_vs_hi_max_abs_diff=row["raw_vs_hi_max_abs_diff"], what=row["what"])
+            continue
+        check(row["ok"], f"wgmma selftest {row['selftest']}: {row}")
+        say("selftest", **row)
 
 
 def wide_hamming_cases():
@@ -3283,6 +3333,22 @@ def _check_tower_launches(what, launches, want):
                                         f"implies {want.get(kernel, 0)}")
 
 
+def _check_tower_families(what, clip_cfg, steps, remat):
+    """#1's and #2's launches by kernel family since the counts were set to
+    0: the vision tower past 128 tokens all on the wgmma kernels (fp32 or
+    bf16, head dim 64), the text tower on the short ones, none on
+    mma.sync.  Returns them."""
+    took = family_counts()
+    fwd = 2 if remat else 1
+    want = {"fused_attention_fwd": {"short": steps * fwd * clip_cfg.transformer_layers,
+                                    "long_mma": 0,
+                                    "long_wgmma": steps * fwd * clip_cfg.vision_layers},
+            "fused_attention_bwd": {"short": steps * clip_cfg.transformer_layers,
+                                    "long_mma": 0, "long_wgmma": steps * clip_cfg.vision_layers}}
+    check(took == want, f"{what}: kernel families {took}, the code implies {want}")
+    return took
+
+
 def _grads_by_remat(trainer, batch):
     """The DSPH loss and every gradient at the trainer's state on ``batch``,
     with remat off, "full" and "dots"."""
@@ -3379,13 +3445,14 @@ def long_path():
             + (["--save-model"] if mode == "off" else []), steps)
         _check_tower_launches(f"ViT-L/14 remat={mode}", launches,
                               _tower_launches(2, vitl, mode != "off"))
+        took = _check_tower_families(f"ViT-L/14 remat={mode}", vitl, 2, mode != "off")
         add(launches)
         losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
         check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
               f"ViT-L/14 remat={mode}: losses {losses}")
         runs[mode] = {"losses": losses, "step_ms": steps, "peak_bytes": peak,
                       "fwd_launches": launches["fused_attention_fwd"],
-                      "bwd_launches": launches["fused_attention_bwd"]}
+                      "bwd_launches": launches["fused_attention_bwd"], "families": took}
         if ref is None:
             ref = trainer
         else:
@@ -3452,6 +3519,7 @@ def long_path():
             "--remat", "--set", "optim_moments_dtype=bfloat16",
             "--save-dir", os.path.join(work, "b128")], steps)
     _check_tower_launches("ViT-L/14 batch 128", launches, _tower_launches(2, vitl, True))
+    _check_tower_families("ViT-L/14 batch 128", vitl, 2, True)
     add(launches)
     moments = [t for st in trainer.optimizer.state.values() for t in (st["m"], st["v"])]
     check({t.dtype for t in moments} == {torch.bfloat16},
@@ -3474,12 +3542,8 @@ def long_path():
         argv(LONG_BATCH, clip_path=tower) + ["--compute-dtype", "bfloat16", "--save-dir",
                                              os.path.join(work, "bf16")], steps)
     _check_tower_launches("ViT-L/14 bf16", launches, _tower_launches(2, vitl, False))
-    took = family_counts()
+    took = _check_tower_families("ViT-L/14 bf16", vitl, 2, False)
     add(launches)
-    want = {"short": 2 * vitl.transformer_layers, "long_mma": 0,
-            "long_wgmma": 2 * vitl.vision_layers}
-    check(took["fused_attention_fwd"] == want and took["fused_attention_bwd"] == want,
-          f"ViT-L/14 bf16: kernel families {took}, the code implies {want} each")
     losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
     check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
           f"ViT-L/14 bf16: losses {losses}")
@@ -3498,6 +3562,7 @@ def long_path():
         argv(LONG_BATCH, clip_path=tower) + ["--save-model", "--save-dir",
                                              os.path.join(work, "b16")], steps)
     _check_tower_launches("ViT-B/16", launches, _tower_launches(2, vitb16, False))
+    _check_tower_families("ViT-B/16", vitb16, 2, False)
     add(launches)
     say("long", run="ViT-B/16 DSPH K=64 fp32 batch 32, 2 steps", step_ms=steps,
         peak_bytes=peak)
@@ -3542,9 +3607,9 @@ def long_path():
                         for n in traces), **timings)
     shutil.rmtree(work, ignore_errors=True)
     for kernel in ("fused_attention_fwd", "fused_attention_bwd"):
-        check(families[kernel]["long_wgmma"] > 0 and families[kernel]["long_mma"] > 0,
-              f"phase 14 launched {kernel} by family {families[kernel]}: the long path "
-              f"needs both the wgmma (bf16) and the mma.sync (fp32) kernels")
+        check(families[kernel]["long_wgmma"] > 0 and families[kernel]["long_mma"] == 0,
+              f"phase 14's runs launched {kernel} by family {families[kernel]}: every tower "
+              f"past 128 tokens takes the wgmma kernels, fp32 and bf16")
     say("long", launches_by_family=families)
     return total, families
 
@@ -3702,7 +3767,13 @@ def main() -> int:
             long_cases["fwd"].append(fwd_case)
             long_cases["bwd"].append(bwd_case)
             torch.cuda.empty_cache()
-    long_attention_edges()
+    edge_families = long_attention_edges()
+    for kernel, counts in edge_families.items():
+        check(counts["long_wgmma"] > 0 and counts["long_mma"] > 0,
+              f"phase 14's edges launched {kernel} by family {counts}: the long path needs "
+              f"both the wgmma kernels and the mma.sync ones (other head dims, views at odd "
+              f"offsets)")
+    tf32_selftest()
     wide_cases = wide_hamming_cases()
     torch.cuda.empty_cache()
     long_launches, long_families = long_path()

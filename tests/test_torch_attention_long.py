@@ -22,6 +22,16 @@ interpret mode on the CPU, as ccmh's own tests run them.
   dv key-major; fp32 products as 3xTF32 split toward zero.  The card holds
   the kernels to fp32 1e-4 and bf16 2e-2 (``chip_smoke.py``); the
   emulation sits 10x under the fp32 gate and within the bf16 gate.
+* The fp32 ``wgmma`` kernels' products emulated as they take them: 3xTF32
+  in k-steps of 8 columns (lo.hi + hi.lo + hi.hi, split toward zero), a
+  sum over the sequence in the order in which an accumulator's columns
+  enter as the register A operand; against ``ccmh`` under the fp32 gate.
+* The ``wgmma`` kernels' softmax on rows that a large finite mask covers
+  entirely (-1e9, -1e30, finfo.min / 2): before the repair the exponent
+  was 2^(x log2 e - lse2) in one multiply-add, lse2 = round(m log2 e) +
+  log2 sum, whose rounding at |m| reaches the exponent (the emulation
+  reproduces the fault); after it, 2^((x - m) log2 e - log2 sum) on any
+  tile with a mask gives ``ccmh``'s uniform row.
 * The C entries' rule for the kernel family past 128 tokens
   (``csrc/attention_family.cuh``), compiled here with the host compiler:
   which (L, head dim, type, alignment) take the ``wgmma`` kernels and
@@ -64,12 +74,20 @@ CASES = [
 ]
 
 
+# rows 0, 1 and L - 1 that a finite mask covers entirely, at these values
+MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
+
+
 def _mask(L, kind, jax_side=False):
     if kind == "causal":
         return jax_causal_mask(L) if jax_side else causal_mask(L)
-    if kind == "pad":
+    if kind in ("pad", "rows"):
         m = np.zeros((L, L), np.float32)
-        m[:, L - L // 3:] = -np.inf          # the last third of the keys padded
+        if kind == "pad":
+            m[:, L - L // 3:] = -np.inf          # the last third of the keys padded
+        else:
+            for row, value in zip((0, 1, L - 1), MASKED_ROWS):
+                m[row] = value
         return jnp.asarray(m) if jax_side else torch.from_numpy(m)
     return None
 
@@ -129,13 +147,29 @@ def _split_tz(x):
     return hi, cut(x - hi)
 
 
-def _mm(a, b, dtype):
+# the k order of an 8-column step of a tf32 product whose A operand is an
+# accumulator in registers: A's k = t and t + 4 hold its columns 2 t and
+# 2 t + 1 (acc_to_a32), which split_tile_t's transposed B tile follows
+K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _mm(a, b, dtype, steps=False, acc_a=False):
     """A product as the kernels take it: bf16 values multiplied exactly and
-    summed in fp32; fp32 as 3xTF32 split toward zero."""
+    summed in fp32; fp32 as 3xTF32 split toward zero.  ``steps``: as the
+    fp32 wgmma kernels take it, k-steps of 8 columns, each lo.hi + hi.lo +
+    hi.hi added to the fp32 sum in that order; ``acc_a``: A is an
+    accumulator in registers, its 8 columns in K_ORDER."""
     if dtype == torch.bfloat16:
         return a @ b
     (ah, al), (bh, bl) = _split_tz(a), _split_tz(b)
-    return al @ bh + ah @ bl + ah @ bh
+    if not steps:
+        return al @ bh + ah @ bl + ah @ bh
+    K, out = a.shape[-1], 0.0
+    for k0 in range(0, K, 8):
+        idx = torch.tensor([k0 + i for i in (K_ORDER if acc_a else range(8)) if k0 + i < K])
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            out = out + x[..., idx] @ y[..., idx, :]
+    return out
 
 
 def _heads(qkv, b, H, dtype):
@@ -144,8 +178,8 @@ def _heads(qkv, b, H, dtype):
     return x.reshape(B, L, 3, H, D3 // 3 // H).permute(2, 0, 3, 1, 4)   # [B, H, L, Dh]
 
 
-def _logits(q, k, cols, mask, dtype, scale):
-    s = _mm(q, k[..., cols, :].transpose(-1, -2), dtype) * scale
+def _logits(q, k, cols, mask, dtype, scale, steps=False):
+    s = _mm(q, k[..., cols, :].transpose(-1, -2), dtype, steps) * scale
     return s + mask[:, cols] if mask is not None else s
 
 
@@ -155,63 +189,68 @@ def _chunks(L, chunk):
             yield slice(n0, min(n0 + chunk, L))
 
 
-def _stats(q, k, v, gh, mask, dtype, scale, chunk):
+def _stats(q, k, v, gh, mask, dtype, scale, chunk, steps=False):
     """Pass 1: each row's max, sum and (with gh) D numerator, streamed."""
     mx = torch.full(q.shape[:-1], -math.inf)
     l = torch.zeros(q.shape[:-1])
     dn = torch.zeros(q.shape[:-1])
     for cols in _chunks(q.shape[-2], chunk):
-        s = _logits(q, k, cols, mask, dtype, scale)
+        s = _logits(q, k, cols, mask, dtype, scale, steps)
         nm = torch.maximum(mx, s.amax(-1))
         corr = torch.where(mx == -math.inf, torch.zeros(()), torch.exp(mx - nm))
         p = torch.exp(s - nm[..., None])
         l = l * corr + p.sum(-1)
         if gh is not None:
-            dn = dn * corr + (p * _mm(gh, v[..., cols, :].transpose(-1, -2), dtype)).sum(-1)
+            dp = _mm(gh, v[..., cols, :].transpose(-1, -2), dtype, steps)
+            dn = dn * corr + (p * dp).sum(-1)
         mx = nm
     return mx, l, dn
 
 
-def forward_long(qkv, b, mask, H, dtype, chunk):
+def forward_long(qkv, b, mask, H, dtype, chunk, steps=False):
     q, k, v = _heads(qkv, b, H, dtype)
     B, _, L, Dh = q.shape
     scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
-    mx, l, _ = _stats(q, k, v, None, mask, dtype, scale, chunk)
+    mx, l, _ = _stats(q, k, v, None, mask, dtype, scale, chunk, steps)
     ctx = torch.zeros_like(q)
     for cols in _chunks(L, chunk):
-        p = torch.exp(_logits(q, k, cols, mask, dtype, scale) - mx[..., None]) * (1.0 / l)[..., None]
-        ctx = ctx + _mm(p.to(dtype).float(), v[..., cols, :], dtype)
+        s = _logits(q, k, cols, mask, dtype, scale, steps)
+        p = torch.exp(s - mx[..., None]) * (1.0 / l)[..., None]
+        ctx = ctx + _mm(p.to(dtype).float(), v[..., cols, :], dtype, steps, acc_a=True)
     return ctx.permute(0, 2, 1, 3).reshape(B, L, H * Dh).to(dtype)
 
 
-def backward_long(qkv, b, mask, g, H, dtype, chunk):
+def backward_long(qkv, b, mask, g, H, dtype, chunk, steps=False):
     q, k, v = _heads(qkv, b, H, dtype)
     B, _, L, Dh = q.shape
     scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
     gh = g.to(dtype).float().reshape(B, L, H, Dh).permute(0, 2, 1, 3)
-    mx, l, dn = _stats(q, k, v, gh, mask, dtype, scale, chunk)
+    mx, l, dn = _stats(q, k, v, gh, mask, dtype, scale, chunk, steps)
     inv = 1.0 / l
     d = dn * inv
 
     def p_ds(rows, cols):
         """p and dS scale of queries ``rows`` against keys ``cols``."""
-        s = _mm(q[..., rows, :], k[..., cols, :].transpose(-1, -2), dtype) * scale
+        s = _mm(q[..., rows, :], k[..., cols, :].transpose(-1, -2), dtype, steps) * scale
         if mask is not None:
             s = s + mask[rows, cols]
         p = torch.exp(s - mx[..., rows, None]) * inv[..., rows, None]
-        dp = _mm(gh[..., rows, :], v[..., cols, :].transpose(-1, -2), dtype)
+        dp = _mm(gh[..., rows, :], v[..., cols, :].transpose(-1, -2), dtype, steps)
         return p, p * (dp - d[..., rows, None]) * scale
+
+    def acc(a, y):
+        return _mm(a.to(dtype).float(), y, dtype, steps, acc_a=True)
 
     everyone = slice(0, L)
     dq = torch.zeros_like(q)          # phase 1, query-major: dq over the key chunks
     for cols in _chunks(L, chunk):
         _, ds = p_ds(everyone, cols)
-        dq = dq + _mm(ds.to(dtype).float(), k[..., cols, :], dtype)
+        dq = dq + acc(ds, k[..., cols, :])
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)   # phase 2, key-major
     for rows in _chunks(L, chunk):
         p, ds = p_ds(rows, everyone)
-        dv = dv + _mm(p.to(dtype).float().transpose(-1, -2), gh[..., rows, :], dtype)
-        dk = dk + _mm(ds.to(dtype).float().transpose(-1, -2), q[..., rows, :], dtype)
+        dv = dv + acc(p.transpose(-1, -2), gh[..., rows, :])
+        dk = dk + acc(ds.transpose(-1, -2), q[..., rows, :])
     out = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4)
     return out.reshape(B, L, 3 * H * Dh).to(dtype)
 
@@ -234,6 +273,112 @@ def test_long_schedule_matches_ccmh(B, L, H, Dh, kind, dtype, direction, chunk):
     assert math.isfinite(err) and err <= gate, (err, gate)
 
 
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("B,L,H,Dh,kind", CASES)
+def test_tf32_wgmma_schedule_matches_ccmh(B, L, H, Dh, kind, direction):
+    """The fp32 wgmma kernels' products: k-steps of 8, three TF32 products
+    each, the sums over the sequence in the accumulator's column order."""
+    dtype = torch.float32
+    qkv, b, g = _port_inputs(B, L, H, Dh, dtype)
+    out, dqkv = _ccmh(B, L, H, Dh, kind, dtype)
+    mask = _mask(L, kind)
+    if direction == "forward":
+        got, want, scale = forward_long(qkv, b, mask, H, dtype, TILE, steps=True), out, 1.0
+    else:
+        got, want = backward_long(qkv, b, mask, g, H, dtype, TILE, steps=True), dqkv
+        scale = max(1.0, float(np.abs(dqkv).max()))
+    err = float(np.abs(got.float().numpy() - want).max())
+    gate = GATE[dtype] * scale / MARGIN
+    assert math.isfinite(err) and err <= gate, (err, gate)
+
+
+# ---- the wgmma kernels' softmax where a finite mask covers a row entirely
+
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)   # the kernels' kLog2e
+
+
+def _fma(x, c, b):
+    """fmaf(x, c, b) in fp32: the product exact, one rounding."""
+    return (x.double() * c.double() + b.double()).float()
+
+
+def _exp(x, m, l2, lse2, form):
+    """exp(x - m) / sum of a tile with a mask, as the kernels form it
+    (ex2.approx taken as exp2): ``before`` the repair 2^(x log2 e - lse2)
+    in one multiply-add; ``after`` it 2^((x - m) log2 e - log2 sum)."""
+    if form == "before":
+        return torch.exp2(_fma(x, LOG2E, -lse2))
+    return torch.exp2(_fma(x - m, LOG2E, -l2))
+
+
+def _stats64(x, dp, form):
+    """Stats64 over 64-key tiles, every tile masked: each row's max, sum of
+    exponentials and D numerator, the sums rescaled as the max grows; the
+    exponent from x and the rounded m log2 e before the repair, from x - m
+    after it."""
+    mx = torch.full(x.shape[:-1], -math.inf)
+    l, dn = torch.zeros(x.shape[:-1]), torch.zeros(x.shape[:-1])
+    for k0 in range(0, x.shape[-1], TILE):
+        xs, dps = x[..., k0:k0 + TILE], dp[..., k0:k0 + TILE]
+        nm = torch.maximum(mx, xs.amax(-1))
+        corr = torch.where(mx == -math.inf, torch.zeros(()), torch.exp2((mx - nm) * LOG2E))
+        l, dn, mx = l * corr, dn * corr, nm
+        m = torch.where(mx == -math.inf, torch.zeros(()), mx)[..., None]
+        if form == "before":
+            p = torch.exp2(_fma(xs, LOG2E, -(m * LOG2E)))
+        else:
+            p = torch.exp2((xs - m) * LOG2E)
+        l, dn = l + p.sum(-1), dn + (p * dps).sum(-1)
+    return mx, l, dn
+
+
+def wgmma_softmax(qkv, b, mask, g, H, dtype, form):
+    """The wgmma kernels' forward and backward under a mask, with their
+    exponent ``form`` -> (ctx, packed dqkv)."""
+    q, k, v = _heads(qkv, b, H, dtype)
+    B, _, L, Dh = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    gh = g.to(dtype).float().reshape(B, L, H, Dh).permute(0, 2, 1, 3)
+    x = _mm(q, k.transpose(-1, -2), dtype) * scale + mask
+    dp = _mm(gh, v.transpose(-1, -2), dtype)
+    mx, l, dn = _stats64(x, dp, form)
+    m = torch.where(mx == -math.inf, torch.zeros(()), mx)
+    l2 = torch.log2(l)
+    lse2 = m * LOG2E + l2
+    p = _exp(x, m[..., None], l2[..., None], lse2[..., None], form)
+    ds = p * (dp - (dn * (1.0 / l))[..., None]) * scale
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    ctx = _mm(rnd(p), v, dtype)
+    grads = [_mm(rnd(ds), k, dtype), _mm(rnd(ds).transpose(-1, -2), q, dtype),
+             _mm(rnd(p).transpose(-1, -2), gh, dtype)]
+    out = ctx.permute(0, 2, 1, 3).reshape(B, L, H * Dh).to(dtype)
+    dqkv = torch.stack(grads, dim=2).permute(0, 3, 2, 1, 4).reshape(B, L, 3 * H * Dh).to(dtype)
+    return out, dqkv
+
+
+@pytest.mark.parametrize("form", ["before", "after"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_softmax_on_rows_a_finite_mask_covers(dtype, form):
+    """Rows 0, 1 and L - 1 masked entirely at -1e9, -1e30 and finfo.min / 2
+    (ccmh gives each a uniform row): before the repair each row breaks the
+    gate, after it every output is within the gate."""
+    B, L, H, Dh = 1, 257, 2, 64
+    qkv, b, g = _port_inputs(B, L, H, Dh, dtype)
+    out, dqkv = _ccmh(B, L, H, Dh, "rows", dtype)
+    got, dgot = wgmma_softmax(qkv, b, _mask(L, "rows"), g, H, dtype, form)
+    err = np.abs(got.float().numpy() - out)[0]            # [L, D]
+    scale = max(1.0, float(np.abs(dqkv).max()))
+    gate = GATE[dtype] / (MARGIN if dtype == torch.float32 else 1.0)
+    if form == "before":
+        for row, value in zip((0, 1, L - 1), MASKED_ROWS):
+            worst = float(err[row].max())
+            assert not (math.isfinite(worst) and worst <= gate), (value, worst)
+        return
+    err_b = float(np.abs(dgot.float().numpy() - dqkv).max())
+    assert math.isfinite(float(err.max())) and float(err.max()) <= gate, (err.max(), gate)
+    assert math.isfinite(err_b) and err_b <= gate * scale, (err_b, gate * scale)
+
+
 # ---- the kernel family past 128 tokens: the C entries' rule, and the count
 
 _CSRC = os.path.join(os.path.dirname(attn.__file__), os.pardir, "csrc")
@@ -247,12 +392,19 @@ FAMILY_CASES = [
     (4096, 64, 1, None, "long_wgmma"),
     (128, 64, 1, None, "short"),
     (50, 64, 0, None, "short"),
-    (257, 64, 0, None, "long_mma"),         # fp32
+    (257, 64, 0, None, "long_wgmma"),       # fp32: 3xTF32 on wgmma
+    (197, 64, 0, None, "long_wgmma"),
+    (577, 64, 0, None, "long_wgmma"),
+    (128, 64, 0, None, "short"),
     (200, 128, 1, None, "long_mma"),
+    (200, 128, 0, None, "long_mma"),
     (150, 30, 1, None, "long_mma"),
     (257, 64, 1, 0, "long_mma"),            # qkv a view at an odd offset
     (257, 64, 1, 1, "long_mma"),            # the projection bias
     (257, 64, 1, 2, "long_mma"),            # out (#1) or g (#2)
+    (257, 64, 0, 0, "long_mma"),
+    (257, 64, 0, 1, "long_mma"),
+    (257, 64, 0, 2, "long_mma"),
 ]
 
 

@@ -465,3 +465,82 @@ def test_3xtf32_savedp_backward_sits_under_the_card_gate(shape):
 def test_one_tf32_pass_breaks_the_card_gate_in_the_savedp_backward(shape):
     err, gate = _savedp_error(shape, mm_1xtf32)
     assert err > gate, (err, gate)
+
+
+# ---- the fp32 long path on wgmma .tf32 (csrc/wgmma_tiles.cuh): an fp32
+# tile is [64][64] as two 128-byte swizzle atoms; the products whose A
+# operand is an accumulator in registers (p v, p^T dO, dS^T q, dS k) read
+# the other operand transposed by split_tile_t, its rows in the order the
+# accumulator's columns take as tf32 A fragments (acc_to_a32).  Here the
+# index arithmetic of those three pieces, element by element.
+
+K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)   # k of an 8-column step -> the accumulator's column
+
+
+def off32(r, c):
+    """Byte offset of element (r, c) of an fp32 tile (wgmma_tiles.cuh off32)."""
+    return (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2)
+
+
+def split_tile_t_places(NX):
+    """(source row x, column n) -> (row, column) of the transposed tile, as
+    split_tile_t's 128 threads write it."""
+    places = {}
+    for tid in range(128):
+        n = tid & 63
+        for it in range(NX // 8):
+            cc = 2 * it + (tid >> 6)
+            x0 = 8 * (cc >> 1) + (cc & 1)
+            for i in range(4):
+                assert (x0 + 2 * i, n) not in places
+                places[(x0 + 2 * i, n)] = (n, 4 * cc + i)
+    return places
+
+
+def acc_times_fragments(P, V):
+    """P V as acc_times32 takes it: the tf32 A operand assembled from the
+    accumulator registers of each thread (warp w, lane g * 4 + t) as
+    acc_to_a32 packs them, times the B tile split_tile_t writes from V."""
+    M, N = P.shape
+    Bt = torch.zeros((V.shape[1], N), dtype=P.dtype)
+    for (x, n), (row, col) in split_tile_t_places(N).items():
+        Bt[row, col] = V[x, n]
+    A = torch.full((M, N), float("nan"), dtype=P.dtype)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            # accumulator register 4 j + e: row g + 8 (e >> 1), column 8 j + 2 t + (e & 1)
+            acc = {4 * j + e: P[16 * w + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1)]
+                   for j in range(N // 8) for e in range(4)}
+            for j in range(N // 8):
+                a = (acc[4 * j + 0], acc[4 * j + 2], acc[4 * j + 1], acc[4 * j + 3])
+                for q in range(4):   # tf32 A: row 16 w + g + 8 (q & 1), k = t + 4 (q >> 1)
+                    A[16 * w + g + 8 * (q & 1), 8 * j + t + 4 * (q >> 1)] = a[q]
+    return A @ Bt.T   # B[k][n] = Bt[n][k]: the K-major operand
+
+
+def test_fp32_tile_layout_is_a_bijection():
+    assert sorted(off32(r, c) for r in range(64) for c in range(64)) == list(range(0, 16384, 4))
+    # a 16-byte chunk holds 4 consecutive columns of one row
+    assert all(off32(r, 4 * c + 3) - off32(r, 4 * c) == 12 for r in range(64) for c in range(16))
+
+
+@pytest.mark.parametrize("NX", [64, 16])
+def test_transposed_split_writes_every_element_once_in_the_accumulator_order(NX):
+    places = split_tile_t_places(NX)
+    assert sorted(places) == [(x, n) for x in range(NX) for n in range(64)]
+    assert len(set(places.values())) == len(places)
+    for (x, n), (row, col) in places.items():
+        j, e = divmod(x, 8)
+        assert row == n and col == 8 * j + K_ORDER.index(e)
+
+
+@pytest.mark.parametrize("N", [64, 16])
+def test_register_operand_products_see_the_keys_in_their_order(N):
+    """acc_to_a32 with split_tile_t computes P V exactly (integers in
+    float64): the key order of the A fragments and of the transposed B
+    tile agree, for a full tile and a last tile of 16 keys."""
+    rng = np.random.RandomState(N)
+    P = torch.from_numpy(rng.randint(-8, 9, (64, N)).astype(np.float64))
+    V = torch.from_numpy(rng.randint(-8, 9, (N, 64)).astype(np.float64))
+    assert torch.equal(acc_times_fragments(P, V), P @ V)
