@@ -6,8 +6,10 @@
   :class:`ClipConfig` inferred from its shapes, as ``build_model`` infers
   it: per-layer weights stacked on a leading layer axis, [out, in] torch
   matrices transposed to [in, out], the patch conv flattened in
-  (ph, pw, channel) order.  The conversion runs in numpy on the host and
-  ``ccmh``'s arithmetic, so both packages get the same bits.
+  (ph, pw, channel) order.  An RN-family file (no ``visual.proj``) gives
+  the ModifiedResNet tower (``clip/resnet.py``), its ``vision_layers`` a
+  tuple.  The conversion runs in numpy on the host and ``ccmh``'s
+  arithmetic, so both packages get the same bits.
 * :func:`convert_torch_checkpoint` — a ``.pt`` on disk: a TorchScript
   archive (OpenAI's release files, through ``torch.jit.load``) or a plain
   state dict (``torch.load(weights_only=True)``); an HF-layout state dict
@@ -20,16 +22,16 @@
   layers) is stored one key per element, ``layers/0/...``, and read back
   as a list; ``ccmh`` writes such a list as one pickled object array,
   which its own ``allow_pickle=False`` reader refuses, so neither package
-  reads the other's MITH checkpoints.
-
-The ModifiedResNet (RN50-family) tower is not ported: its checkpoints
-raise.
+  reads the other's MITH checkpoints.  The ModifiedResNet stages
+  (``layer1`` .. ``layer4``) stay dicts keyed by block index, as in
+  ``ccmh``.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -53,12 +55,18 @@ def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _lists(node):
-    """Dicts keyed "0", "1", ... -> lists (what :func:`flatten` wrote)."""
+# a ModifiedResNet stage: a dict keyed by block index in ccmh's layout
+_RESNET_STAGE = re.compile(r"layer\d+")
+
+
+def _lists(node, key: str = ""):
+    """Dicts keyed "0", "1", ... -> lists (what :func:`flatten` wrote),
+    except a ModifiedResNet stage."""
     if not isinstance(node, dict):
         return node
-    node = {k: _lists(v) for k, v in node.items()}
-    if node and sorted(node) == sorted(map(str, range(len(node)))):
+    node = {k: _lists(v, k) for k, v in node.items()}
+    if (node and not _RESNET_STAGE.fullmatch(key)
+            and sorted(node) == sorted(map(str, range(len(node))))):
         return [node[str(i)] for i in range(len(node))]
     return node
 
@@ -76,48 +84,70 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Params:
 
 
 def infer_clip_config(clip: Params) -> ClipConfig:
-    """ClipConfig from the shapes of a CLIP tree (numpy arrays or tensors)."""
+    """ClipConfig from the shapes of a CLIP tree (numpy arrays or tensors);
+    a tree with a ``stem`` is a ModifiedResNet tower."""
     v, t = clip["visual"], clip["text"]
-    if "stem" in v:
-        raise NotImplementedError(
-            "ModifiedResNet vision towers are not ported to ccmh_torch yet")
-    patch = int(math.isqrt(v["patch_w"].shape[0] // 3))
-    grid = int(math.isqrt(v["positional_embedding"].shape[0] - 1))
-    return ClipConfig(
+    text = dict(
         embed_dim=t["text_projection"].shape[1],
-        image_resolution=patch * grid,
-        vision_layers=v["blocks"]["ln_1"]["scale"].shape[0],
-        vision_width=v["patch_w"].shape[1],
-        vision_patch_size=patch,
         context_length=t["positional_embedding"].shape[0],
         vocab_size=t["token_embedding"].shape[0],
         transformer_width=t["token_embedding"].shape[1],
         transformer_heads=t["token_embedding"].shape[1] // 64,
         transformer_layers=t["blocks"]["ln_1"]["scale"].shape[0],
     )
+    if "stem" in v:
+        spacial = int(math.isqrt(v["attnpool"]["positional_embedding"].shape[0] - 1))
+        return ClipConfig(
+            image_resolution=spacial * 32,
+            vision_layers=tuple(len(v[f"layer{i}"]) for i in (1, 2, 3, 4)),
+            vision_width=v["layer1"]["0"]["conv1"].shape[3],
+            vision_patch_size=None,
+            **text,
+        )
+    patch = int(math.isqrt(v["patch_w"].shape[0] // 3))
+    grid = int(math.isqrt(v["positional_embedding"].shape[0] - 1))
+    return ClipConfig(
+        image_resolution=patch * grid,
+        vision_layers=v["blocks"]["ln_1"]["scale"].shape[0],
+        vision_width=v["patch_w"].shape[1],
+        vision_patch_size=patch,
+        **text,
+    )
 
 
 def _infer_config(sd: Dict[str, Any]) -> ClipConfig:
-    """Shape-driven architecture inference (model/base/model.py:415-438)."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "ModifiedResNet (RN-family) CLIP checkpoints are not ported to "
-            "ccmh_torch yet; only ViT towers convert")
-    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
-    grid_size = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
-    return ClipConfig(
+    """Shape-driven architecture inference (model/base/model.py:415-438);
+    an RN-family state dict (no ``visual.proj``) selects the ModifiedResNet
+    tower, as the reference's build_model does."""
+    text = dict(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=vision_patch_size * grid_size,
-        vision_layers=len([k for k in sd if k.startswith("visual.")
-                           and k.endswith(".attn.in_proj_weight")]),
-        vision_width=sd["visual.conv1.weight"].shape[0],
-        vision_patch_size=vision_patch_size,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=sd["ln_final.weight"].shape[0],
         transformer_heads=sd["ln_final.weight"].shape[0] // 64,
         transformer_layers=len({k.split(".")[2] for k in sd
                                 if k.startswith("transformer.resblocks")}),
+    )
+    if "visual.proj" not in sd:
+        counts = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
+                       for b in (1, 2, 3, 4))
+        output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        return ClipConfig(
+            image_resolution=output_width * 32,
+            vision_layers=counts,
+            vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
+            vision_patch_size=None,
+            **text,
+        )
+    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+    grid_size = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    return ClipConfig(
+        image_resolution=vision_patch_size * grid_size,
+        vision_layers=len([k for k in sd if k.startswith("visual.")
+                           and k.endswith(".attn.in_proj_weight")]),
+        vision_width=sd["visual.conv1.weight"].shape[0],
+        vision_patch_size=vision_patch_size,
+        **text,
     )
 
 
@@ -153,19 +183,24 @@ def _ln(sd: Dict[str, Any], prefix: str) -> Params:
 def convert_state_dict_numpy(sd: Dict[str, Any]) -> Tuple[Params, ClipConfig]:
     """OpenAI CLIP state dict -> (numpy parameter tree, inferred config)."""
     cfg = _infer_config(sd)
-    conv = _to_np(sd["visual.conv1.weight"])               # [W, 3, P, P]
-    # [W, C, Ph, Pw] -> [Ph, Pw, C, W] -> [(ph, pw, c), W], patchify's order
-    patch_w = conv.transpose(2, 3, 1, 0).reshape(-1, cfg.vision_width)
-    params = {
-        "visual": {
-            "patch_w": patch_w,
+    if cfg.is_resnet:
+        from ccmh_torch.clip.resnet import convert_resnet_visual
+
+        visual = convert_resnet_visual(sd, cfg.vision_layers)
+    else:
+        conv = _to_np(sd["visual.conv1.weight"])           # [W, 3, P, P]
+        # [W, C, Ph, Pw] -> [Ph, Pw, C, W] -> [(ph, pw, c), W], patchify's order
+        visual = {
+            "patch_w": conv.transpose(2, 3, 1, 0).reshape(-1, cfg.vision_width),
             "class_embedding": _to_np(sd["visual.class_embedding"]),
             "positional_embedding": _to_np(sd["visual.positional_embedding"]),
             "ln_pre": _ln(sd, "visual.ln_pre"),
             "blocks": _convert_blocks(sd, "visual.transformer", cfg.vision_layers),
             "ln_post": _ln(sd, "visual.ln_post"),
             "proj": _to_np(sd["visual.proj"]),
-        },
+        }
+    params = {
+        "visual": visual,
         "text": {
             "token_embedding": _to_np(sd["token_embedding.weight"]),
             "positional_embedding": _to_np(sd["positional_embedding"]),

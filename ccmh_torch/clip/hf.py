@@ -208,7 +208,11 @@ def to_hf_state_dict(params: Params, cfg: ClipConfig) -> Dict[str, np.ndarray]:
     """The port's CLIP tree (tensors or arrays) -> HF ``CLIPModel`` state
     dict (float32 numpy), the inverse of :func:`hf_to_openai_state_dict`
     and the conversion: blocks unstacked, packed qkv split into q/k/v,
-    the [W, 3, P, P] conv restored from the patchify matrix."""
+    the [W, 3, P, P] conv restored from the patchify matrix.  A
+    ModifiedResNet tree raises: HF's ``CLIPModel`` has no such tower."""
+    if cfg.is_resnet:
+        raise ValueError("HF CLIPModel has no ModifiedResNet tower; only ViT "
+                         "CLIPs can be exported")
     v, t = params["visual"], params["text"]
     P, W = cfg.vision_patch_size, cfg.vision_width
     sd: Dict[str, np.ndarray] = {

@@ -10,7 +10,10 @@ packages unchanged (``ccmh_torch/bridge.py``):
 * the patchify "conv" is a reshape + one matmul with the [p*p*3, W]
   ``patch_w`` (flattening order (ph, pw, channel));
 * batch-first [B, L, D] layout; LayerNorm and softmax compute in fp32
-  whatever the compute dtype.
+  whatever the compute dtype;
+* ``vision_layers`` as a tuple (``(3, 4, 6, 3)`` for RN50) selects the
+  ModifiedResNet vision tower (``clip/resnet.py``), whose ``vision_forward``
+  gives the pooled embedding only.
 
 Attention dispatch follows ``ccmh``: the fused kernel
 (ccmh_torch/ops/attention.py) whenever the attention weights are not asked
@@ -47,18 +50,32 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ClipConfig:
-    """Architecture hyperparameters (ViT-B/32 defaults)."""
+    """Architecture hyperparameters (ViT-B/32 defaults).
+
+    ``vision_layers`` as a tuple of four block counts (``(3, 4, 6, 3)`` for
+    RN50; a list is taken as its tuple) selects the ModifiedResNet vision
+    tower, as the reference's build_model does (model/base/model.py:415-431);
+    ``vision_patch_size`` is None then, and ``grid`` / ``n_patches`` are
+    not read."""
 
     embed_dim: int = 512
     image_resolution: int = 224
-    vision_layers: int = 12
+    vision_layers: Any = 12
     vision_width: int = 768
-    vision_patch_size: int = 32
+    vision_patch_size: Optional[int] = 32
     context_length: int = 77
     vocab_size: int = 49408
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+
+    def __post_init__(self):
+        if isinstance(self.vision_layers, list):
+            object.__setattr__(self, "vision_layers", tuple(self.vision_layers))
+
+    @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.vision_layers, tuple)
 
     @property
     def vision_heads(self) -> int:
@@ -270,7 +287,9 @@ def cast_clip_params(clip: Params, dtype: torch.dtype) -> Params:
     """The CLIP tree with every weight the towers use in ``dtype`` cast once
     (a bf16 server then reads bf16 weights instead of casting per call).
     ``ln_pre``, ``ln_post``, ``ln_final`` and ``logit_scale`` stay as they
-    are: the towers read them in fp32, as ``ccmh`` does."""
+    are: the towers read them in fp32, as ``ccmh`` does.  A ModifiedResNet
+    tower's leaves, BatchNorm's included, are all cast, as ``ccmh``'s
+    forward casts them."""
     keep = ("ln_pre", "ln_post", "ln_final", "logit_scale")
 
     def cast(tree: Params) -> Params:
@@ -317,11 +336,20 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
     "mith":   ``ln_post`` on *all* tokens, all projected, and the last
               layer's cls -> patch attention row (model/MITH.py:57-83).
 
-    ``remat``: False, True / "full" or "dots" (:func:`transformer`)."""
+    ``remat``: False, True / "full" or "dots" (:func:`transformer`).  The
+    ModifiedResNet tower gives "pooled" only and takes no ``remat``."""
     if features not in ("pooled", "tokens", "mith"):
         raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     if images.dtype == torch.uint8:
         images = normalize_pixels(images)
+    if cfg.is_resnet:
+        if features != "pooled":
+            raise ValueError(
+                "token-level features require the ViT tower (MITH/DPSIH are "
+                "ViT-only in the reference too, model/MITH.py:56-83)")
+        from ccmh_torch.clip.resnet import resnet_forward
+
+        return VisionOutput(pooled=resnet_forward(p, cfg, images, dtype=dtype))
     x = patchify(images.to(dtype), cfg.vision_patch_size)
     x = x @ p["patch_w"].to(dtype)                         # [B, P, W]
     B = x.shape[0]
@@ -438,23 +466,28 @@ def init_clip_params(gen: torch.Generator, cfg: ClipConfig = ClipConfig()) -> Pa
     numbers — torch and JAX generators differ)."""
     vw, tw = cfg.vision_width, cfg.transformer_width
     dev = gen.device
-    v_scale = vw ** -0.5
-    patch_fan_in = 3 * cfg.vision_patch_size ** 2
-    patch_bound = (1.0 / patch_fan_in) ** 0.5 * math.sqrt(3.0)
-    v_proj_std = (vw ** -0.5) * ((2 * cfg.vision_layers) ** -0.5)
     t_proj_std = (tw ** -0.5) * ((2 * cfg.transformer_layers) ** -0.5)
     ln = lambda w: {"scale": torch.ones((w,), device=dev),  # noqa: E731
                     "bias": torch.zeros((w,), device=dev)}
-    visual = {
-        "patch_w": _uniform(gen, (patch_fan_in, vw), patch_bound),
-        "class_embedding": _normal(gen, (vw,), v_scale),
-        "positional_embedding": _normal(gen, (cfg.n_patches + 1, vw), v_scale),
-        "ln_pre": ln(vw),
-        "blocks": _init_blocks(gen, cfg.vision_layers, vw, vw ** -0.5,
-                               v_proj_std, (2 * vw) ** -0.5),
-        "ln_post": ln(vw),
-        "proj": _normal(gen, (vw, cfg.embed_dim), v_scale),
-    }
+    if cfg.is_resnet:
+        from ccmh_torch.clip.resnet import init_resnet_visual
+
+        visual = init_resnet_visual(gen, cfg)
+    else:
+        v_scale = vw ** -0.5
+        patch_fan_in = 3 * cfg.vision_patch_size ** 2
+        patch_bound = (1.0 / patch_fan_in) ** 0.5 * math.sqrt(3.0)
+        v_proj_std = (vw ** -0.5) * ((2 * cfg.vision_layers) ** -0.5)
+        visual = {
+            "patch_w": _uniform(gen, (patch_fan_in, vw), patch_bound),
+            "class_embedding": _normal(gen, (vw,), v_scale),
+            "positional_embedding": _normal(gen, (cfg.n_patches + 1, vw), v_scale),
+            "ln_pre": ln(vw),
+            "blocks": _init_blocks(gen, cfg.vision_layers, vw, vw ** -0.5,
+                                   v_proj_std, (2 * vw) ** -0.5),
+            "ln_post": ln(vw),
+            "proj": _normal(gen, (vw, cfg.embed_dim), v_scale),
+        }
     text = {
         "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02),
         "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01),

@@ -17,12 +17,16 @@
   the method's per-tower encode functions and a text query never runs the
   vision tower.
 
+``python -m ccmh_torch.retrieval <mat>`` searches a saved code dump (a
+``PR_cruve`` ``.mat``) and prints the top-k of the first queries and the
+precision@k (:func:`_demo`, on the card unless ``--device cpu``).
+
 Gallery-sharded and tensor-parallel search are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -439,3 +443,37 @@ def _to_device(tree, dev: torch.device):
     if isinstance(tree, list):
         return [_to_device(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _demo(argv: Optional[Sequence[str]] = None) -> int:
+    """Search a saved PR_cruve .mat: text-query codes against the image
+    gallery (or image queries against the texts), as ``ccmh``'s demo."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="top-k retrieval demo over a saved code dump")
+    ap.add_argument("mat", help="PR_cruve .mat (train/base.py:328 layout)")
+    ap.add_argument("--topk", type=int, default=10)
+    ap.add_argument("--direction", choices=["t2i", "i2t"], default="t2i")
+    ap.add_argument("--queries", type=int, default=5, help="number of query rows to print")
+    ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import scipy.io as scio
+
+    mat = scio.loadmat(args.mat)
+    qf, gf = ("q_txt", "r_img") if args.direction == "t2i" else ("q_img", "r_txt")
+    index = HashIndex(mat[gf], labels=mat.get("r_l"), packed=args.packed, device=args.device)
+    queries, q_labels = mat[qf], mat.get("q_l")
+    dists, idx = index.search(queries, args.topk)
+    for row in range(min(args.queries, queries.shape[0])):
+        print(f"query {row}: top-{args.topk} gallery ids {idx[row].tolist()} "
+              f"at distances {dists[row].tolist()}")
+    if q_labels is not None and index.labels is not None:
+        p = index.precision_at_k(queries, q_labels, args.topk)
+        print(f"precision@{args.topk} over {queries.shape[0]} queries: {p:.4f}")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(_demo())

@@ -4,7 +4,8 @@ check them: DCHMT serving, DCHMT training, LinearHash training with the
 LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH), the
 methods with extra state (DNPH, DPBE, DGHDGH, TwDH), the lifecycle of a
 model (tower import, preemption and resume, ``--test``, export), the
-real-data input path, and the towers past 128 tokens (ViT-L/14).
+real-data input path, the towers past 128 tokens (ViT-L/14), and the
+ModifiedResNet tower (RN50).
 
     python3 chip_smoke.py
 
@@ -168,7 +169,26 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    batch 128 with ``--remat`` and bf16 moments; ViT-B/16 from a ``.pt``,
    its ``.npz`` serving; ViT-B/32 with bf16 moments cut by SIGTERM and
    resumed bit for bit, and ``--profile`` leaving a trace and the same
-   losses (``[long]`` lines).
+   losses (``[long]`` lines);
+15. OpenAI's RN50 CLIP at full width (the ModifiedResNet tower: stages of
+   3, 4, 6 and 3 bottlenecks, a 32-head attention pool; cuDNN convolutions
+   in true fp32 and bf16; BatchNorm on trained statistics) from a seeded
+   OpenAI-layout ``.pt``, LayerNorm kernels on, counters set to 0 just
+   before each run and read just after: the ``.pt`` read back bit for bit;
+   the card's fp32 embedding of 4 images within 1e-4 (relative norm) of
+   the port's on the CPU; DCHMT K=64 served from an ``.npz`` through
+   ``Retriever.from_pretrained`` (2,048 images at batch 256 in fp32 and
+   bf16, items/s; bf16 embeddings at a cosine >= 0.999 of fp32; the
+   captions; a 512-query search over 2^20 packed codes; HTTP encode and
+   search, each equal to the direct call); DSPH and DCHMT K=64 through
+   ``ccmh_torch.cli.main --clip-path`` at batch 128, 2 steps each with fp32
+   and bf16 towers (launches of #1, #2, #4, #5 as the text tower implies,
+   finite losses, every leaf moved, BatchNorm's mean and var included,
+   DSPH's ``.npz`` serving the trainer's codes, peak memory, the step
+   split by CUDA events; cuDNN's default algorithms and the deterministic
+   ones the port sets: the same gradient bits twice? (the deterministic
+   ones must) and the step ms); DSPH cut by SIGTERM after step 3 and
+   resumed, bit-equal to the uninterrupted run (``[rn]`` lines).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -3282,10 +3302,11 @@ def _long_tower_pt(path, clip_cfg, seed):
     torch.cuda.empty_cache()
 
 
-def _timed_run(argv, step_ms=None):
+def _timed_run(argv, step_ms=None, start=None):
     """``ccmh_torch.cli.main(argv)`` with its launches counted, its peak
     device memory above what was allocated before it and, into
-    ``step_ms``, each train step's host ms (the step synchronised)."""
+    ``step_ms``, each train step's host ms (the step synchronised); into
+    ``start``, a copy of the parameters the first step starts from."""
     import torch
 
     from ccmh_torch import cli
@@ -3297,6 +3318,8 @@ def _timed_run(argv, step_ms=None):
         inner = make(*args, **kw)
 
         def step_fn(state, batch):
+            if start is not None and not start:
+                start.update(_snapshot(state.params))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = inner(state, batch)
@@ -3614,6 +3637,449 @@ def long_path():
     return total, families
 
 
+# -------------------------------------------------------------------- phase 15
+
+RN_SEED = 15
+RN_STEPS = 2                 # train steps of each CLI run
+RN_CPU_IMAGES = 4            # the card's fp32 embedding against the CPU's
+# ||e_card - e_cpu|| / ||e_cpu|| of each fp32 embedding: cuDNN and the
+# CPU's convolutions sum in other orders (cuDNN may take Winograd or FFT
+# algorithms), through 16 bottlenecks and the attention pool
+RN_CPU_TOL = 1e-4
+RN_BF16_COSINE = 0.999       # bf16 embeddings against fp32, each row
+RN_GRAD_PROBE = 2            # fp32 gradients computed twice, per cuDNN mode
+
+
+def rn50_config():
+    """OpenAI's RN50 (openai/CLIP clip/model.py build_model and
+    ModifiedResNet): stages of 3, 4, 6 and 3 bottlenecks from a width-64
+    stem, a 32-head attention pool over 7x7 + 1 tokens 2,048 wide, a
+    1,024-wide embedding and ViT-B/32's 12-layer text tower."""
+    from ccmh_torch.clip.model import ClipConfig
+
+    return ClipConfig(embed_dim=1024, image_resolution=224, vision_layers=(3, 4, 6, 3),
+                      vision_width=64, vision_patch_size=None, context_length=77,
+                      vocab_size=49408, transformer_width=512, transformer_heads=8,
+                      transformer_layers=12)
+
+
+def _rn_tower(seed):
+    """A seeded RN50 CLIP tree on the card: ``init_clip_params`` with every
+    BatchNorm's scale and bias and its running mean and var redrawn as a
+    trained checkpoint holds them (scale and var in [0.5, 1.5), bias and
+    mean N(0, 0.1)): the init zeroes each block's ``bn3`` scale, which
+    leaves the block's other leaves without a gradient."""
+    import torch
+
+    from ccmh_torch.clip.model import init_clip_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    clip = init_clip_params(gen, rn50_config())
+
+    def draw(shape, lo=None, hi=None):
+        if lo is None:
+            return 0.1 * torch.randn(shape, generator=gen, device="cuda")
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    def redraw(node):
+        if set(node) == {"scale", "bias", "mean", "var"}:
+            c = node["scale"].shape
+            return {"scale": draw(c, 0.5, 1.5), "bias": draw(c), "mean": draw(c),
+                    "var": draw(c, 0.5, 1.5)}
+        return {k: redraw(v) if isinstance(v, dict) else v for k, v in node.items()}
+
+    clip["visual"] = redraw(clip["visual"])
+    return clip
+
+
+def _rn_state_dict(clip):
+    """The inverse of the port's RN conversion: a CLIP tree -> an
+    OpenAI-layout state dict of host tensors (``visual.conv1.weight`` ..
+    ``visual.attnpool.c_proj.bias``, BatchNorm's ``num_batches_tracked``
+    included, and the text tower's keys)."""
+    import torch
+
+    from ccmh_torch.bridge import params_to_jax
+    from ccmh_torch.clip.export_ref import _export_blocks, _ln
+
+    tree = params_to_jax(clip)
+    v, t = tree["visual"], tree["text"]
+    sd = {}
+
+    def conv(key, w):
+        sd[key] = w.transpose(3, 2, 0, 1)                   # HWIO -> OIHW
+
+    def bn(prefix, p):
+        sd.update({f"{prefix}.weight": p["scale"], f"{prefix}.bias": p["bias"],
+                   f"{prefix}.running_mean": p["mean"], f"{prefix}.running_var": p["var"],
+                   f"{prefix}.num_batches_tracked": np.asarray(0, np.int64)})
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}.weight", v["stem"][f"conv{i}"])
+        bn(f"visual.bn{i}", v["stem"][f"bn{i}"])
+    for li in (1, 2, 3, 4):
+        for bi, blk in v[f"layer{li}"].items():
+            pre = f"visual.layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                conv(f"{pre}.conv{ci}.weight", blk[f"conv{ci}"])
+                bn(f"{pre}.bn{ci}", blk[f"bn{ci}"])
+            if "downsample" in blk:
+                conv(f"{pre}.downsample.0.weight", blk["downsample"]["conv"])
+                bn(f"{pre}.downsample.1", blk["downsample"]["bn"])
+    pool = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = pool["positional_embedding"]
+    for name in ("q", "k", "v", "c"):
+        sd[f"visual.attnpool.{name}_proj.weight"] = pool[f"{name}_w"].T
+        sd[f"visual.attnpool.{name}_proj.bias"] = pool[f"{name}_b"]
+    sd["token_embedding.weight"] = t["token_embedding"]
+    sd["positional_embedding"] = t["positional_embedding"]
+    _export_blocks(sd, "transformer", t["blocks"])
+    _ln(sd, "ln_final", t["ln_final"])
+    sd["text_projection"] = t["text_projection"]
+    sd["logit_scale"] = np.asarray(tree["logit_scale"], np.float32)
+    return {k: torch.from_numpy(np.array(a, order="C")) for k, a in sd.items()}
+
+
+def rn_launches(text_passes: int, train_steps: int) -> dict:
+    """The launches an RN run implies, LayerNorm kernels on: the tower
+    runs no kernel, the text tower's 12 blocks take #1, #4 and #5 once a
+    pass each and #2 once a train step each."""
+    layers = rn50_config().transformer_layers
+    return {"fused_attention_fwd": layers * text_passes,
+            "fused_attention_bwd": layers * train_steps,
+            "fused_layer_norm": layers * text_passes,
+            "fused_add_layer_norm": layers * text_passes}
+
+
+def _bn_leaves(tree):
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    return [p for p, _ in tree_leaves_with_path(tree) if p[-1] in ("mean", "var")]
+
+
+def _rn_grads_twice(trainer, batch):
+    """Every gradient of the trainer's loss at its state on ``batch``,
+    computed RN_GRAD_PROBE times: are they the same bits?"""
+    import torch
+
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    leaves = [leaf for _, leaf in tree_leaves_with_path(trainer.state.params)]
+    loss_fn = trainer.method.make_loss_fn(trainer.cfg, trainer.clip_cfg)
+    runs = []
+    for _ in range(RN_GRAD_PROBE):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        loss, _ = loss_fn(trainer.state.params, trainer.state.extra, trainer.state.aux,
+                          batch, gen)
+        runs.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+        del loss
+    return all((a is None and b is None) or torch.equal(a, b)
+               for run in runs[1:] for a, b in zip(run, runs[0]))
+
+
+def rn_serving(work, tower, clip0, images, total):
+    """RN50 DCHMT K=64 served: the ``.npz`` restored by
+    ``Retriever.from_pretrained`` with the tower's ``.pt`` as ``clip_path``,
+    2,048 images encoded at batch 256 in fp32 and bf16, the captions through
+    the text tower, a 512-query search over a 2^20-code packed gallery, and
+    HTTP requests each equal to the direct call (counted launches)."""
+    import torch
+
+    from ccmh_torch.config import Config
+    from ccmh_torch.retrieval import HashIndex, Retriever
+    from ccmh_torch.serve import RetrievalService, serve
+    from ccmh_torch.tokenizer import tokenize_batch
+    from ccmh_torch.train.checkpoint import save_checkpoint
+    from ccmh_torch.train.methods import get_method
+    from ccmh_torch.train.methods.base import image_embeds
+
+    rn50 = rn50_config()
+    ckpt = os.path.join(work, "rn50_dchmt_k64.npz")
+    gen = torch.Generator(device="cuda").manual_seed(RN_SEED + 1)
+    heads, _, aux = get_method("DCHMT").init(gen, Config(method="DCHMT", output_dim=K_BITS), rn50)
+    save_checkpoint(ckpt, {"clip": clip0, **heads}, aux=aux)
+    cfg = Config(method="DCHMT", output_dim=K_BITS, max_words=32, nclass=80, pretrained=ckpt,
+                 clip_path=tower)
+    texts = captions(N_IMAGES, seed=RN_SEED + 2)
+    ids = tokenize_batch(texts, cfg.max_words)
+
+    reset_counts()
+    retriever = Retriever.from_pretrained(cfg, device="cuda")
+    check(retriever.clip_cfg == rn50, f"rn: the served tower reads as {retriever.clip_cfg}")
+    bf16 = Retriever(retriever.method, retriever.params, retriever.aux,
+                     cfg.replace(compute_dtype="bfloat16"), rn50, device="cuda")
+    rates = {}
+    for name, r in (("fp32", retriever), ("bf16", bf16)):
+        r.encode_images(images[:BATCH])
+        rates[f"image_encode_items_per_s_{name}"] = N_IMAGES / host_s(
+            lambda: r.encode_images(images, batch_size=BATCH), reps=2)
+    img_codes = retriever.encode_images(images, batch_size=BATCH)
+    txt_codes = retriever.encode_texts(ids, batch_size=BATCH)
+    rates["text_encode_items_per_s_fp32"] = N_IMAGES / host_s(
+        lambda: retriever.encode_texts(ids, batch_size=BATCH), reps=2)
+    check(img_codes.shape == (N_IMAGES, K_BITS) and set(np.unique(img_codes)) <= {-1, 1}
+          and txt_codes.shape == (N_IMAGES, K_BITS), "rn: served code shapes")
+
+    # bf16 embeddings against fp32 on one batch
+    with torch.inference_mode():
+        x = torch.from_numpy(images[:BATCH]).cuda()
+        e32 = image_embeds(retriever.params, rn50, x, retriever.cfg).double()
+        e16 = image_embeds(bf16.params, rn50, x, bf16.cfg).double()
+        cos = float(((e32 * e16).sum(1) / e32.norm(dim=1) / e16.norm(dim=1)).min())
+    check(cos >= RN_BF16_COSINE, f"rn: bf16 embeddings at cosine {cos} of fp32")
+    del x, e32, e16
+
+    gen = torch.Generator(device="cuda").manual_seed(RN_SEED + 3)
+    rest = torch.where(torch.rand((GALLERY - N_IMAGES, K_BITS), generator=gen,
+                                  device="cuda") < 0.5, -1, 1).to(torch.int8)
+    index = HashIndex(torch.cat([torch.from_numpy(img_codes).cuda(), rest]), packed=True,
+                      **retriever._index_kw())
+    del rest
+    q512 = txt_codes[:SEARCH_Q]
+    dists, found = index.search(q512, 10)
+    check(dists.shape == (SEARCH_Q, 10) and np.all(np.diff(dists, axis=1) >= 0),
+          "rn: search results")
+    rates["search_ms_per_512_packed"] = 1e3 * host_s(lambda: index.search(q512, 10))
+
+    service = RetrievalService(retriever, {"image": index})
+    server = serve(service, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health = http(port, "/healthz")
+        check(health["ok"] and health["indexes"] == {"image": GALLERY}, f"rn healthz {health}")
+        buf = io.BytesIO()
+        np.save(buf, images[:4])
+        got = http(port, "/v1/encode", {"images_b64": base64.b64encode(buf.getvalue()).decode()})
+        check(np.array_equal(np.asarray(got["codes"]), img_codes[:4]),
+              "rn: /v1/encode images_b64 differs from Retriever.encode_images")
+        got = http(port, "/v1/encode", {"texts": texts[:8]})
+        check(np.array_equal(np.asarray(got["codes"]), retriever.encode_texts(texts[:8])),
+              "rn: /v1/encode texts differs from Retriever.encode_texts")
+        for j in range(4):
+            got = http(port, "/v1/search", {"texts": [texts[j]], "k": 10})
+            d, i = index.search(retriever.encode_texts([texts[j]]), 10)
+            check(got["indices"] == i.tolist() and got["distances"] == d.tolist(),
+                  f"rn: /v1/search answer {j} differs from HashIndex.search")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    launches = read_counts()
+    for kernel in ("fused_attention_fwd", "hamming_distance_packed", "fused_layer_norm",
+                   "fused_add_layer_norm"):
+        check(launches[kernel] > 0, f"rn: the serving path never launched {kernel}")
+    check(launches["fused_attention_bwd"] == 0, "rn: serving launched the backward")
+    for kernel, n in launches.items():
+        total[kernel] = total.get(kernel, 0) + n
+    say("rn", run="RN50 DCHMT K=64 serving", http="ok", **launches,
+        **{k: round(v, 4) for k, v in rates.items()}, bf16_min_cosine=cos)
+    del retriever, bf16, index, service
+    torch.cuda.empty_cache()
+
+
+def rn_path():
+    """Phase 15: OpenAI's RN50 at full width from a seeded OpenAI-layout
+    ``.pt``: read back through ``--clip-path``'s loader; its fp32 embedding
+    on the card against the port on the CPU; serving (rn_serving); DSPH
+    and DCHMT K=64 through ``ccmh_torch.cli.main --clip-path`` at batch 128,
+    2 steps each with fp32 and bf16 towers (every leaf moved, BatchNorm's
+    mean and var included; DSPH's ``.npz`` serving the trainer's codes;
+    the step split by CUDA events, peak memory); gradients computed twice
+    with cuDNN's default algorithms and with the deterministic ones the
+    port sets (the same bits?, step ms each; the deterministic ones must
+    repeat); DSPH cut by SIGTERM after step 3 and resumed, bit-equal to
+    the uninterrupted run.  LayerNorm kernels on; returns the summed
+    launches."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.clip.convert import load_clip_params
+    from ccmh_torch.models.heads import linear_hash
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    work = os.path.join(WORK, "rn")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(WORK, "train_data")      # written by phase 5
+    rn50 = rn50_config()
+    total = {}
+
+    def add(launches):
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+
+    def check_launches(what, launches, want):
+        for kernel, n in launches.items():
+            check(n == want.get(kernel, 0), f"rn {what}: {n} launches of {kernel}, the code "
+                                            f"implies {want.get(kernel, 0)}")
+
+    # 1. the seeded tower as an OpenAI-layout .pt, read back as --clip-path reads it
+    tower = os.path.join(work, "rn50.pt")
+    t0 = time.perf_counter()
+    clip0 = _rn_tower(RN_SEED)
+    sd = _rn_state_dict(clip0)
+    torch.save(sd, tower)
+    pt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, cfg = load_clip_params(tower, device="cuda")
+    load_s = time.perf_counter() - t0
+    check(cfg == rn50 and isinstance(cfg.vision_layers, tuple),
+          f"rn: the tower .pt reads as {cfg}")
+    want = dict(tree_leaves_with_path(clip0))
+    got = dict(tree_leaves_with_path(loaded))
+    check(sorted(got) == sorted(want) and all(torch.equal(got[p], want[p]) for p in want),
+          "rn: the tower read from the .pt differs from the seeded tree")
+    n_vision = sum(t.numel() for _, t in tree_leaves_with_path(clip0["visual"]))
+    n_text = sum(t.numel() for _, t in tree_leaves_with_path(clip0["text"]))
+    say("rn", model="RN50 CLIP", vision_params=n_vision, text_params=n_text,
+        state_dict_keys=len(sd), num_batches_tracked=sum(k.endswith("num_batches_tracked")
+                                                         for k in sd),
+        pt_mb=round(os.path.getsize(tower) / 2 ** 20, 1), write_s=round(pt_s, 2),
+        load_s=round(load_s, 2))
+    del loaded, got, want, sd
+
+    # 2. the card's fp32 embedding against the port on the CPU
+    images = random_images(N_IMAGES, rn50.image_resolution, seed=RN_SEED + 4)
+    x = images[:RN_CPU_IMAGES]
+    with torch.inference_mode():
+        card = cm.vision_forward(clip0["visual"], rn50, torch.from_numpy(x).cuda()).pooled
+        visual_cpu = _to_cpu(clip0["visual"])
+        t0 = time.perf_counter()
+        host = cm.vision_forward(visual_cpu, rn50, torch.from_numpy(x)).pooled.double()
+        cpu_s = time.perf_counter() - t0
+        card = card.cpu().double()
+    check(bool(torch.isfinite(card).all()) and card.shape == (RN_CPU_IMAGES, rn50.embed_dim),
+          f"rn: card embedding {tuple(card.shape)}")
+    rel = ((card - host).norm(dim=1) / host.norm(dim=1)).max().item()
+    check(rel <= RN_CPU_TOL, f"rn: the card's fp32 embedding is {rel} (relative norm) from "
+                             f"the CPU's, above {RN_CPU_TOL}")
+    say("rn", check="fp32 embedding, card vs CPU", images=RN_CPU_IMAGES, max_rel_norm=rel,
+        tol=RN_CPU_TOL, cpu_s=round(cpu_s, 2), embedding_norm=host.norm(dim=1).tolist())
+    del visual_cpu, card, host
+
+    cm.set_ln_impl("fused")
+    try:
+        # 3. serving
+        rn_serving(work, tower, clip0, images, total)
+        del images, clip0
+        torch.cuda.empty_cache()
+
+        # 4. DSPH and DCHMT through the CLI, fp32 and bf16 towers
+        def argv(method, dtype, save_dir, epochs=1):
+            return ["--method", method, "--dataset", "synthetic", "--output-dim", str(K_BITS),
+                    "--data-dir", data, "--epochs", str(epochs),
+                    "--batch-size", str(TRAIN_BATCH), "--train-num", str(RN_STEPS * TRAIN_BATCH),
+                    "--query-num", str(TRAIN_QUERY), "--eval-batch", str(BATCH),
+                    "--clip-path", tower, "--display-step", "1", "--no-valid",
+                    "--num-workers", "4", "--device", "cuda", "--compute-dtype", dtype,
+                    "--save-dir", os.path.join(work, save_dir)]
+
+        def code_margin(kind, retriever, cfg, x):
+            embeds = image_embeds if kind == "image" else text_embeds
+            head = retriever.params["img_head" if kind == "image" else "txt_head"]
+            return linear_hash(head, embeds(retriever.params, retriever.clip_cfg, x, cfg)).abs()
+
+        runs, splits = {}, {}
+        for method in ("DSPH", "DCHMT"):
+            for dname, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+                label = f"{method} {dname}"
+                steps, start = [], {}
+                flags = ["--save-model"] if (method, dname) == ("DSPH", "fp32") else []
+                trainer, launches, peak = _timed_run(
+                    argv(method, dtype, f"{method}_{dname}") + flags, steps, start)
+                check_launches(label, launches, rn_launches(RN_STEPS, RN_STEPS))
+                add(launches)
+                losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir)
+                          if r["event"] == "train"]
+                check(trainer.state.step == RN_STEPS and len(losses) == RN_STEPS
+                      and all(math.isfinite(v) for v in losses), f"rn {label}: losses {losses}")
+                moved = _moved(start, trainer.state.params)
+                bn = _bn_leaves(trainer.state.params)
+                now = dict(tree_leaves_with_path(trainer.state.params))
+                bn_moved = sum(not torch.equal(now[p].detach(), start[p]) for p in bn)
+                check(moved == len(start) and bn_moved == len(bn),
+                      f"rn {label}: {moved} of {len(start)} leaves moved, {bn_moved} of "
+                      f"{len(bn)} BatchNorm mean and var")
+                runs[label] = {"losses": losses, "step_ms": steps, "peak_bytes": peak,
+                               "leaves_moved": moved, "bn_stat_leaves_moved": bn_moved}
+                if flags:
+                    reset_counts()
+                    check_served_codes("rn", trainer,
+                                       os.path.join(trainer.cfg.save_dir, "model-0.npz"),
+                                       code_margin, k_bits=K_BITS)
+                if dname == "fp32":
+                    # the step split by CUDA events, fp32 and bf16 towers
+                    tr = trainer
+                    batch = tr._put(next(iter(tr.train_loader)))
+                    batch["epoch"] = torch.tensor(0, dtype=torch.int32, device="cuda")
+                    opts = [tr.optimizer] + ([tr.extra_optimizer] if tr.extra_optimizer else [])
+                    for tname, tdtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+                        cfg = tr.cfg.replace(compute_dtype=tdtype)
+                        splits[f"{method}_{tname}"] = time_train_steps(
+                            tr.method.make_loss_fn(cfg, tr.clip_cfg), tr.state, batch, opts,
+                            steps=3, warm=1, grad_clip=tr.method.grad_clip)
+                    if method == "DSPH":
+                        # cuDNN's default algorithms against the deterministic
+                        # ones the port sets (ccmh_torch/__init__.py)
+                        check(torch.backends.cudnn.deterministic,
+                              "rn: the port did not set cuDNN's deterministic algorithms")
+                        for det in (False, True):
+                            torch.backends.cudnn.deterministic = det
+                            try:
+                                same = _rn_grads_twice(tr, batch)
+                                ms = time_train_steps(tr.method.make_loss_fn(tr.cfg, tr.clip_cfg),
+                                                      tr.state, batch, opts, steps=3, warm=1)
+                            finally:
+                                torch.backends.cudnn.deterministic = True
+                            splits[f"DSPH_fp32_cudnn_deterministic_{det}"] = {
+                                **ms, "gradients_twice_same_bits": same}
+                        check(splits["DSPH_fp32_cudnn_deterministic_True"][
+                            "gradients_twice_same_bits"], "rn: cuDNN's deterministic "
+                                                          "algorithms gave other gradient bits")
+                    del tr, batch, opts
+                del trainer
+                torch.cuda.empty_cache()
+        say("rn", run="DSPH and DCHMT K=64 batch 128 through the CLI", by_run=runs)
+        say("rates", rn50_train_step_batch=TRAIN_BATCH, ln="fused", **splits)
+
+        # 5. DSPH fp32: A uninterrupted (2 epochs of 2 steps, a slot each
+        # epoch); B cut by SIGTERM after global step 3 and resumed
+        base = argv("DSPH", "float32", "A", epochs=2)[:-2] + ["--checkpoint-every", "1"]
+
+        def run_dir(name):
+            return os.path.join(work, name, "DSPH", "synthetic", str(K_BITS))
+
+        timings = {}
+        for name, flags, cut, n_steps in (("A", [], None, 2 * RN_STEPS),
+                                          ("B", [], 3, 3), ("B", ["--resume"], None, 1)):
+            _, launches, _ = _lifecycle_run(base + ["--save-dir", os.path.join(work, name)]
+                                            + flags, timings, cut_at=cut)
+            check_launches(f"{name}{' '.join(flags)}", launches, rn_launches(n_steps, n_steps))
+            add(launches)
+            torch.cuda.empty_cache()
+        slot_a = _final_slot(run_dir("A"))
+        diff = _tree_diff(_final_slot(run_dir("B")), slot_a) + (
+            ["metrics.jsonl"] if _metric_rows(run_dir("B")) != _metric_rows(run_dir("A")) else [])
+        check(not diff, f"rn: the resumed RN50 run differs from the uninterrupted one at "
+                        f"{diff[:8]}")
+        with open(os.path.join(run_dir("B"), "train.log")) as fh:
+            check("fast-forwarding 1 steps" in fh.read(), "rn: the resumed run did not "
+                                                          "fast-forward")
+        say("rn", run="RN50 DSPH fp32 cut by SIGTERM after step 3 and resumed",
+            resumed_equal_to_A="params (BatchNorm statistics included), extra, aux, both "
+            "optimizers, generator, step, meta, every train row", **timings)
+    finally:
+        cm.set_ln_impl("plain")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3780,11 +4246,19 @@ def main() -> int:
     say("launches", path="long", **long_launches)
     say("long", phase_seconds=round(time.perf_counter() - t14, 1))
 
+    # OpenAI's RN50 (slice 17): serving and training from a seeded
+    # OpenAI-layout .pt, LayerNorm kernels on; each run resets the counts
+    # just before it and reads them just after
+    t15 = time.perf_counter()
+    rn = rn_path()
+    say("launches", path="rn", **rn)
+    say("rn", phase_seconds=round(time.perf_counter() - t15, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
                    "token_methods": token[k], "extra_state": extra_state[k],
                    "lifecycle": lifecycle[k], "input": input_launches.get(k, 0),
-                   "long": long_launches.get(k, 0)}
+                   "long": long_launches.get(k, 0), "rn": rn.get(k, 0)}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

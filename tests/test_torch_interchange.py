@@ -275,9 +275,20 @@ def test_openai_pt_conversion_matches_ccmh(tmp_path, form):
 
 
 def test_resnet_towers_raise():
-    with pytest.raises(NotImplementedError, match="ModifiedResNet"):
-        convert.convert_state_dict({"visual.layer1.0.conv1.weight": torch.zeros(1)},
-                                   device="cpu")
+    """A ModifiedResNet tower converts (tests/test_torch_resnet.py holds it
+    to ccmh); what still raises for one are the exports with no such
+    tower, HF's ``CLIPModel`` and the reference ``.pth``, as in ccmh."""
+    from ccmh_torch.clip.model import init_clip_params as t_init_clip
+
+    rn = ClipConfig(embed_dim=64, image_resolution=64, vision_layers=(1, 1, 1, 1),
+                    vision_width=8, vision_patch_size=None, transformer_width=128,
+                    transformer_heads=2, transformer_layers=2)
+    clip = t_init_clip(torch.Generator().manual_seed(0), rn)
+    assert convert.infer_clip_config(clip) == rn
+    with pytest.raises(ValueError, match="ModifiedResNet"):
+        hf.to_hf_state_dict(clip, rn)
+    with pytest.raises(NotImplementedError, match="RN-family"):
+        export_ref.export_clip_state_dict(clip)
 
 
 def test_hf_state_dict_conversions_match_ccmh():

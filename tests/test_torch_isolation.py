@@ -48,6 +48,11 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.clip.import_ref, ccmh_torch.clip.export_ref\n"
         "import ccmh_torch.tokenizer.native, ccmh_torch.data.native\n"
         "import ccmh_torch.data.cache, ccmh_torch.data.prefetch, ccmh_torch.data.resident\n"
+        "import ccmh_torch.clip.resnet, ccmh_torch.data.builders\n"
+        "import ccmh_torch.data.builders.make_coco, ccmh_torch.data.builders.make_nuswide\n"
+        "import ccmh_torch.data.builders.make_mirflickr25k\n"
+        "import ccmh_torch.data.builders.twdh_centers\n"
+        "from ccmh_torch.retrieval import _demo\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -48,11 +48,12 @@ TOL = dict(atol=2e-6, rtol=1e-5)
 same_masks = _same_masks
 
 
-def batches(seed, n, b=B, n_class=N_CLASS, epoch=1):
-    """Seeded numpy batches: tiny-tower images, token ids with an EOT, and
-    multi-hot labels with at least one class per row."""
+def batches(seed, n, b=B, n_class=N_CLASS, epoch=1, res=None):
+    """Seeded numpy batches: images at ``res`` (the tiny tower's by
+    default), token ids with an EOT, and multi-hot labels with at least
+    one class per row."""
     rng = np.random.RandomState(seed)
-    res = JClipConfig.tiny().image_resolution
+    res = res or JClipConfig.tiny().image_resolution
     out = []
     for _ in range(n):
         ids = rng.randint(1, 49406, size=(b, MAX_WORDS)).astype(np.int32)
@@ -84,14 +85,16 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def build(name, jcfg, cfg, seed=5):
+def build(name, jcfg, cfg, seed=5, jclip=None, clip=None, init_clip=j_init_clip):
     """Both packages' train state at ccmh's init: ccmh's step, state and
-    loss function beside the port's."""
-    jclip, clip = JClipConfig.tiny(), ClipConfig.tiny()
+    loss function beside the port's.  The towers are ``ClipConfig.tiny()``
+    unless ``jclip`` / ``clip`` name others; ``init_clip(key, jclip)``
+    draws ccmh's CLIP tree."""
+    jclip, clip = jclip or JClipConfig.tiny(), clip or ClipConfig.tiny()
     key = jax.random.PRNGKey(seed)
     jmethod = j_get_method(name)
     heads, extra, aux = jmethod.init(jax.random.fold_in(key, 1), jcfg, jclip)
-    jparams = {"clip": j_init_clip(key, jclip), **heads}
+    jparams = {"clip": init_clip(key, jclip), **heads}
     tx = j_make_opt(jcfg, jparams, STEPS_PER_EPOCH)
     if jmethod.grad_clip > 0:
         tx = optax.chain(optax.clip_by_global_norm(jmethod.grad_clip), tx)
