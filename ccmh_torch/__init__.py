@@ -15,6 +15,9 @@ mAP).  Layers, from the entry points down:
   ccmh_torch.cli        — training CLI (``python -m ccmh_torch.cli``)
   ccmh_torch.serve      — HTTP daemon (``python -m ccmh_torch.serve``)
   ccmh_torch.retrieval  — Retriever (per-tower encode) + HashIndex (top-k)
+  ccmh_torch.parallel   — meshes over torch.distributed: data parallelism
+                          with ccmh's global-batch semantics, Megatron
+                          tensor parallelism of the towers
   ccmh_torch.train      — Trainer, train state and step, BertAdam, Method
                           protocol (DCHMT, the LinearHash factory and its
                           methods), ``.npz`` checkpoints

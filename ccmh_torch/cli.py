@@ -13,9 +13,21 @@ main.py:36-46 plus argsbase.py:4-37), plus ``--device`` (default
 ``--pretrained`` takes ``.npz``, full-state directories and reference
 ``.pth`` files.  ``--remat`` (``--set remat_policy=dots``), ``--set
 optim_moments_dtype=bfloat16`` and ``--profile`` work as in ``ccmh``.
-Flags of features the port does not have (meshes, XLA's compilation
-cache, ``param_dtype``) raise ``NotImplementedError`` from the Trainer
-instead of being ignored.
+
+``--mesh N`` trains data-parallel over N ranks, ``--mesh dp,tp`` over a
+dp x tp mesh with Megatron-sharded towers (``ccmh_torch/parallel``), one
+process per device.  Under ``torchrun`` each process is one rank:
+
+    torchrun --nproc-per-node 4 -m ccmh_torch.cli --mesh 4 ...
+
+Otherwise the CLI starts the ranks itself: one per visible card (a mesh
+larger than the cards raises), or gloo ranks on the CPU with ``--device
+cpu``, each with its share of the cores.  The kernels are built once
+before the ranks start.
+
+Flags of features the port does not have (FSDP, XLA's compilation cache,
+``param_dtype``) raise ``NotImplementedError`` from the Trainer instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -137,11 +149,17 @@ def build_parser() -> argparse.ArgumentParser:
                              "compiles no XLA and builds its CUDA kernels once into "
                              "build/, so this " + unported)
     parser.add_argument("--mesh", type=str, default="1",
-                        help="device mesh shape; anything but '1' is " + unported)
+                        help="device mesh shape: '8' = 8-way data parallel, "
+                             "'4,2' = 4-way data x 2-way tensor (Megatron-"
+                             "sharded towers, ccmh_torch/parallel/tp.py); one "
+                             "process per device, under torchrun or started "
+                             "by this CLI")
     parser.add_argument("--fsdp", action="store_true", default=False, help=unported)
     parser.add_argument("--shard-gallery", type=str, default="auto",
                         choices=["auto", "true", "false"],
-                        help="mesh eval gallery placement; " + unported)
+                        help="mesh eval gallery placement: shard the gallery "
+                             "axis over the data ranks (hist path) instead of "
+                             "the queries; auto shards galleries >= 2^20 items")
     parser.add_argument("--clip-arch", type=str, default="vit-b-32",
                         choices=["vit-b-32", "tiny"],
                         help="architecture for random init when no --clip-path "
@@ -211,18 +229,83 @@ def config_from_args(argv=None) -> Config:
     return cfg
 
 
+def _world(cfg: Config) -> int:
+    world = 1
+    for n in cfg.mesh_shape:
+        world *= int(n)
+    return world
+
+
+def _spawn_ranks(argv, args, world: int) -> None:
+    """Start the ``world`` ranks of ``--mesh`` as processes of this machine
+    and wait for them: one per card (the kernels built first, once), or
+    gloo ranks on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from ccmh_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise ValueError(f"--mesh {args.mesh} needs {world} cards, this machine has "
+                             f"{cards}")
+        from ccmh_torch.ops import build
+
+        build.build_all()
+    store = tempfile.mkdtemp(prefix="ccmh_torch_ranks_")
+    try:
+        mp.spawn(_rank_main, args=(list(argv), world, f"file://{store}/init", dev.type),
+                 nprocs=world, join=True)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _rank_main(rank: int, argv, world: int, init_method: str, device_type: str) -> None:
+    """One rank started by :func:`_spawn_ranks`."""
+    import torch
+    import torch.distributed as dist
+
+    from ccmh_torch.parallel.mesh import init_process
+
+    if device_type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = f"cuda:{rank}" if device_type == "cuda" else "cpu"
+    init_process(rank, world, init_method, device)
+    try:
+        trainer = main(argv)
+        trainer.metrics.close()
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
+    """Train or test as the flags say; returns the Trainer, or None when
+    this process started the ranks of a ``--mesh`` and waited for them."""
+    from ccmh_torch.parallel.mesh import initialize_multihost, rank_device
     from ccmh_torch.train.trainer import Trainer
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(argv)
+    world = _world(cfg)
+    device = args.device
+    if world > 1:
+        if initialize_multihost(device=args.device) == 1:
+            _spawn_ranks(argv, args, world)
+            return None
+        device = rank_device()
     clip_cfg = None
     if not cfg.clip_path and args.clip_arch == "tiny":
         from ccmh_torch.clip.model import ClipConfig
 
         clip_cfg = ClipConfig.tiny()
         cfg = cfg.replace(resolution=clip_cfg.image_resolution)
-    trainer = Trainer(cfg, clip_cfg=clip_cfg, device=args.device)
+    trainer = Trainer(cfg, clip_cfg=clip_cfg, device=device)
     trainer.run()
     return trainer
 

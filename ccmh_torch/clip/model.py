@@ -28,7 +28,9 @@ The towers return ``ccmh``'s :class:`VisionOutput` / :class:`TextOutput`:
 pre-projection token states (DPSIH), ``"mith"`` every token through the
 final LayerNorm and the projection, the last layer's attention row of the
 cls (vision) or EOS (text) token and the extended key-padding mask (MITH).
-The head-major (tensor-parallel) layout is not ported.
+Under a mesh with a model axis (``parallel/tp.py``) the blocks run
+Megatron-sharded at the local widths, each rank's heads in local packed
+order on the same kernels.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ccmh_torch.ops.attention import attention_reference, fused_attention
+from ccmh_torch.parallel.tp import copy_to_model, reduce_from_model, tp_mesh
 from ccmh_torch.ops.layernorm import (
     fused_add_layer_norm, fused_layer_norm, layer_norm_reference,
 )
@@ -169,7 +172,7 @@ def set_ln_impl(impl: str) -> None:
 
 def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
                          attn_bias: Optional[torch.Tensor] = None,
-                         need_weights: bool = False
+                         need_weights: bool = False, mesh=None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Self-attention over [B, L, D] with a fused qkv projection ->
     (output, weights or None).
@@ -177,7 +180,20 @@ def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
     ``attn_bias`` is an additive fp32 [L, L] or [B, 1, L, L] mask (0 /
     -inf) or None.  The weights, with ``need_weights``, are the softmax
     probabilities averaged over heads [B, L, L] (torch MHA's, which MITH
-    reads)."""
+    reads).
+
+    ``mesh``, a mesh with a model axis (``parallel/tp.py``): ``p`` holds
+    this rank's H/tp heads in local packed order, the kernels run on
+    [B, L, 3D/tp] with H/tp heads, the row-parallel ``out_w`` product is
+    summed over the model ranks before ``out_b``, and the weights average
+    over all H heads."""
+    n_total = n_head
+    if mesh is not None:
+        n_head //= mesh.tp
+        if p["qkv_w"].shape[-1] != 3 * x.shape[-1] // mesh.tp:
+            raise ValueError(f"a {mesh.tp}-way model axis needs sharded blocks "
+                             f"(parallel/tp.py shard_clip); qkv_w is {list(p['qkv_w'].shape)}")
+        x = copy_to_model(x, mesh)
     if ATTN_IMPL == "fused" and not need_weights and (attn_bias is None or attn_bias.ndim == 2):
         # feed the RAW x @ qkv_w product; the kernel folds qkv_b into its
         # load, saving the [B, L, 3D] round trip of a standalone bias add
@@ -188,17 +204,25 @@ def multi_head_attention(x: torch.Tensor, p: Params, n_head: int,
                                            need_weights=True)
     else:
         ctx, weights = attention_reference(x @ p["qkv_w"] + p["qkv_b"], attn_bias, n_head), None
-    return ctx @ p["out_w"] + p["out_b"], weights
+    out = ctx @ p["out_w"]
+    if mesh is not None:
+        out = reduce_from_model(out, mesh)
+        if weights is not None:
+            # the local heads' sum, summed over the model ranks, over all H
+            weights = reduce_from_model(weights * n_head, mesh) / n_total
+    return out + p["out_b"], weights
 
 
 def _block(x: torch.Tensor, p: Params, n_head: int, attn_bias: Optional[torch.Tensor],
-           need_weights: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+           need_weights: bool = False, mesh=None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-LN residual attention block (attention + QuickGELU MLP) ->
     (output, the attention weights with ``need_weights``)."""
     fused = LN_IMPL == "fused"
     ln = fused_layer_norm if fused else layer_norm
     h = ln(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    attn_out, weights = multi_head_attention(h, p["attn"], n_head, attn_bias, need_weights)
+    attn_out, weights = multi_head_attention(h, p["attn"], n_head, attn_bias, need_weights,
+                                             mesh)
     if fused:
         # the residual add + pre-MLP LN in one pass (kernel #5)
         h, x = fused_add_layer_norm(x, attn_out, p["ln_2"]["scale"], p["ln_2"]["bias"])
@@ -206,8 +230,11 @@ def _block(x: torch.Tensor, p: Params, n_head: int, attn_bias: Optional[torch.Te
         x = x + attn_out
         h = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"])
     mlp = p["mlp"]
-    x = x + (quick_gelu(h @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"] + mlp["proj_b"])
-    return x, weights
+    if mesh is None:
+        return x + (quick_gelu(h @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"] + mlp["proj_b"]), weights
+    # column-parallel fc, row-parallel proj summed over the model ranks
+    y = quick_gelu(copy_to_model(h, mesh) @ mlp["fc_w"] + mlp["fc_b"]) @ mlp["proj_w"]
+    return x + (reduce_from_model(y, mesh) + mlp["proj_b"]), weights
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -226,14 +253,14 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat_block(x: torch.Tensor, layer: Params, n_head: int,
-                 attn_bias: Optional[torch.Tensor], remat) -> torch.Tensor:
+                 attn_bias: Optional[torch.Tensor], mesh, remat) -> torch.Tensor:
     """One block under activation checkpointing: only its input (and the
     layer's weights, views of the stacked leaves) stay saved, and the
     backward recomputes the block; ``"dots"`` also keeps its matmul outputs."""
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     def block(h):
-        return _block(h, _cast_layer(layer, h.dtype), n_head, attn_bias)[0]
+        return _block(h, _cast_layer(layer, h.dtype), n_head, attn_bias, mesh=mesh)[0]
 
     if remat == "dots":
         return checkpoint(block, x, use_reentrant=False,
@@ -250,7 +277,7 @@ def _cast_layer(layer: Params, dtype: torch.dtype) -> Params:
 
 def transformer(x: torch.Tensor, stacked: Params, n_head: int,
                 attn_bias: Optional[torch.Tensor] = None, need_last_attn: bool = False,
-                remat=False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                remat=False, mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order over the stacked layer parameters ->
     (output, the last block's attention weights with ``need_last_attn``;
     only that block then takes the plain attention, as in ``ccmh``).
@@ -265,17 +292,19 @@ def transformer(x: torch.Tensor, stacked: Params, n_head: int,
     kernels on the same inputs, so the gradients are the same bits.
 
     Weights in another dtype than ``x`` are cast per layer (LayerNorm still
-    reduces in fp32); :func:`cast_clip_params` casts them once instead."""
+    reduces in fp32); :func:`cast_clip_params` casts them once instead.
+    ``mesh`` (the CLIP towers pass the active one with a model axis) runs
+    the blocks Megatron-sharded on this rank's shard of them."""
     n_layers = stacked["ln_1"]["scale"].shape[0]
     weights = None
     for i in range(n_layers):
         layer = _layer(stacked, i)
         last = need_last_attn and i == n_layers - 1
         if remat and not last:
-            x = _remat_block(x, layer, n_head, attn_bias, remat)
+            x = _remat_block(x, layer, n_head, attn_bias, mesh, remat)
         else:
             x, weights = _block(x, _cast_layer(layer, x.dtype), n_head, attn_bias,
-                                need_weights=last)
+                                need_weights=last, mesh=mesh)
     return x, weights
 
 
@@ -358,7 +387,7 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
     x = x + p["positional_embedding"].to(dtype)
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
     x, attn = transformer(x, p["blocks"], cfg.vision_heads, None,
-                          need_last_attn=features == "mith", remat=remat)
+                          need_last_attn=features == "mith", remat=remat, mesh=tp_mesh())
     if features == "mith":
         h = layer_norm(x, p["ln_post"]["scale"], p["ln_post"]["bias"])
         tokens_proj = h @ p["proj"].to(dtype)              # [B, 1+P, E]
@@ -405,7 +434,7 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
             key_padding_mask.to(torch.bool), -math.inf)
         bias = bias[None, None, :, :] + kp[:, None, None, :]
     x, attn = transformer(x, p["blocks"], cfg.transformer_heads, bias,
-                          need_last_attn=features == "mith", remat=remat)
+                          need_last_attn=features == "mith", remat=remat, mesh=tp_mesh())
     eos_pos = ids.argmax(dim=-1)                           # [B]
     rows = torch.arange(B, device=x.device)
     h = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])

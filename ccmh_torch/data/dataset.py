@@ -161,13 +161,17 @@ class BatchIterator:
     def __init__(self, dataset: CrossModalDataset, batch_size: int, *,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 8,
                  prefetch: int = 2, drop_last: bool = False, ragged_last: bool = False,
-                 image_cache=None, with_images: bool = True):
+                 image_cache=None, with_images: bool = True, rows: Optional[slice] = None):
         self.dataset = dataset
         # data/cache.py ImageCache: batches carry its uint8 images
         self.image_cache = image_cache
         # False: meta and valid only (device-resident epochs gather the
         # pixels on the card from the batch's indices)
         self.with_images = with_images
+        # a mesh rank's rows of each batch (parallel/mesh.py): the towers'
+        # inputs (images, token ids, key-padding mask) are assembled for
+        # these rows only; labels, indices and ``valid`` stay whole
+        self.rows = rows
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -196,9 +200,15 @@ class BatchIterator:
 
     def _assemble(self, idx_batch: np.ndarray, n_valid: int, pool) -> Dict[str, np.ndarray]:
         batch = self.dataset.meta_items(idx_batch)
+        mine = idx_batch
+        if self.rows is not None:
+            mine = idx_batch[self.rows]
+            for key in ("text", "key_padding_mask"):
+                if key in batch:
+                    batch[key] = batch[key][self.rows]
         if self.with_images:
-            batch["image"] = (self.image_cache.gather(idx_batch) if self.image_cache is not None
-                              else self._images(idx_batch, pool))
+            batch["image"] = (self.image_cache.gather(mine) if self.image_cache is not None
+                              else self._images(mine, pool))
         valid = np.zeros(len(idx_batch), bool)
         valid[:n_valid] = True
         batch["valid"] = valid

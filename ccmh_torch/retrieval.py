@@ -17,11 +17,15 @@
   the method's per-tower encode functions and a text query never runs the
   vision tower.
 
+* :func:`topk_search_sharded` and ``HashIndex(mesh=)`` — the gallery
+  sharded over a mesh's data ranks (``parallel/mesh.py``): each ranks its
+  N/dp shard, the k candidates of each shard are gathered and merged with
+  the same key, equal to the single-device search; ``Retriever(tp_mesh=)``
+  encodes with Megatron-sharded towers (``parallel/tp.py``).
+
 ``python -m ccmh_torch.retrieval <mat>`` searches a saved code dump (a
 ``PR_cruve`` ``.mat``) and prints the top-k of the first queries and the
 precision@k (:func:`_demo`, on the card unless ``--device cpu``).
-
-Gallery-sharded and tensor-parallel search are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ccmh_torch.data.prefetch import DevicePut, device_prefetch, to_device
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.hamming import hamming_distance, hamming_distance_packed
 from ccmh_torch.ops.packing import pack_codes
+from ccmh_torch.parallel.mesh import activated, gather_tensor
 from ccmh_torch.tokenizer.bpe import tokenize_batch
 from ccmh_torch.train.checkpoint import load_checkpoint
 from ccmh_torch.train.methods import get_method
@@ -79,18 +84,27 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
     return to_device(a, device)
 
 
-def _chunk_topk(dist: torch.Tensor, k: int, idx_bits: int,
-                n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[C, N] int32 distances -> (distances [C, k], indices [C, k]).
+def _chunk_keys(dist: torch.Tensor, k: int, idx_bits: int, n_valid: int,
+                offset: int = 0) -> torch.Tensor:
+    """[C, N] int32 distances -> the k smallest keys [C, k] (ascending) of
+    gallery rows ``offset`` to ``offset + N``; sentinels fill the row where
+    it holds fewer than k (a gallery shard narrower than k).
 
     The key is built in place in ``dist`` (it is the caller's fresh
     distance matrix; at N=2^20 another [C, N] buffer would cost 4 GB)."""
-    gidx = torch.arange(dist.shape[1], dtype=torch.int32, device=dist.device)
+    gidx = torch.arange(offset, offset + dist.shape[1], dtype=torch.int32,
+                        device=dist.device)
     key = dist.to(torch.int32)
     key <<= idx_bits
     key |= gidx
     key.masked_fill_(gidx >= n_valid, _SENTINEL)
-    top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    top = torch.topk(key, min(k, key.shape[1]), dim=1, largest=False, sorted=True).values
+    if top.shape[1] < k:
+        top = torch.nn.functional.pad(top, (0, k - top.shape[1]), value=_SENTINEL)
+    return top
+
+
+def _decode(top: torch.Tensor, idx_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return top >> idx_bits, top & ((1 << idx_bits) - 1)
 
 
@@ -104,6 +118,8 @@ def topk_search(
     chunk: int = 1024,
     valid_n: Optional[int] = None,
     device: Optional[DeviceLike] = None,
+    mesh=None,
+    offset: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Rank ``gallery`` for each query; return the k best.
 
@@ -114,6 +130,12 @@ def topk_search(
     overrides plain Hamming and must return int32 distances bounded by
     ``max_dist``.  ``valid_n``: true row count when the gallery carries
     spare rows (they rank strictly last and are never returned).
+
+    Under ``mesh`` (``parallel/mesh.py``; every rank calls with the same
+    queries) ``gallery`` is this data rank's shard, global rows ``offset``
+    on, and ``valid_n`` the global row count: each chunk's k candidate keys
+    of every rank are all-gathered and merged.  The keys are unique, so the
+    merged k smallest are the single-device top-k, ties included.
     Returns (distances [Q, k] int32, indices [Q, k] int32) as numpy.
     """
     if device is None:
@@ -135,32 +157,73 @@ def topk_search(
         max_dist = md if max_dist is None else max_dist
     elif max_dist is None:
         raise ValueError("custom dist_fn requires max_dist")
-    # idx_bits covers the full CAPACITY (incl. spare rows), as in ccmh
-    idx_bits, _ = _check_key_fits(g.shape[0], max_dist)
+    # idx_bits covers the full CAPACITY (incl. spare rows), as in ccmh;
+    # under a mesh the global rows (a shard's padding rows are sentinels)
+    idx_bits, _ = _check_key_fits(n if mesh is not None else g.shape[0], max_dist)
     out_d, out_i = [], []
     with torch.inference_mode():
         for s in range(0, n_queries, max(1, chunk)):
-            d, i = _chunk_topk(dist_fn(q_all[s:s + chunk], g), k, idx_bits, n)
+            top = _chunk_keys(dist_fn(q_all[s:s + chunk], g), k, idx_bits, n, offset)
+            if mesh is not None:
+                cand = gather_tensor(top, mesh.data_group, mesh.dp, mesh.data_rank)
+                top = torch.topk(cand.permute(1, 0, 2).reshape(top.shape[0], -1), k, dim=1,
+                                 largest=False, sorted=True).values
+            d, i = _decode(top, idx_bits)
             out_d.append(d.cpu().numpy())
             out_i.append(i.cpu().numpy())
     return np.concatenate(out_d), np.concatenate(out_i)
 
 
+def _shard_rows(n: int, mesh) -> Tuple[int, int]:
+    """(offset, rows per rank) of the data rank's gallery shard: ``ccmh``'s
+    N/ndev rows padded up, the last shard short of its padding."""
+    per = -(-n // mesh.dp)
+    return min(mesh.data_rank * per, n), per
+
+
+def topk_search_sharded(
+    queries,
+    gallery,
+    k: int,
+    mesh,
+    *,
+    chunk: int = 1024,
+    valid_n: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Gallery-sharded top-k over the data axis of ``mesh``
+    (``parallel/mesh.py``; every rank calls it with the same inputs): each
+    rank ranks its N/dp shard of ``gallery`` (±1 or packed, whole on every
+    rank, numpy or a tensor) on its device, and only the k candidates of
+    each shard, with their global indices, cross between ranks.  Equal to
+    :func:`topk_search`, ties included.  Returns numpy on every rank."""
+    g = gallery if isinstance(gallery, torch.Tensor) else _to_tensor(gallery, torch.device("cpu"))
+    offset, per = _shard_rows(g.shape[0], mesh)
+    return topk_search(queries, g[offset:offset + per].to(mesh.device).contiguous(), k,
+                       chunk=chunk, valid_n=valid_n if valid_n is not None else g.shape[0],
+                       device=mesh.device, mesh=mesh, offset=offset)
+
+
 class HashIndex:
-    """A searchable gallery of binary codes on one device.
+    """A searchable gallery of binary codes on one device, or sharded over
+    a mesh's data axis.
 
     codes: [N, K] ±1 (any float/int dtype).  ``packed=True`` stores the
     packed form (int32 lanes, 8x smaller than int8; XOR+popcount kernel);
     the default keeps ±1 int8 for the matmul path.  ``labels`` ([N, C]
     multi-hot) enables :meth:`precision_at_k`.  ``dist_fn`` (+
-    ``max_dist``) replaces Hamming ranking.
+    ``max_dist``) replaces Hamming ranking.  ``mesh``
+    (``parallel/mesh.py``) keeps only this data rank's N/dp shard on its
+    device and searches with :func:`topk_search`'s merge; every
+    rank builds and searches the index with the same inputs.
     """
 
     def __init__(self, codes, labels=None, *, packed: bool = False,
-                 dist_fn: Optional[Callable] = None,
+                 mesh=None, dist_fn: Optional[Callable] = None,
                  max_dist: Optional[int] = None, chunk: int = 1024,
                  device: DeviceLike = "cuda"):
-        dev = resolve_device(device)
+        if dist_fn is not None and mesh is not None:
+            raise ValueError("custom dist_fn search is single-device")
+        dev = mesh.device if mesh is not None else resolve_device(device)
         codes = _to_tensor(codes, dev)
         if codes.ndim != 2 or codes.shape[1] == 0:
             # a zero-bit index would accept the build, then reject every
@@ -169,7 +232,7 @@ class HashIndex:
         if packed and dist_fn is not None:
             raise ValueError("packed storage implies Hamming ranking")
         self._setup(self._prepare(codes, packed), codes.shape[0], codes.shape[1],
-                    labels, packed, dist_fn, max_dist, chunk, dev)
+                    labels, packed, dist_fn, max_dist, chunk, dev, mesh)
 
     @staticmethod
     def _prepare(codes: torch.Tensor, packed: bool) -> torch.Tensor:
@@ -178,7 +241,8 @@ class HashIndex:
         return torch.where(codes > 0, 1, -1).to(torch.int8)
 
     def _setup(self, prepared: torch.Tensor, n: int, k_bits: int, labels,
-               packed: bool, dist_fn, max_dist, chunk: int, dev: torch.device) -> None:
+               packed: bool, dist_fn, max_dist, chunk: int, dev: torch.device,
+               mesh=None) -> None:
         self.n, self.k_bits = n, k_bits
         self.labels = None if labels is None else np.asarray(labels)
         if self.labels is not None and self.labels.shape[0] != self.n:
@@ -188,6 +252,12 @@ class HashIndex:
         self.max_dist = max_dist
         self.chunk = chunk
         self.device = dev
+        self.mesh = mesh
+        self._offset = 0
+        if mesh is not None:
+            # this data rank's shard only
+            self._offset, self._per = _shard_rows(n, mesh)
+            prepared = prepared[self._offset:self._offset + self._per]
         # the gallery lives on the device for the index's lifetime; rows
         # past ``n`` are spare capacity for add()
         self._codes = prepared.to(dev).contiguous()
@@ -201,7 +271,12 @@ class HashIndex:
         Rows land in the device gallery's spare capacity in place; when it
         is full, capacity doubles (in 1024-row blocks).  Rows past ``n``
         rank strictly last through the search key sentinel, so a search
-        after ``add`` equals a search over the concatenated gallery."""
+        after ``add`` equals a search over the concatenated gallery.  A
+        mesh-sharded index refuses: rebuild it."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "add() on a mesh-sharded index needs a full gallery "
+                "reshard; rebuild the HashIndex instead")
         codes = _to_tensor(codes, self.device)
         if codes.ndim != 2 or codes.shape[1] != self.k_bits:
             raise ValueError(f"codes must be [M, {self.k_bits}], got {list(codes.shape)}")
@@ -237,8 +312,17 @@ class HashIndex:
 
     def save(self, path: str) -> None:
         """Persist the index in ``ccmh``'s npz format: prepared codes (int8
-        ±1, or packed lanes as uint32), n, k_bits, packed, labels."""
-        codes = self._codes[:self.n].cpu().numpy()
+        ±1, or packed lanes as uint32), n, k_bits, packed, labels.  A
+        mesh-sharded index gathers its shards (every rank calls it) and
+        the lead rank writes."""
+        codes = self._codes[:self.n]
+        if self.mesh is not None:
+            local = torch.nn.functional.pad(codes, (0, 0, 0, self._per - codes.shape[0]))
+            codes = gather_tensor(local, self.mesh.data_group, self.mesh.dp,
+                                  self.mesh.data_rank).reshape(-1, codes.shape[1])[:self.n]
+            if not self.mesh.is_lead:
+                return
+        codes = codes.cpu().numpy()
         if self.packed:
             codes = codes.view(np.uint32)
         arrays = {"codes": codes, "n": np.int64(self.n),
@@ -261,10 +345,11 @@ class HashIndex:
             return cls(codes, labels=labels, **kw)  # int8 ±1 re-prepares to itself
         if kw.get("dist_fn") is not None:
             raise ValueError("packed storage implies Hamming ranking")
-        dev = resolve_device(kw.get("device", "cuda"))
+        mesh = kw.get("mesh")
+        dev = mesh.device if mesh is not None else resolve_device(kw.get("device", "cuda"))
         self = cls.__new__(cls)
         self._setup(_to_tensor(codes, dev), n, k_bits, labels, True, None,
-                    kw.get("max_dist"), kw.get("chunk", 1024), dev)
+                    kw.get("max_dist"), kw.get("chunk", 1024), dev, mesh)
         return self
 
     def _prep_queries(self, queries) -> torch.Tensor:
@@ -277,7 +362,8 @@ class HashIndex:
         """queries [Q, K] ±1 -> (distances [Q, k], gallery indices [Q, k])."""
         return topk_search(self._prep_queries(queries), self._codes, k,
                            dist_fn=self.dist_fn, max_dist=self.max_dist,
-                           chunk=self.chunk, valid_n=self.n)
+                           chunk=self.chunk, valid_n=self.n, mesh=self.mesh,
+                           offset=self._offset)
 
     def precision_at_k(self, queries, query_labels, k: int) -> float:
         """Mean fraction of top-k hits sharing >= 1 label with the query
@@ -303,15 +389,29 @@ class Retriever:
     ``batch_size`` and on the chunk's other images.  Under
     ``cfg.compute_dtype="bfloat16"`` the tower weights are cast to bf16
     once here.  Encoding runs under ``torch.inference_mode()``.
+
+    ``tp_mesh``, a ``(data, model)`` mesh (``parallel/tp.py``
+    ``make_mesh_2d``), Megatron-shards the towers over its model ranks for
+    serving: one query's tower work spreads over them.  ``params`` are in
+    the canonical packed layout (every checkpoint's); the sharding happens
+    here, on the rank's device.  Encoding is then collective: every rank
+    calls it with the same inputs, each data rank encodes its rows of a
+    chunk, and every rank returns all the codes.
     """
 
     def __init__(self, method, params, aux, cfg, clip_cfg,
-                 device: DeviceLike = "cuda"):
-        self.device = resolve_device(device)
+                 device: DeviceLike = "cuda", tp_mesh=None):
+        self.tp_mesh = tp_mesh
+        self.device = tp_mesh.device if tp_mesh is not None else resolve_device(device)
         self.method = method
         self.cfg = cfg
         self.clip_cfg = clip_cfg
         params = _to_device(params, self.device)
+        if tp_mesh is not None:
+            from ccmh_torch.parallel import tp as tp_mod
+
+            tp_mod.validate(clip_cfg, tp_mesh.tp)
+            params = {**params, "clip": tp_mod.shard_clip(params["clip"], clip_cfg, tp_mesh)}
         dtype = resolve_compute_dtype(cfg)
         if dtype != torch.float32:
             params = {**params, "clip": cast_clip_params(params["clip"], dtype)}
@@ -319,6 +419,16 @@ class Retriever:
         self.aux = _to_device(aux, self.device)
         self._dist_fn = (method.dist_fn(cfg)
                          if method.dist_fn is not None else None)
+
+    @classmethod
+    def from_trainer(cls, trainer) -> "Retriever":
+        """Serve a Trainer's live model.  A tensor-parallel Trainer's state
+        is gathered to the canonical layout (a collective: every rank calls
+        this) and sharded again over its mesh here."""
+        tp_mesh = trainer.mesh if trainer.mesh is not None and trainer.mesh.tp > 1 else None
+        state = trainer._canonical_state()
+        return cls(trainer.method, state.params, state.aux, trainer.cfg, trainer.clip_cfg,
+                   device=trainer.device, tp_mesh=tp_mesh)
 
     @classmethod
     def from_pretrained(cls, cfg, clip_cfg=None,
@@ -332,9 +442,18 @@ class Retriever:
         The architecture is inferred from the checkpoint's shapes (``ccmh``
         takes it from ``cfg.clip_path`` or ``clip_cfg`` and defaults to
         ViT-B/32); when ``cfg.clip_path`` or ``clip_cfg`` names one, it
-        must agree."""
+        must agree.  A ``cfg.mesh_shape`` of ``(dp, tp)`` with tp > 1 serves
+        over that mesh (``make_mesh_2d``; every rank of the process group
+        calls this), as ``ccmh`` does."""
         if not cfg.pretrained:
             raise ValueError("from_pretrained requires cfg.pretrained")
+        tp_mesh = None
+        shape = tuple(getattr(cfg, "mesh_shape", (1,)))
+        if len(shape) > 1 and shape[1] > 1:
+            from ccmh_torch.parallel.tp import make_mesh_2d
+
+            tp_mesh = make_mesh_2d(shape[0], shape[1], device=device)
+            device = tp_mesh.device
         dev = resolve_device(device)
         method = get_method(cfg.method)
         ckpt = load_checkpoint(cfg.pretrained, method=cfg.method)
@@ -366,7 +485,8 @@ class Retriever:
         aux = params_from_jax(ckpt["aux"], device=dev)
         if ckpt["reference"]:
             aux = {**method.init(torch.Generator(device=dev), cfg, found)[2], **aux}
-        return cls(method, params_from_jax(tree, device=dev), aux, cfg, found, device=dev)
+        return cls(method, params_from_jax(tree, device=dev), aux, cfg, found, device=dev,
+                   tp_mesh=tp_mesh)
 
     # ------------------------------------------------------------- encoding
     def _chunked(self, fn, arr: np.ndarray, batch_size: int) -> np.ndarray:
@@ -375,16 +495,30 @@ class Retriever:
             probe = np.zeros((1,) + arr.shape[1:], arr.dtype)
             return self._chunked(fn, probe, 1)[:0]
         bs = max(1, batch_size)
+        mesh = self.tp_mesh
+        if mesh is not None:
+            # every chunk a dp multiple, padded with zero rows; each data
+            # rank feeds its rows and the towers gather them
+            bs = -(-bs // mesh.dp) * mesh.dp
+
+        def chunks():
+            for s in range(0, arr.shape[0], bs):
+                part = arr[s:s + bs]
+                if mesh is not None:
+                    part = np.concatenate([part, np.zeros((bs - len(part),) + part.shape[1:],
+                                                          part.dtype)])[mesh.rows(bs)]
+                yield {"x": part, "n": min(bs, arr.shape[0] - s)}
+
         # chunk N+1 is copied (pinned, side stream) while chunk N encodes
         # at prefetch_device >= 2; at 1, each copy is pageable and serial.
         # Reading each chunk's codes back bounds how far the host runs ahead.
         put = DevicePut(self.device, self.cfg.prefetch_device)
-        chunks = ({"x": arr[s:s + bs]} for s in range(0, arr.shape[0], bs))
         out = []
-        with torch.inference_mode():
-            for part in device_prefetch(chunks, put, depth=self.cfg.prefetch_device):
+        with torch.inference_mode(), activated(mesh):
+            for part, host in device_prefetch(chunks(), lambda c: (put({"x": c["x"]}), c),
+                                              depth=self.cfg.prefetch_device):
                 codes = fn(self.params, self.aux, part["x"], self.cfg, self.clip_cfg)
-                out.append(codes.cpu().numpy())
+                out.append(codes[:host["n"]].cpu().numpy())
         return np.concatenate(out)
 
     def encode_texts(self, texts, batch_size: int = 256) -> np.ndarray:

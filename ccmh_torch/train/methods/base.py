@@ -32,6 +32,7 @@ from ccmh_torch.clip.model import (
 )
 from ccmh_torch.config import Config
 from ccmh_torch.models.heads import init_linear_hash, linear_hash
+from ccmh_torch.parallel.mesh import gather_outputs
 from ccmh_torch.ops.packing import sign_codes
 
 Params = Dict[str, Any]
@@ -176,21 +177,28 @@ def image_features(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
                    cfg: Optional[Config] = None, *, features: str = "pooled",
                    dtype=None, remat=False) -> VisionOutput:
     """The vision tower's outputs in mode ``features``, in the run's compute
-    dtype, every floating output in fp32 (model/modelbase.py:69-96)."""
+    dtype, every floating output in fp32 (model/modelbase.py:69-96).
+
+    Under an active mesh (``parallel/mesh.py``) ``images`` are this rank's
+    rows of the global batch, and every output comes back gathered over
+    the data axis in rank order: the heads and the loss after it see the
+    global batch, as in ``ccmh``'s one-program mesh step."""
     dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
-    return _cast_floats_f32(vision_forward(params["clip"]["visual"], clip_cfg, images,
-                                           dtype=dtype, features=features, remat=remat))
+    return gather_outputs(_cast_floats_f32(vision_forward(
+        params["clip"]["visual"], clip_cfg, images, dtype=dtype, features=features,
+        remat=remat)))
 
 
 def text_features(params: Params, clip_cfg: ClipConfig, ids: torch.Tensor,
                   cfg: Optional[Config] = None, *, features: str = "pooled",
                   key_padding_mask: Optional[torch.Tensor] = None, dtype=None,
                   remat=False) -> TextOutput:
-    """The text tower's outputs, as :func:`image_features`."""
+    """The text tower's outputs, as :func:`image_features` (gathered under
+    an active mesh)."""
     dtype = resolve_compute_dtype(cfg) if dtype is None else dtype
-    return _cast_floats_f32(text_forward(params["clip"]["text"], clip_cfg, ids, dtype=dtype,
-                                         features=features,
-                                         key_padding_mask=key_padding_mask, remat=remat))
+    return gather_outputs(_cast_floats_f32(text_forward(
+        params["clip"]["text"], clip_cfg, ids, dtype=dtype, features=features,
+        key_padding_mask=key_padding_mask, remat=remat)))
 
 
 def image_embeds(params: Params, clip_cfg: ClipConfig, images: torch.Tensor,
@@ -210,7 +218,9 @@ def clip_embeds(params: Params, clip_cfg: ClipConfig, batch: Dict[str, torch.Ten
                 ) -> Tuple[VisionOutput, TextOutput]:
     """Both towers in mode ``features``, fp32 out; the text tower takes the
     batch's ``key_padding_mask`` where it has one.  Every method's loss
-    comes here, and here alone the run's ``remat`` applies, as in ``ccmh``."""
+    comes here, and here alone the run's ``remat`` applies, as in ``ccmh``;
+    it and every encoder reach the towers through :func:`image_features`
+    and :func:`text_features`, the mesh's seam."""
     remat = resolve_remat(cfg)
     return (image_features(params, clip_cfg, batch["image"], cfg, features=features,
                            dtype=dtype, remat=remat),

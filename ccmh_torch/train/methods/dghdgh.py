@@ -29,7 +29,8 @@ from ccmh_torch.ops.packing import sign_codes
 from ccmh_torch.ops.similarity import l2_normalize
 from ccmh_torch.train.methods.base import Method, clip_embeds, image_embeds, text_embeds
 from ccmh_torch.train.optim import tree_leaves_with_path
-from ccmh_torch.train.state import clip_by_global_norm_
+from ccmh_torch.parallel.mesh import sync_gradients
+from ccmh_torch.train.state import clip_by_global_norm_, clip_params_by_global_norm_
 
 GRAD_CLIP = 2.0    # the main parameters' global clip (hash_train.py:53-60)
 GNN_CLIP = 1.0     # the GNN's (hash_train.py:108-110)
@@ -169,8 +170,9 @@ def _custom_step(cfg: Config, clip_cfg: ClipConfig, optimizer, extra_optimizer):
         lam3 = D.adaptive_lambda3(aux["j_gen_avg"], mc.beta)
         j_m = mc.lambda1 * j_r + mc.lambda2 * j_gca + lam3 * j_syn
         j_m.backward()
-        clip_by_global_norm_([p.grad for g in optimizer.param_groups for p in g["params"]
-                              if p.grad is not None], GRAD_CLIP)
+        sync_gradients(params)
+        clip_params_by_global_norm_([p for g in optimizer.param_groups for p in g["params"]],
+                                    GRAD_CLIP)
         optimizer.step()
         extra_optimizer.step(groups=("gnn",))
         zi, zt = zi.detach(), zt.detach()

@@ -22,6 +22,10 @@ it every step.  A textbook optimizer would skip it and drift from ``ccmh``.
 
 The schedule is computed in float32 as ``ccmh`` computes it.
 
+Under a model axis (``parallel/tp.py``) a sharded leaf's clip norm, per
+layer for the stacked blocks, comes from its squares summed over the model
+ranks, so each rank clips its shard by the whole leaf's norm.
+
 ``moments_dtype`` (``--set optim_moments_dtype=bfloat16``) stores ``m`` and
 ``v`` in a reduced type, ``ccmh``'s opt-in departure from the reference:
 the update still runs in fp32 (cast up, accumulate, cast down), and it
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from ccmh_torch.bridge import tensor_from_numpy
+from ccmh_torch.parallel.tp import is_sharded, tp_mesh
 
 Params = Dict[str, Any]
 
@@ -101,11 +106,19 @@ class BertAdam(torch.optim.Optimizer):
         progress = _f32(step) / _f32(self.t_total)
         return SCHEDULES[self.schedule](progress, self.warmup)
 
-    def _clip(self, g: torch.Tensor, stacked: bool) -> torch.Tensor:
+    def _clip(self, g: torch.Tensor, stacked: bool, sharded: bool = False) -> torch.Tensor:
         if self.max_grad_norm <= 0:
             return g
-        if stacked and g.ndim >= 1:
-            norm = torch.linalg.vector_norm(g, dim=tuple(range(1, g.ndim)), keepdim=True)
+        dims = tuple(range(1, g.ndim)) if stacked and g.ndim >= 1 else None
+        mesh = tp_mesh() if sharded else None
+        if mesh is not None:
+            # a model-axis shard: the (per-layer) norm of the whole leaf
+            # from the squares summed over the model ranks
+            sq = (g * g).sum(dim=dims, keepdim=True) if dims else (g * g).sum()
+            torch.distributed.all_reduce(sq, group=mesh.model_group)
+            norm = sq.sqrt()
+        elif dims:
+            norm = torch.linalg.vector_norm(g, dim=dims, keepdim=True)
         else:
             norm = torch.linalg.vector_norm(g)
         scale = torch.clamp(self.max_grad_norm / (norm + 1e-6), max=1.0)
@@ -125,7 +138,7 @@ class BertAdam(torch.optim.Optimizer):
             step_size = _f32(group["lr"]) * self.lr_scale(group["step"])
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                g = self._clip(g, group["block_stacked"])
+                g = self._clip(g, group["block_stacked"], is_sharded(p))
                 st = self.state[p]
                 if not st:
                     st["m"] = torch.zeros_like(p, dtype=self.moments_dtype)

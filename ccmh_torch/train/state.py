@@ -6,7 +6,8 @@ tensors with ``requires_grad``), the method's ``extra`` and ``aux`` trees,
 the step counter and the ``torch.Generator`` of the step's randomness, and
 the step is forward, loss, backward, the method's global gradient clip
 where it has one (DPSIH's), and one BertAdam step, updating the parameters
-in place.  A method's loss-side ``extra`` parameters (DSPH's proxies)
+in place.  Under an active mesh (``parallel/mesh.py``) the CLIP gradients
+are summed over the data axis right after ``backward``, before any clip.  A method's loss-side ``extra`` parameters (DSPH's proxies)
 take the same backward and their own optimizer (``ccmh``'s ``extra_tx``),
 stepped after BertAdam.
 """
@@ -19,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ccmh_torch.config import Config
+from ccmh_torch.parallel.mesh import sync_gradients
+from ccmh_torch.parallel.tp import is_sharded, tp_mesh
 from ccmh_torch.train.optim import BertAdam, bert_adam_for, tree_leaves_with_path
 
 Params = Dict[str, Any]
@@ -86,6 +89,26 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def clip_params_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm_` of the gradients of ``params`` (those
+    that have one).  Under a model axis (``parallel/tp.py``) a sharded leaf
+    counts by its squares summed over the model ranks and a replicated leaf
+    once, so every rank clips by the norm of the whole gradient."""
+    params = [p for p in params if p.grad is not None]
+    mesh = tp_mesh()
+    if mesh is None:
+        return clip_by_global_norm_([p.grad for p in params], max_norm)
+    zero = torch.zeros((), device=params[0].grad.device)
+    sharded = sum(((p.grad * p.grad).sum() for p in params if is_sharded(p)), zero)
+    torch.distributed.all_reduce(sharded, group=mesh.model_group)
+    norm = torch.sqrt(sharded + sum(((p.grad * p.grad).sum() for p in params
+                                     if not is_sharded(p)), zero))
+    keep = norm < max_norm
+    for p in params:
+        p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * max_norm))
+    return norm
+
+
 def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
                     extra_optimizer: Optional[torch.optim.Optimizer] = None,
                     grad_clip: float = 0.0, custom_step=None):
@@ -112,9 +135,10 @@ def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
         loss, (new_aux, metrics) = loss_fn(state.params, state.extra, state.aux, batch,
                                            state.generator)
         loss.backward()
+        sync_gradients(state.params)
         if grad_clip > 0:
-            clip_by_global_norm_([p.grad for group in optimizer.param_groups
-                                  for p in group["params"] if p.grad is not None], grad_clip)
+            clip_params_by_global_norm_([p for group in optimizer.param_groups
+                                         for p in group["params"]], grad_clip)
         for opt in optimizers:
             opt.step()
         metrics = {k: v.detach() for k, v in metrics.items()}

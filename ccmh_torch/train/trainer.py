@@ -48,10 +48,26 @@ the train step, ``--set optim_moments_dtype=bfloat16`` stores BertAdam's
 moments in bf16, and ``--profile`` traces epoch 1 with ``torch.profiler``
 into ``save_dir/profile``.
 
-Not ported, each raising when asked for: meshes (DP/TP/FSDP), compilation
-caches (XLA's; the port builds its kernels once into ``build/``), and
-``param_dtype``, which ``ccmh`` reads nowhere, so that accepting it would
-differ from nothing and mislead.
+``--mesh N`` / ``--mesh dp,tp`` (``cfg.mesh_shape``) trains over a mesh of
+``torch.distributed`` ranks, one process per device (``parallel/``):
+each rank's loader assembles its rows of the towers' inputs, the towers
+gather, and the heads and the loss run on the global batch on every rank
+(``ccmh``'s one-program semantics); a model axis Megatron-shards the
+towers.  A global or eval batch the data ranks do not divide raises; the
+last train batch is wrap-padded; mesh runs stream (no device-resident
+splits); ``valid`` encodes each eval batch's rows on their rank and ranks
+with the mesh (``calc_map(mesh=)``, ``--shard-gallery``).  The lead rank
+(0) alone writes checkpoints, ``.mat``, csv and ``.npz`` files; every
+other rank logs to ``train.log.p<rank>`` and ``metrics.jsonl.p<rank>``
+(``ccmh``'s names).
+Checkpoints stay canonical: a tensor-parallel state is gathered before the
+lead saves and sharded again on resume.  A SIGTERM that reaches one rank
+stops every rank at the same step.
+
+Not ported, each raising when asked for: FSDP, compilation caches (XLA's;
+the port builds its kernels once into ``build/``), and ``param_dtype``,
+which ``ccmh`` reads nowhere, so that accepting it would differ from
+nothing and mislead.
 """
 
 from __future__ import annotations
@@ -60,6 +76,7 @@ import os
 import signal
 import threading
 import time
+import types
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -76,6 +93,9 @@ from ccmh_torch.data.split import SplitData, make_splits
 from ccmh_torch.device import DeviceLike, resolve_device
 from ccmh_torch.ops.map_metric import calc_map, calc_map_4way
 from ccmh_torch.ops.pr_curve import curves, default_topn
+from ccmh_torch.parallel.mesh import (
+    Mesh, activated, data_parallel_train_step, replicate,
+)
 from ccmh_torch.train.checkpoint import (
     AsyncStateSaver, latest_checkpoint, load_checkpoint, load_state, restore_state,
     save_checkpoint, save_state,
@@ -92,30 +112,55 @@ def _unported(cfg: Config):
         (bool(cfg.compilation_cache),
          "--compilation-cache (XLA's compilation cache; the port builds its "
          "kernels once into build/)"),
-        (tuple(cfg.mesh_shape) != (1,), f"--mesh {cfg.mesh_shape} (DP/TP meshes)"),
-        (cfg.fsdp, "--fsdp"),
-        (cfg.shard_gallery is not None, "--shard-gallery (mesh eval)"),
+        (cfg.fsdp, "--fsdp (BertAdam's moments and clip norms sharded over the data "
+                   "axis on top of the tensor-parallel specs)"),
         (cfg.param_dtype != "float32",
          "param_dtype (ccmh reads it nowhere: the parameters are float32)"),
     )
     return [why for bad, why in checks if bad]
 
 
+def _mesh_for(cfg: Config, device: torch.device) -> Optional[Mesh]:
+    """The mesh of ``cfg.mesh_shape`` over the process group (None for one
+    device): ``(dp,)`` or ``(dp, tp)``."""
+    shape = tuple(cfg.mesh_shape)
+    if len(shape) not in (1, 2) or any(int(n) < 1 for n in shape):
+        raise ValueError(f"mesh_shape must be (dp,) or (dp, tp), got {shape}")
+    dp, tp = int(shape[0]), int(shape[1]) if len(shape) > 1 else 1
+    if dp * tp == 1:
+        return None
+    from ccmh_torch.parallel.tp import make_mesh_2d
+
+    return make_mesh_2d(dp, tp, device)
+
+
 class Trainer:
     def __init__(self, cfg: Config, *, splits: Optional[SplitData] = None,
                  clip_cfg: Optional[ClipConfig] = None, clip_params=None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
+        """``mesh`` (``parallel/mesh.py``) overrides the one of
+        ``cfg.mesh_shape``, e.g. ranks that share a device over gloo."""
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(
                 "not yet ported to ccmh_torch: " + ", ".join(missing))
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else _mesh_for(cfg, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        self.tp = self.mesh.tp if self.mesh is not None else 1
         os.makedirs(cfg.save_dir, exist_ok=True)
-        self.logger = get_logger(os.path.join(cfg.save_dir,
-                                              "train.log" if cfg.is_train else "test.log"))
-        self.metrics = MetricsWriter(os.path.join(cfg.save_dir, "metrics.jsonl"),
-                                     tensorboard_dir=os.path.join(cfg.save_dir, "tensorboard"))
+        # every rank runs the same Trainer; files written once are the
+        # lead's, and each other rank's streams take a ".p<rank>" suffix
+        self.process_index = self.mesh.rank if self.mesh is not None else 0
+        self.is_lead = self.process_index == 0
+        psuf = f".p{self.process_index}" if not self.is_lead else ""
+        self.logger = get_logger(os.path.join(
+            cfg.save_dir, ("train.log" if cfg.is_train else "test.log") + psuf))
+        self.metrics = MetricsWriter(os.path.join(cfg.save_dir, "metrics.jsonl" + psuf),
+                                     tensorboard_dir=os.path.join(cfg.save_dir,
+                                                                  "tensorboard" + psuf))
         self.method = get_method(cfg.method)
 
         # the tower checkpoint fixes the image resolution, so it is read
@@ -160,6 +205,12 @@ class Trainer:
             splits = make_splits(caption, index, label, cfg.query_num, cfg.train_num,
                                  cfg.seed, npy=npy)
         self.splits = splits
+        mesh = self.mesh
+        if mesh is not None:
+            for flag, size in (("--batch-size", cfg.batch_size), ("--eval-batch", cfg.eval_batch)):
+                if size % mesh.dp:
+                    raise ValueError(f"{flag} {size} does not divide over the mesh's "
+                                     f"{mesh.dp} data ranks")
         kw = dict(max_words=cfg.max_words, resolution=cfg.resolution, seed=cfg.seed,
                   with_mask=self.method.needs_mask)
         self.train_data = CrossModalDataset(splits.train, is_train=True, **kw)
@@ -192,7 +243,14 @@ class Trainer:
         self._resident_source = None
         self._chunked_plan = None
         self._split_caches = caches
-        if caches["train"] is not None:
+        if mesh is not None:
+            # a rank assembles only its rows of each batch; device-resident
+            # splits would pin every row on every rank (ccmh streams its
+            # multi-controller runs too)
+            self.logger.info(f"mesh data={mesh.dp} x model={mesh.tp}, rank {mesh.rank} on "
+                             f"{mesh.device}: every rank streams its rows of each batch "
+                             "(no device-resident splits)")
+        elif caches["train"] is not None:
             from ccmh_torch.data.resident import ResidentImages, plan_chunked
 
             mode = cfg.device_resident_images
@@ -208,16 +266,21 @@ class Trainer:
                 if self._chunked_plan is None:
                     self.logger.info("device-resident images [chunked]: two superblock "
                                      "buffers exceed the budget; streaming")
+        # under a mesh the last train batch is wrap-padded: its true size
+        # would rarely divide over the data ranks (ccmh's rule)
         self.train_loader = BatchIterator(
             self.train_data, cfg.batch_size, shuffle=cfg.shuffle, seed=cfg.seed,
-            num_workers=nw, ragged_last=cfg.ragged_last, image_cache=caches["train"],
-            with_images=self._resident_source is None and self._chunked_plan is None)
+            num_workers=nw, ragged_last=cfg.ragged_last and mesh is None,
+            image_cache=caches["train"],
+            with_images=self._resident_source is None and self._chunked_plan is None,
+            rows=mesh.rows(cfg.batch_size) if mesh is not None else None)
+        eval_rows = mesh.rows(cfg.eval_batch) if mesh is not None else None
         self.query_loader = BatchIterator(self.query_data, cfg.eval_batch, shuffle=False,
                                           seed=cfg.seed, num_workers=nw,
-                                          image_cache=caches["query"])
+                                          image_cache=caches["query"], rows=eval_rows)
         self.retrieval_loader = BatchIterator(self.retrieval_data, cfg.eval_batch,
                                               shuffle=False, seed=cfg.seed, num_workers=nw,
-                                              image_cache=caches["retrieval"])
+                                              image_cache=caches["retrieval"], rows=eval_rows)
 
     # ----------------------------------------------------------------- model
     def _init_model(self, clip_cfg: Optional[ClipConfig], clip_params):
@@ -240,6 +303,20 @@ class Trainer:
             # labels are this run's, also after --pretrained (ccmh keeps a
             # checkpoint's own)
             aux["train_labels"] = torch.from_numpy(self.train_data.all_labels()).to(self.device)
+        if self.mesh is not None:
+            # rank 0's canonical state on every rank, then each model rank's
+            # shard of the blocks
+            replicate(self.mesh, (params, extra, aux))
+            if self.tp > 1:
+                from ccmh_torch.parallel import tp as tp_mod
+
+                tp_mod.validate(clip_cfg, self.tp)
+                params = {**params, "clip": tp_mod.shard_clip(params["clip"], clip_cfg,
+                                                              self.mesh)}
+                self.logger.info(f"2-D mesh: data={self.mesh.dp} x model={self.tp} "
+                                 "(Megatron-sharded towers)")
+            else:
+                self.logger.info(f"data-parallel mesh over {self.mesh.dp} ranks")
         params = trainable(params)
         self.optimizer = make_main_optimizer(cfg, params, len(self.train_loader))
         # the loss-side extra parameters train only under the method's own
@@ -257,6 +334,8 @@ class Trainer:
         self.train_step = make_train_step(self.method.make_loss_fn(cfg, clip_cfg),
                                           self.optimizer, self.extra_optimizer,
                                           grad_clip=self.method.grad_clip, custom_step=custom)
+        if self.mesh is not None:
+            self.train_step = data_parallel_train_step(self.train_step, self.mesh)
         # the method's own ranking distance in evaluation (DPSIH), else Hamming
         self.eval_dist_fn = self.method.dist_fn(cfg) if self.method.dist_fn else None
         self.max_multi: Dict[str, Dict[str, float]] = {}   # valid_multi's best-of
@@ -402,24 +481,7 @@ class Trainer:
 
             old_handler = signal.signal(signal.SIGTERM, on_sigterm)
         try:
-            for epoch in range(start_epoch, self.cfg.epochs):
-                if not self.train_epoch(epoch, skip_steps=skip_steps):
-                    return          # preempted mid-epoch: the slot is written
-                skip_steps = 0
-                if self._preempt:
-                    # the signal landed on the epoch's last step: the slot
-                    # records the whole epoch as done, so the resumed run
-                    # still validates and saves it (ccmh resumes after it)
-                    self.save_full_checkpoint(epoch, step_in_epoch=len(self.train_loader))
-                    self.logger.info(f"preempted after epoch {epoch}'s steps; rerun with "
-                                     "--resume")
-                    return
-                if self.cfg.valid:
-                    self.valid(epoch)
-                if self.cfg.save_model:
-                    self.save_checkpoint(os.path.join(self.cfg.save_dir, f"model-{epoch}.npz"))
-                if self.cfg.checkpoint_every and (epoch + 1) % self.cfg.checkpoint_every == 0:
-                    self.save_full_checkpoint(epoch)
+            finished = self._train_epochs(start_epoch, skip_steps)
         finally:
             # every way out finalises a pending asynchronous write
             if self._async_saver is not None:
@@ -427,9 +489,35 @@ class Trainer:
                 self._async_saver = None
             if in_main:
                 signal.signal(signal.SIGTERM, old_handler)
-        self.logger.info(
-            f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
-            f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
+        if self.mesh is not None:
+            self.mesh.barrier()      # the lead's files are final for every rank
+        if finished:
+            self.logger.info(
+                f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
+                f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
+
+    def _train_epochs(self, start_epoch: int, skip_steps: int) -> bool:
+        """The epochs from ``start_epoch``; False when preempted (the slot is
+        written)."""
+        for epoch in range(start_epoch, self.cfg.epochs):
+            if not self.train_epoch(epoch, skip_steps=skip_steps):
+                return False        # preempted mid-epoch: the slot is written
+            skip_steps = 0
+            if self._preempt:
+                # the signal landed on the epoch's last step: the slot
+                # records the whole epoch as done, so the resumed run
+                # still validates and saves it (ccmh resumes after it)
+                self.save_full_checkpoint(epoch, step_in_epoch=len(self.train_loader))
+                self.logger.info(f"preempted after epoch {epoch}'s steps; rerun with "
+                                 "--resume")
+                return False
+            if self.cfg.valid:
+                self.valid(epoch)
+            if self.cfg.save_model:
+                self.save_checkpoint(os.path.join(self.cfg.save_dir, f"model-{epoch}.npz"))
+            if self.cfg.checkpoint_every and (epoch + 1) % self.cfg.checkpoint_every == 0:
+                self.save_full_checkpoint(epoch)
+        return True
 
     def train_epoch(self, epoch: int, skip_steps: int = 0) -> bool:
         """One epoch, entered after its first ``skip_steps`` batches on a
@@ -470,6 +558,9 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 self.logger.info(f">>>>>> Display >>>>>> [{epoch}/{cfg.epochs}] {m}")
                 self.metrics.write("train", self.global_step, **m)
+            if self.mesh is not None:
+                # a SIGTERM that reached any rank stops every rank here
+                self._preempt = self.mesh.any(self._preempt)
             if self._preempt and step_in_epoch < n_steps:
                 self.total_time += time.time() - start
                 self._stop_profile(profiler)
@@ -586,7 +677,9 @@ class Trainer:
             return img.cpu().numpy(), txt.cpu().numpy(), time.time() - start
         img_buf = txt_buf = None
         encoder_time = 0.0
-        with torch.inference_mode():
+        # under a mesh each rank encodes its rows of the batch; the towers
+        # gather, so the codes of the whole batch come out on every rank
+        with torch.inference_mode(), activated(self.mesh):
             for dev, batch in device_prefetch(loader, self._put_eval, depth=cfg.prefetch_device):
                 start = time.time()
                 img, txt = self.method.encode(params, aux, dev, cfg, clip_cfg)
@@ -635,11 +728,15 @@ class Trainer:
         q_img, q_txt, q_time = self.get_code(self.query_loader, len(self.query_data))
         r_img, r_txt, r_time = self.get_code(self.retrieval_loader, len(self.retrieval_data))
         qL, rL = self._eval_labels_dev()
+        # ranked over the mesh where there is one; every rank gets the same
+        # numbers, so every rank takes the same exact-recheck decisions
         kw = dict(n_bins=self.cfg.output_dim + 1, device=self.device,
-                  dist_fn=self.eval_dist_fn)
-        i2t, t2i, i2i, t2t = map(float, calc_map_4way(q_img, q_txt, r_img, r_txt, qL, rL, **kw))
+                  dist_fn=self.eval_dist_fn, mesh=self.mesh)
+        i2t, t2i, i2i, t2t = map(float, calc_map_4way(
+            q_img, q_txt, r_img, r_txt, qL, rL, **kw, shard_gallery=self._shard_gallery()))
 
-        # best-epoch decisions use the exact stable-sort metric
+        # best-epoch decisions use the exact stable-sort metric, the gallery
+        # whole on every rank (its full-row sort cannot run sharded)
         hist_i2t, hist_t2i = i2t, t2i
         if self._needs_exact(i2t, self.max_mapi2t, self._max_hist_i2t,
                              hist_bias=self._hist_bias):
@@ -670,7 +767,7 @@ class Trainer:
             f"retrieval_encoder_time: {r_time}")
         self.metrics.write("valid", self.global_step, epoch=epoch, i2t=i2t, t2i=t2i,
                            i2i=i2i, t2t=t2t, q_encoder_time=q_time, r_encoder_time=r_time)
-        if self.cfg.save_csv:
+        if self.cfg.save_csv and self.is_lead:
             csv_path = os.path.join(self.cfg.save_dir, "results.csv")
             write_header = not os.path.exists(csv_path)
             with open(csv_path, "a") as fh:
@@ -692,7 +789,7 @@ class Trainer:
             return {name: tuple(c.cpu().numpy() for c in codes)
                     for name, codes in multi(params, aux).items()}
         buffers: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-        with torch.inference_mode():
+        with torch.inference_mode(), activated(self.mesh):
             for dev, batch in device_prefetch(loader, self._put_eval, depth=cfg.prefetch_device):
                 out = self.method.multi_encode(params, aux, dev, cfg, clip_cfg)
                 valid = batch["valid"]
@@ -717,7 +814,8 @@ class Trainer:
         for name in q:
             i2t, t2i, i2i, t2t = map(float, calc_map_4way(
                 q[name][0], q[name][1], r[name][0], r[name][1], qL, rL,
-                n_bins=q[name][0].shape[1] + 1, device=self.device))
+                n_bins=q[name][0].shape[1] + 1, device=self.device, mesh=self.mesh,
+                shard_gallery=self._shard_gallery()))
             best = self.max_multi.setdefault(name, {"i2t": 0.0, "t2i": 0.0})
             best["i2t"] = max(best["i2t"], i2t)
             best["t2i"] = max(best["t2i"], t2i)
@@ -727,6 +825,11 @@ class Trainer:
                 f"MAX i2t: {best['i2t']}, MAX t2i: {best['t2i']}")
             self.metrics.write(f"valid_{name}", self.global_step, epoch=epoch,
                                i2t=i2t, t2i=t2i, i2i=i2i, t2t=t2t)
+
+    def _shard_gallery(self) -> Optional[bool]:
+        """``--shard-gallery`` under a mesh; without one it means nothing,
+        as in ``ccmh``."""
+        return self.cfg.shard_gallery if self.mesh is not None else None
 
     def test(self, mode_name: str = "i2t"):
         """The exact 4-way mAP of the ``--pretrained`` model (the method's
@@ -742,13 +845,14 @@ class Trainer:
         qL, rL = self._eval_labels_dev()
         i2t, t2i, i2i, t2t = map(float, calc_map_4way(
             q_img, q_txt, r_img, r_txt, qL, rL, method="exact", dist_fn=self.eval_dist_fn,
-            n_bins=self.cfg.output_dim + 1, device=self.device))
+            n_bins=self.cfg.output_dim + 1, device=self.device, mesh=self.mesh))
         t2 = time.perf_counter()
         self.logger.info(
             f">>>>>> MAP(i->t): {i2t}, MAP(t->i): {t2i}, MAP(t->t): {t2t}, MAP(i->i): {i2i}")
         self.save_mat(q_img, q_txt, r_img, r_txt, mode_name=mode_name)
         t3 = time.perf_counter()
-        self.save_pr_curves(q_img, q_txt, r_img, r_txt)
+        if self.is_lead:
+            self.save_pr_curves(q_img, q_txt, r_img, r_txt)
         self.test_seconds = {"encode": t1 - t0, "exact_map": t2 - t1,
                              "curves": time.perf_counter() - t3}
         return i2t, t2i, i2i, t2t
@@ -769,7 +873,10 @@ class Trainer:
         self.logger.info(f">>>>>> save PR/topN curves to {save_dir}")
 
     def save_mat(self, q_img, q_txt, r_img, r_txt, mode_name="i2t"):
-        """.mat export interoperable with reference tooling (train/base.py:328-349)."""
+        """.mat export interoperable with reference tooling (train/base.py:328-349);
+        the lead rank's alone under a mesh."""
+        if not self.is_lead:
+            return
         save_dir = os.path.join(self.cfg.save_dir, "PR_cruve")
         os.makedirs(save_dir, exist_ok=True)
         scio.savemat(
@@ -782,10 +889,39 @@ class Trainer:
     # ------------------------------------------------------------- checkpoint
     def save_checkpoint(self, path: str):
         """Weights-only ``.npz`` in ``ccmh``'s Trainer format (params, extra,
-        aux, step), which ``ccmh`` and ``ccmh_torch`` both restore."""
-        st = self.state
+        aux, step), which ``ccmh`` and ``ccmh_torch`` both restore.  Under a
+        mesh every rank calls it (a tensor-parallel state is gathered to
+        the canonical layout first) and the lead writes."""
+        st = self._canonical_state()
+        if not self.is_lead:
+            return
         save_checkpoint(path, st.params, extra=st.extra, aux=st.aux, step=np.int32(st.step))
         self.logger.info(f"save model to {path}")
+
+    def _canonical_state(self) -> TrainState:
+        """The live state in the canonical (packed, whole) layout, the form
+        every checkpoint stores: the live state itself, or under a model
+        axis the gathered blocks (a collective: every rank calls it; gating
+        it on the lead would leave the others waiting)."""
+        if self.tp == 1:
+            return self.state
+        from ccmh_torch.parallel.tp import unshard_clip
+
+        st = self.state
+        params = {**st.params, "clip": unshard_clip(st.params["clip"], self.clip_cfg,
+                                                    self.mesh)}
+        return TrainState(params, st.extra, st.aux, st.step, st.generator)
+
+    def _canonical_optimizer(self):
+        """The main optimizer, or under a model axis a stand-in whose
+        ``state_dict`` holds the moments gathered to the canonical layout
+        (a collective)."""
+        if self.tp == 1:
+            return self.optimizer
+        from ccmh_torch.parallel.tp import unshard_optimizer_state
+
+        sd = unshard_optimizer_state(self.optimizer, self.clip_cfg, self.mesh)
+        return types.SimpleNamespace(state_dict=lambda: sd)
 
 
     def save_full_checkpoint(self, epoch: int, step_in_epoch: int = 0):
@@ -795,7 +931,10 @@ class Trainer:
         progress.  With ``--async-checkpoint`` the write overlaps the steps
         after it; ``train()`` waits for it on every way out."""
         root = os.path.join(self.cfg.save_dir, "state_ckpt")
-        args = (root, self.state, self.optimizer, self.extra_optimizer, epoch,
+        state, optimizer = self._canonical_state(), self._canonical_optimizer()
+        if not self.is_lead:
+            return
+        args = (root, state, optimizer, self.extra_optimizer, epoch,
                 self._tracker_meta(step_in_epoch))
         if self.cfg.async_checkpoint:
             if self._async_saver is None:
@@ -824,10 +963,20 @@ class Trainer:
         """Restore the newest slot of ``save_dir/state_ckpt``, if any.
         Returns (start_epoch, skip_steps): skip_steps > 0 re-enters the
         slot's epoch after that many steps."""
+        if self.mesh is not None:
+            self.mesh.barrier()      # what the lead wrote is final
         path = latest_checkpoint(self.cfg.save_dir)
         if path is None:
             return 0, 0
         tree = load_state(path)
+        if self.tp > 1:
+            # the canonical slot, sharded again for this model rank
+            from ccmh_torch.parallel import tp as tp_mod
+
+            tree = {**tree, "params": tp_mod.map_clip_subtrees(
+                        tree["params"], lambda c: tp_mod.shard_clip(c, self.clip_cfg, self.mesh)),
+                    "optimizer": tp_mod.shard_optimizer_state(tree["optimizer"],
+                                                              self.clip_cfg, self.mesh)}
         restore_state(tree, self.state, self.optimizer, self.extra_optimizer)
         meta, epoch = tree["meta"], int(tree["epoch"])
         self.max_mapi2t = meta.get("max_mapi2t", 0.0)

@@ -4,8 +4,8 @@ check them: DCHMT serving, DCHMT training, LinearHash training with the
 LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH), the
 methods with extra state (DNPH, DPBE, DGHDGH, TwDH), the lifecycle of a
 model (tower import, preemption and resume, ``--test``, export), the
-real-data input path, the towers past 128 tokens (ViT-L/14), and the
-ModifiedResNet tower (RN50).
+real-data input path, the towers past 128 tokens (ViT-L/14), the
+ModifiedResNet tower (RN50), and data and tensor parallelism.
 
     python3 chip_smoke.py
 
@@ -188,7 +188,31 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    split by CUDA events; cuDNN's default algorithms and the deterministic
    ones the port sets: the same gradient bits twice? (the deterministic
    ones must) and the step ms); DSPH cut by SIGTERM after step 3 and
-   resumed, bit-equal to the uninterrupted run (``[rn]`` lines).
+   resumed, bit-equal to the uninterrupted run (``[rn]`` lines);
+16. data and tensor parallelism (``ccmh_torch/parallel``), ViT-B/32 K=64 at
+   full width, LayerNorm kernels on: #1 and #2 against their plain versions
+   at a model rank's H/2 heads (vision B=256 L=50 H=6, text B=256 L=32 H=4
+   causal; fp32 and bf16, phase 2's gates); (a) the data-parallel step of
+   DSPH and DCHMT (fp32 and bf16 towers, batch 128) over a real NCCL group
+   of one rank, its gradients bit-equal to the plain step's and its step
+   ms beside the plain step's (one data rank moves nothing), and the data
+   axis's flat gradient sum and row gather through that group, identities
+   bit for bit, with their ms and the host-side preempt flag's µs; then
+   (b) and (c) in two spawned gloo
+   ranks sharing cuda:0 (NCCL refuses two ranks on one device): (b) the
+   DSPH and DCHMT steps at global batch 128 (gradients within a relative
+   norm of 1e-3 of one rank's step on the whole batch, the heads'
+   gradients identical on both ranks, step ms), ``calc_map`` with the
+   queries and with the gallery sharded on phase 3's codes (within 1e-6
+   and 1e-5 of one rank), ``topk_search_sharded`` over 2^20 packed codes
+   (Q=512, K=64) equal to ``topk_search`` with #3 launched on each rank,
+   and a DSPH Trainer epoch of 2 steps with ``valid`` whose lead's ``.npz``
+   serves the trainer's codes; (c) over a (1, 2) mesh: both towers within
+   a relative norm of 1e-4 of one rank in fp32 and at a cosine >= 0.999 in
+   bf16, one DSPH step's gathered gradients within 1e-3, its step ms, and a
+   Trainer epoch whose canonical ``.npz`` serves on one device.  Each rank
+   counts its launches (``[parallel]`` lines); two ranks on one card
+   measure no scaling across cards.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -4080,6 +4104,503 @@ def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
 
 
+# -------------------------------------------------------------------- phase 16
+
+PAR_BATCH = 128         # the global batch of the mesh steps
+PAR_TOWER_TOL = 1e-4    # fp32 towers over the model axis vs one rank: relative norm
+PAR_COS = 0.999         # bf16 towers over the model axis vs one rank: cosine per row
+PAR_MAP_TOL = {"query": 1e-6, "gallery": 1e-5}
+PAR_HEADS = (("vision tp2", 256, 50, 6, False), ("text tp2", 256, 32, 4, True))
+
+
+def _add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
+
+
+def _par_init(name, seed, dtype="float32"):
+    """(cfg, {"params", "extra", "aux"}) of ``name`` at ViT-B/32 K=64, drawn
+    from ``seed`` on the card (the same on every rank)."""
+    import torch
+
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.config import Config
+    from ccmh_torch.train.methods import get_method
+
+    cfg = Config(method=name, output_dim=K_BITS, nclass=24, batch_size=PAR_BATCH,
+                 train_num=TRAIN_SPLIT, epochs=2, compute_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    heads, extra, aux = get_method(name).init(gen, cfg, ClipConfig())
+    return cfg, {"params": {"clip": init_clip_params(gen, ClipConfig()), **heads},
+                 "extra": extra, "aux": aux}
+
+
+def _par_fresh(cfg, init, mesh=None):
+    """(state, step, loss_fn) from a copy of ``init`` on the card; the
+    blocks are this rank's shard under a model axis."""
+    import copy
+
+    import torch
+
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.parallel import tp
+    from ccmh_torch.train.methods import get_method
+    from ccmh_torch.train.state import TrainState, make_main_optimizer, make_train_step, trainable
+
+    method = get_method(cfg.method)
+    tree = copy.deepcopy(init)
+    params = tree["params"]
+    if mesh is not None and mesh.tp > 1:
+        params = {**params, "clip": tp.shard_clip(params["clip"], ClipConfig(), mesh)}
+    params, extra = trainable(params), tree["extra"]
+    opt = make_main_optimizer(cfg, params, 4)
+    extra_opt = method.extra_optimizer(cfg, extra) if extra is not None and method.extra_optimizer else None
+    if extra_opt is not None:
+        trainable(extra)
+    loss_fn = method.make_loss_fn(cfg, ClipConfig())
+    step = make_train_step(loss_fn, opt, extra_opt, grad_clip=method.grad_clip)
+    state = TrainState(params, extra, tree["aux"], 0,
+                       torch.Generator(device="cuda").manual_seed(3))
+    return state, step, loss_fn
+
+
+def _par_batch(seed):
+    """A seeded global batch of PAR_BATCH 224x224 items on the card."""
+    import torch
+
+    from ccmh_torch.tokenizer import tokenize_batch
+
+    rng = np.random.default_rng(seed)
+    labels = (rng.random((PAR_BATCH, 24)) < 0.15).astype(np.float32)
+    labels[np.arange(PAR_BATCH), rng.integers(0, 24, PAR_BATCH)] = 1.0
+    return {"image": torch.from_numpy(random_images(PAR_BATCH, 224, seed)).cuda(),
+            "text": torch.from_numpy(tokenize_batch(captions(PAR_BATCH, seed), 32)).cuda(),
+            "label": torch.from_numpy(labels).cuda(),
+            "index": torch.arange(PAR_BATCH, dtype=torch.int32, device="cuda"),
+            "epoch": torch.tensor(0, dtype=torch.int32, device="cuda")}
+
+
+def _par_grads(loss_fn, state, batch, mesh=None):
+    """The loss at ``state`` and {path: gradient}, the CLIP gradients summed
+    over the data axis under ``mesh`` (the rows of the towers' inputs are
+    this rank's)."""
+    import torch
+
+    from ccmh_torch.parallel.mesh import activated, shard_batch, sync_gradients
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    with activated(mesh):
+        b = shard_batch(mesh, batch) if mesh is not None else batch
+        loss, _ = loss_fn(state.params, state.extra, state.aux, b,
+                          torch.Generator(device="cuda").manual_seed(7))
+        loss.backward()
+        sync_gradients(state.params)
+    return loss.detach(), {p: leaf.grad for p, leaf in tree_leaves_with_path(state.params)
+                           if leaf.grad is not None}
+
+
+def _rel(got: dict, want: dict) -> float:
+    diff = sum(float((got[p].double() - w.double()).pow(2).sum()) for p, w in want.items())
+    norm = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return (diff / norm) ** 0.5
+
+
+def _par_step_ms(step, state, batch, steps=3, warm=1) -> float:
+    """Host ms per step (each ending in a synchronize), the mean of
+    ``steps`` after ``warm``."""
+    import torch
+
+    t = 0.0
+    for i in range(warm + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warm:
+            t += time.perf_counter() - t0
+    return 1e3 * t / steps
+
+
+def _nccl_identities(mesh, grads: dict) -> dict:
+    """The data axis's two collectives through the one-rank NCCL group on a
+    step's own gradients (the step skips them with one data rank): the flat
+    SUM and the row gather, each an identity bit for bit; their ms (the
+    second call of each, after NCCL's set-up) and the µs of the host-side
+    preempt flag (``Mesh.any``, gloo, per call over 100)."""
+    import torch
+
+    from ccmh_torch.parallel.mesh import all_reduce_flat, gather_tensor
+
+    want = list(grads.values())
+    out = {}
+    for _ in range(2):
+        got = [g.clone() for g in want]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_flat(got, mesh.data_group)
+        torch.cuda.synchronize()
+        out["nccl_flat_sum_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "the one-rank NCCL flat sum changed a gradient")
+        del got
+        big = max(want, key=lambda g: g.numel())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = gather_tensor(big, mesh.data_group, 1, 0)
+        torch.cuda.synchronize()
+        out["nccl_gather_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(torch.equal(rows[0], big), "the one-rank NCCL gather changed its rows")
+    t0 = time.perf_counter()
+    flags = [mesh.any(False) for _ in range(100)]
+    out["host_flag_us"] = 1e4 * (time.perf_counter() - t0)
+    check(mesh.any(True) and not any(flags), "the host-side preempt flag is wrong")
+    return out
+
+
+def parallel_nccl_world_one():
+    """Phase 16 (a): the data-parallel step over a real one-rank NCCL group
+    (one data rank moves nothing, so its gradients must be the plain step's
+    bits) and its step ms beside the plain step's: the mesh's cost on one
+    card; and the data axis's collectives through NCCL on the step's
+    gradients (:func:`_nccl_identities`).  DSPH and DCHMT, fp32 and bf16
+    towers."""
+    import torch
+    import torch.distributed as dist
+
+    from ccmh_torch.parallel.mesh import data_parallel_train_step, make_mesh, shard_batch
+
+    mesh = make_mesh(1, device="cuda")
+    check(mesh.backend == "nccl", f"the one-rank group runs {mesh.backend}, not nccl")
+    launches = {}
+    for name in ("DSPH", "DCHMT"):
+        batch = _par_batch(31)
+        for dtype in ("float32", "bfloat16"):
+            cfg, init = _par_init(name, 30, dtype)
+            st, step, loss_fn = _par_fresh(cfg, init)
+            loss_p, plain = _par_grads(loss_fn, st, batch)
+            st2, step2, loss_fn2 = _par_fresh(cfg, init)
+            reset_counts()
+            loss_m, meshed = _par_grads(loss_fn2, st2, batch, mesh)
+            torch.cuda.synchronize()
+            launches = _add_counts(launches, read_counts())
+            same = [p for p in plain if torch.equal(plain[p], meshed[p])]
+            check(torch.equal(loss_p, loss_m) and len(same) == len(plain) == len(meshed),
+                  f"NCCL world 1 {name} {dtype}: {len(plain) - len(same)} gradient leaves "
+                  f"differ from the plain step's (loss {loss_m.item()} vs {loss_p.item()})")
+            collectives = _nccl_identities(mesh, meshed)
+            del plain, meshed, st, st2
+            # in turns (plain, mesh, mesh, plain), the least of each
+            times = {"plain": [], "mesh": []}
+            for kind in ("plain", "mesh", "mesh", "plain"):
+                st, step, _ = _par_fresh(cfg, init)
+                if kind == "plain":
+                    times[kind].append(_par_step_ms(step, st, batch, steps=5, warm=2))
+                    continue
+                reset_counts()
+                times[kind].append(_par_step_ms(data_parallel_train_step(step, mesh), st,
+                                                shard_batch(mesh, batch), steps=5, warm=2))
+                launches = _add_counts(launches, read_counts())
+                del st
+            plain_ms, mesh_ms = min(times["plain"]), min(times["mesh"])
+            say("parallel", part="nccl_world_1", method=name, towers=dtype, batch=PAR_BATCH,
+                gradients="bit-equal to the plain step's", plain_step_ms=plain_ms,
+                nccl_step_ms=mesh_ms, overhead_ms=mesh_ms - plain_ms, runs_ms=times,
+                **collectives)
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return launches
+
+
+def _par_codes_check(rank, trainer, npz, what):
+    """Rank 0 serves the lead's ``.npz`` on one device: the query split's
+    codes equal the mesh trainer's, a bit differing only where the relaxed
+    code is within MARGIN of 0 (DSPH: sign of the LinearHash output)."""
+    import torch
+
+    from ccmh_torch.config import Config
+    from ccmh_torch.data.dataset import BatchIterator
+    from ccmh_torch.models.heads import linear_hash
+    from ccmh_torch.retrieval import Retriever
+    from ccmh_torch.train.methods.base import image_embeds, text_embeds
+
+    q_img, q_txt, _ = trainer.get_code(trainer.query_loader, len(trainer.query_data))
+    if rank != 0:
+        return None
+    loader = BatchIterator(trainer.query_data, trainer.cfg.eval_batch, shuffle=False,
+                           seed=trainer.cfg.seed, num_workers=2)
+    batches = list(loader)
+    images = np.concatenate([b["image"] for b in batches])[:len(trainer.query_data)]
+    ids = np.concatenate([b["text"] for b in batches])[:len(trainer.query_data)]
+    cfg = Config(method="DSPH", output_dim=K_BITS, max_words=trainer.cfg.max_words,
+                 pretrained=npz)
+    served = Retriever.from_pretrained(cfg, device="cuda:0")
+    differ = 0
+    for kind, x, want, embeds, head in (
+            ("image", images, q_img, image_embeds, "img_head"),
+            ("text", ids, q_txt, text_embeds, "txt_head")):
+        codes = served.encode_images(x) if kind == "image" else served.encode_texts(x)
+        with torch.inference_mode():
+            margin = np.concatenate([linear_hash(served.params[head], embeds(
+                served.params, served.clip_cfg, torch.from_numpy(x[i:i + BATCH]).cuda(),
+                cfg)).abs().cpu().numpy() for i in range(0, len(x), BATCH)])
+        bad = codes != want
+        differ += int(bad.sum())
+        check(np.all(margin[bad] < MARGIN), f"{what}: the served {kind} codes differ from "
+                                            f"the mesh trainer's at margin >= {MARGIN}")
+    return {"served_codes_vs_trainer": "agree", "bits": int(q_img.size + q_txt.size),
+            "differing_bits": differ}
+
+
+def _par_trainer(rank, mesh, out_dir, label):
+    """One DSPH epoch of 2 steps of PAR_BATCH plus ``valid`` and
+    ``--save-model`` through ``Trainer`` over ``mesh``, on phase 5's dataset."""
+    from ccmh_torch.config import Config
+    from ccmh_torch.train.trainer import Trainer
+
+    cfg = Config(method="DSPH", dataset="synthetic", output_dim=K_BITS,
+                 data_dir=os.path.join(WORK, "train_data"), save_dir=out_dir, epochs=1,
+                 batch_size=PAR_BATCH, query_num=TRAIN_QUERY, train_num=2 * PAR_BATCH,
+                 eval_batch=256, display_step=1, save_model=True, num_workers=2)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, mesh=mesh)
+    trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(out_dir, "metrics.jsonl" + ("" if rank == 0 else f".p{rank}"))) as fh:
+        rows = [json.loads(r) for r in fh]
+    losses = [r["loss"] for r in rows if r["event"] == "train"]
+    maps = [r for r in rows if r["event"] == "valid"]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses) and len(maps) == 1,
+          f"{label} trainer rank {rank}: losses {losses}, {len(maps)} valid rows")
+    served = _par_codes_check(rank, trainer, os.path.join(out_dir, "model-0.npz"), label)
+    trainer.metrics.close()
+    return launches, {"trainer_s": seconds, "losses": losses, "map_i2t": maps[0]["i2t"],
+                      "map_t2i": maps[0]["t2i"], **(served or {})}
+
+
+def _par_dp(rank, mesh, payload, res):
+    """Phase 16 (b) on this rank: the DP steps, mesh mAP, the sharded
+    search and a Trainer epoch over two gloo ranks on cuda:0."""
+    import torch
+
+    from ccmh_torch.ops.map_metric import calc_map, calc_map_4way
+    from ccmh_torch.ops.packing import pack_codes
+    from ccmh_torch.parallel.mesh import data_parallel_train_step, gather_tensor, shard_batch
+    from ccmh_torch.retrieval import topk_search, topk_search_sharded
+
+    for name in ("DSPH", "DCHMT"):
+        cfg, init = _par_init(name, 40)
+        batch = _par_batch(41)
+        st, step, loss_fn = _par_fresh(cfg, init)
+        reset_counts()
+        loss_m, meshed = _par_grads(loss_fn, st, batch, mesh)
+        torch.cuda.synchronize()
+        res["launches"] = _add_counts(res["launches"], read_counts())
+        st1, _, loss_fn1 = _par_fresh(cfg, init)
+        loss_p, plain = _par_grads(loss_fn1, st1, batch)
+        rel = _rel(meshed, plain)
+        check(rel <= GRAD_REL_TOL, f"two-rank {name}: gradients at relative norm {rel} of "
+                                   f"the single-rank step's > {GRAD_REL_TOL}")
+        heads = torch.cat([g.reshape(-1) for p, g in meshed.items() if p[0] != "clip"])
+        both = gather_tensor(heads, mesh.data_group, mesh.dp, mesh.data_rank)
+        check(torch.equal(both[0], both[1]), f"two-rank {name}: the heads' gradients differ "
+                                             "between the ranks")
+        del meshed, plain, st, st1
+        st, step, _ = _par_fresh(cfg, init)
+        reset_counts()
+        ms = _par_step_ms(data_parallel_train_step(step, mesh), st, shard_batch(mesh, batch))
+        res["launches"] = _add_counts(res["launches"], read_counts())
+        res["dp"][name] = {"grad_rel_norm": rel, "loss": loss_m.item(),
+                           "single_loss": loss_p.item(), "heads": "identical on both ranks",
+                           "step_ms": ms}
+        del st
+        torch.cuda.empty_cache()
+
+    # mesh mAP on phase 3's codes: the queries, then the gallery, sharded
+    q, r = payload["txt_codes"][:SEARCH_Q], payload["img_codes"]
+    ql, rl = payload["labels"][:SEARCH_Q], payload["labels"]
+    maps = {}
+    for method in ("exact", "hist"):
+        single = float(calc_map(q, r, ql, rl, method=method, device="cuda:0"))
+        got = float(calc_map(q, r, ql, rl, method=method, mesh=mesh, device="cuda:0"))
+        check(abs(got - single) <= PAR_MAP_TOL["query"],
+              f"query-sharded {method} mAP {got} vs single {single}")
+        maps[f"query_{method}"] = [got, single]
+    single = float(calc_map(q, r, ql, rl, method="hist", device="cuda:0"))
+    got = float(calc_map(q, r, ql, rl, method="hist", mesh=mesh, shard_gallery=True,
+                         device="cuda:0"))
+    check(abs(got - single) <= PAR_MAP_TOL["gallery"],
+          f"gallery-sharded hist mAP {got} vs single {single}")
+    maps["gallery_hist"] = [got, single]
+    four = [float(v) for v in calc_map_4way(q, q, r, r, ql, rl, mesh=mesh, shard_gallery=True,
+                                            device="cuda:0")]
+    maps["4way_gallery"] = four
+    res["map"] = maps
+
+    # the gallery-sharded search: 2^20 packed codes, each rank its half
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    gallery = pack_codes(torch.randint(0, 2, (GALLERY, K_BITS), generator=gen,
+                                       device="cuda") * 2 - 1)
+    queries = gallery[torch.randperm(GALLERY, generator=gen, device="cuda")[:SEARCH_Q]]
+    reset_counts()
+    t0 = time.perf_counter()
+    d, i = topk_search_sharded(queries, gallery, 10, mesh)
+    search_s = time.perf_counter() - t0
+    counts = read_counts()
+    res["launches"] = _add_counts(res["launches"], counts)
+    check(counts["hamming_distance_packed"] > 0,
+          f"rank {rank}: the sharded search never launched the hamming kernel")
+    wd, wi = topk_search(queries, gallery, 10, device="cuda:0")
+    check(np.array_equal(d, wd) and np.array_equal(i, wi),
+          "the sharded search differs from the single-device search")
+    res["search"] = {"gallery": GALLERY, "queries": SEARCH_Q, "k": 10, "bits": K_BITS,
+                     "equal_to_single_device": True, "ms": 1e3 * search_s,
+                     "hamming_launches": counts["hamming_distance_packed"]}
+    del gallery, queries
+    torch.cuda.empty_cache()
+
+    launches, out = _par_trainer(rank, mesh, os.path.join(WORK, "par_dp"), "data-parallel")
+    res["launches"] = _add_counts(res["launches"], launches)
+    res["dp_trainer"] = out
+
+
+def _par_tp(rank, mesh, res):
+    """Phase 16 (c) on this rank: the towers and one DSPH step over a
+    (1, 2) mesh, and a Trainer epoch whose canonical ``.npz`` serves."""
+    import torch
+
+    from ccmh_torch.clip.model import ClipConfig, init_clip_params
+    from ccmh_torch.parallel import tp
+    from ccmh_torch.parallel.mesh import activated, data_parallel_train_step
+    from ccmh_torch.train.methods.base import image_features, text_features
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    clip = init_clip_params(gen, ClipConfig())
+    batch = _par_batch(61)
+    images, ids = batch["image"][:64], batch["text"][:64]
+    sharded = {"clip": tp.shard_clip(clip, ClipConfig(), mesh)}
+    towers = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            want = [image_features({"clip": clip}, ClipConfig(), images, dtype=dtype).pooled,
+                    text_features({"clip": clip}, ClipConfig(), ids, dtype=dtype).pooled]
+            reset_counts()
+            with activated(mesh):
+                got = [image_features(sharded, ClipConfig(), images, dtype=dtype).pooled,
+                       text_features(sharded, ClipConfig(), ids, dtype=dtype).pooled]
+            torch.cuda.synchronize()
+            res["launches"] = _add_counts(res["launches"], read_counts())
+            for tower, g, w in zip(("vision", "text"), got, want):
+                if dtype == torch.float32:
+                    rel = float((g - w).norm() / w.norm())
+                    check(rel <= PAR_TOWER_TOL, f"TP {tower} fp32 embeddings at relative norm "
+                                                f"{rel} > {PAR_TOWER_TOL}")
+                    towers[f"{tower}_fp32_rel"] = rel
+                else:
+                    cos = float(torch.nn.functional.cosine_similarity(g, w, dim=1).min())
+                    check(cos >= PAR_COS, f"TP {tower} bf16 embeddings at cosine {cos} < {PAR_COS}")
+                    towers[f"{tower}_bf16_min_cos"] = cos
+    res["tp_towers"] = towers
+    del sharded
+
+    cfg, init = _par_init("DSPH", 62)
+    st, step, loss_fn = _par_fresh(cfg, init, mesh)
+    reset_counts()
+    loss_m, _ = _par_grads(loss_fn, st, batch, mesh)
+    res["launches"] = _add_counts(res["launches"], read_counts())
+    grads = {}
+    for path, leaf in tree_leaves_with_path(st.params):
+        node = grads
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf.grad
+    grads["clip"] = tp.unshard_clip(grads["clip"], ClipConfig(), mesh)
+    meshed = dict(tree_leaves_with_path(grads))
+    st1, _, loss_fn1 = _par_fresh(cfg, init)
+    loss_p, plain = _par_grads(loss_fn1, st1, batch)
+    rel = _rel(meshed, plain)
+    check(rel <= GRAD_REL_TOL, f"TP DSPH: gathered gradients at relative norm {rel} > "
+                               f"{GRAD_REL_TOL}")
+    del st, st1, meshed, plain, grads
+    st, step, _ = _par_fresh(cfg, init, mesh)
+    reset_counts()
+    ms = _par_step_ms(data_parallel_train_step(step, mesh), st, batch)
+    res["launches"] = _add_counts(res["launches"], read_counts())
+    res["tp_step"] = {"grad_rel_norm": rel, "loss": loss_m.item(), "single_loss": loss_p.item(),
+                      "step_ms": ms}
+    del st
+    torch.cuda.empty_cache()
+    launches, out = _par_trainer(rank, mesh, os.path.join(WORK, "par_tp"), "tensor-parallel")
+    res["launches"] = _add_counts(res["launches"], launches)
+    res["tp_trainer"] = out
+
+
+def _par_rank(rank, world, init_method, payload_path, out_path):
+    """One of phase 16's two gloo ranks, both on cuda:0 (NCCL refuses two
+    ranks on one device; this machine has one card)."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.parallel.mesh import build_mesh, init_process
+
+    init_process(rank, world, init_method, "cuda:0", backend="gloo")
+    cm.set_ln_impl("fused")
+    with np.load(payload_path) as data:
+        payload = {k: data[k] for k in data.files}
+    res = {"rank": rank, "launches": {}, "dp": {}}
+    t0 = time.perf_counter()
+    _par_dp(rank, build_mesh(world, 1, "cuda:0"), payload, res)
+    res["dp_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _par_tp(rank, build_mesh(1, world, "cuda:0"), res)
+    res["tp_seconds"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(out_path + f".rank{rank}", "w") as fh:
+        json.dump(res, fh)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_path(state):
+    """Phase 16: (a) the NCCL world of one, in this process; then (b) and
+    (c) in two spawned gloo ranks sharing cuda:0, after the kernels are
+    built.  Each rank counts its launches of the counted parts; returns
+    the sum over (a) and both ranks."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from ccmh_torch.clip import model as cm
+
+    cm.set_ln_impl("fused")
+    try:
+        launches = parallel_nccl_world_one()
+    finally:
+        cm.set_ln_impl("plain")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(70)
+    labels = (rng.random((N_IMAGES, 24)) < 0.1).astype(np.float32)
+    payload = os.path.join(WORK, "par_payload.npz")
+    np.savez(payload, img_codes=state["img_codes"], txt_codes=state["txt_codes"], labels=labels)
+    store = tempfile.mkdtemp(prefix="par_store_", dir=WORK)
+    out = os.path.join(WORK, "par_result")
+    t0 = time.perf_counter()
+    mp.spawn(_par_rank, args=(2, f"file://{store}/init", payload, out), nprocs=2, join=True)
+    seconds = time.perf_counter() - t0
+    for rank in (0, 1):
+        with open(out + f".rank{rank}") as fh:
+            res = json.load(fh)
+        launches = _add_counts(launches, res.pop("launches"))
+        say("parallel", part="gloo_two_ranks_on_cuda0", **res)
+    say("parallel", spawn_and_ranks_s=seconds,
+        note="two ranks sharing one card measure no scaling across cards")
+    for name in ("fused_attention_fwd", "fused_attention_bwd", "hamming_distance_packed",
+                 "fused_layer_norm", "fused_add_layer_norm"):
+        check(launches.get(name, 0) > 0, f"phase 16 never launched {name}")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4254,11 +4775,27 @@ def main() -> int:
     say("launches", path="rn", **rn)
     say("rn", phase_seconds=round(time.perf_counter() - t15, 1))
 
+    # data and tensor parallelism: #1 and #2 against their plain
+    # versions at H/2 heads, then the NCCL world of one and two gloo ranks
+    # on cuda:0; each part resets the counts just before it and reads them
+    # just after, in every rank
+    t16 = time.perf_counter()
+    tp_cases = {"fwd": [], "bwd": []}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, B, L, H, causal in PAR_HEADS:
+            tp_cases["fwd"].append(attention_case(name, B, L, H, causal, dt))
+            tp_cases["bwd"].append(attention_bwd_case(name, B, L, H, causal, dt))
+    torch.cuda.empty_cache()
+    parallel = parallel_path(state)
+    say("launches", path="parallel", **parallel)
+    say("parallel", phase_seconds=round(time.perf_counter() - t16, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
                    "token_methods": token[k], "extra_state": extra_state[k],
                    "lifecycle": lifecycle[k], "input": input_launches.get(k, 0),
-                   "long": long_launches.get(k, 0), "rn": rn.get(k, 0)}
+                   "long": long_launches.get(k, 0), "rn": rn.get(k, 0),
+                   "parallel": parallel.get(k, 0)}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):
@@ -4276,10 +4813,10 @@ def main() -> int:
     kernels = [
         entry("fused_attention_fwd", "ccmh_torch/csrc/attention.cu",
               "ccmh/ops/attention.py:123", training["fused_attention_fwd"],
-              attn_cases + long_cases["fwd"]),
+              attn_cases + long_cases["fwd"] + tp_cases["fwd"]),
         entry("fused_attention_bwd", "ccmh_torch/csrc/attention_bwd.cu",
               "ccmh/ops/attention.py:235", training["fused_attention_bwd"],
-              bwd_cases + long_cases["bwd"]),
+              bwd_cases + long_cases["bwd"] + tp_cases["bwd"]),
         entry("hamming_distance_packed", "ccmh_torch/csrc/hamming.cu",
               "ccmh/ops/hamming.py:56", serving["hamming_distance_packed"],
               [ham_case] + wide_cases),

@@ -177,7 +177,7 @@ def test_token_methods_train_and_save_through_the_cli(tmp_path, method):
 
 @pytest.mark.parametrize("flags", [
     ["--compilation-cache", "cache"],
-    ["--mesh", "2"], ["--fsdp"],
+    ["--fsdp"],
     ["--set", "param_dtype=bfloat16"],
 ], ids=lambda f: f[0].lstrip("-") + (f[1] if len(f) > 1 and f[0] == "--set" else ""))
 def test_unported_flags_raise_instead_of_being_ignored(tmp_path, flags):
@@ -248,3 +248,101 @@ def test_the_cli_runs_on_cuda_unless_asked_for_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         torch_main(["--data-dir", data, "--save-dir", str(tmp_path), "--clip-arch", "tiny",
                     "--query-num", "4", "--train-num", "8"])
+
+
+def _mesh_argv(data, save_dir, *flags):
+    return ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K),
+            "--data-dir", data, "--save-dir", str(save_dir), "--epochs", "2",
+            "--batch-size", "4", "--query-num", "6", "--train-num", "12", "--eval-batch", "6",
+            "--clip-arch", "tiny", "--display-step", "1", "--num-workers", "1",
+            "--device", "cpu", *flags]
+
+
+@pytest.mark.parametrize("mesh", ["2", "1,2"], ids=["mesh2", "mesh1,2"])
+def test_mesh_flags_train_with_validation(flag_data, tmp_path, mesh):
+    """``--mesh 2`` (data parallel) and ``--mesh 1,2`` (tensor parallel)
+    start two gloo ranks on the CPU: the lead writes train.log, the other
+    train.log.p1; only the lead writes the .npz files and the .mat codes;
+    and the .npz of the best i2t epoch, served on one device, gives the
+    codes that epoch validated."""
+    from ccmh_torch.config import Config
+    from ccmh_torch.retrieval import Retriever
+    from ccmh_torch.train.trainer import Trainer
+    from ccmh_torch.clip.model import ClipConfig
+    import scipy.io as scio
+
+    assert torch_main(_mesh_argv(flag_data, tmp_path, "--mesh", mesh, "--save-model")) is None
+    save_dir = tmp_path / "DSPH" / "synthetic" / str(K)
+    names = set(os.listdir(save_dir))
+    assert {"train.log", "train.log.p1", "metrics.jsonl", "metrics.jsonl.p1",
+            "model-0.npz", "model-1.npz"} <= names
+    assert not any(n.startswith("model-") and n.endswith(".p1") for n in names)
+    for suffix in ("", ".p1"):
+        with open(save_dir / f"metrics.jsonl{suffix}") as fh:
+            rows = [json.loads(r) for r in fh]
+        assert len([r for r in rows if r["event"] == "train"]) == 6
+        assert len([r for r in rows if r["event"] == "valid"]) == 2
+    with open(save_dir / "train.log") as fh:
+        log = fh.read()
+    best = int(log.split("Best epoch, I-T: ")[1].split(",")[0])
+    mat = scio.loadmat(save_dir / "PR_cruve" / f"{K}-ours-synthetic-i2t.mat")
+    cfg = Config(method="DSPH", output_dim=K, dataset="synthetic", data_dir=flag_data,
+                 save_dir=str(tmp_path / "serve"), query_num=6, train_num=12, eval_batch=6,
+                 resolution=32, num_workers=1, pretrained=str(save_dir / f"model-{best}.npz"))
+    loader = Trainer(cfg, clip_cfg=ClipConfig.tiny(), device="cpu").query_loader
+    batches = list(loader)
+    retriever = Retriever.from_pretrained(cfg, device="cpu")
+    images = np.concatenate([b["image"] for b in batches])[:6]
+    texts = np.concatenate([b["text"] for b in batches])[:6]
+    np.testing.assert_array_equal(retriever.encode_images(images), mat["q_img"])
+    np.testing.assert_array_equal(retriever.encode_texts(texts), mat["q_txt"])
+
+
+def test_a_sigterm_to_one_rank_stops_both_and_resume_is_bit_equal(flag_data, tmp_path):
+    """Two gloo ranks run ``ccmh_torch.cli.main`` three times in one process
+    group (tests/torch_parallel_harness.py ``_cli_sigterm``): uninterrupted;
+    cut by a SIGTERM that reaches rank 1 only after global step 2; and
+    resumed with ``--resume``.  Both ranks stop at step 2, and the resumed
+    run ends bit for bit where the uninterrupted one does: the final slot's
+    state, optimizer and step generator, and both ranks' metrics rows."""
+    from ccmh_torch.train import checkpoint as ck
+    from tests import torch_parallel_harness as H
+
+    flags = ["--mesh", "2", "--checkpoint-every", "1"]
+    whole, cut = tmp_path / "whole", tmp_path / "cut"
+    results = H.run(tmp_path / "ranks", 2, "cli_sigterm", {
+        "whole": _mesh_argv(flag_data, whole, *flags),
+        "cut": _mesh_argv(flag_data, cut, *flags)})
+    assert [r["cut_step"] for r in results] == [2, 2]
+    sub = os.path.join("DSPH", "synthetic", str(K))
+    with open(cut / sub / "train.log") as fh:
+        assert "preempted at epoch 0 step 2/3" in fh.read()
+    want = ck.load_state(str(whole / sub / "state_ckpt"))
+    got = ck.load_state(str(cut / sub / "state_ckpt"))
+    assert int(got["epoch"]) == int(want["epoch"]) == 1
+    for key in ("params", "extra", "aux", "optimizer", "extra_optimizer", "step", "generator"):
+        _assert_same(got[key], want[key], key)
+    timings = ("time", "q_encoder_time", "r_encoder_time")
+    for suffix in ("", ".p1"):
+        rows = []
+        for root in (whole, cut):
+            with open(root / sub / f"metrics.jsonl{suffix}") as fh:
+                rows.append([{k: v for k, v in r.items() if k not in timings}
+                             for r in map(json.loads, fh)])
+        # the cut run's rows up to the cut, then the resumed run's
+        assert rows[1] == rows[0], suffix
+
+
+def _assert_same(got, want, what):
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _assert_same(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{what}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), what
+    else:
+        assert got == want, what
