@@ -16,16 +16,18 @@ optim_moments_dtype=bfloat16`` and ``--profile`` work as in ``ccmh``.
 
 ``--mesh N`` trains data-parallel over N ranks, ``--mesh dp,tp`` over a
 dp x tp mesh with Megatron-sharded towers (``ccmh_torch/parallel``), one
-process per device.  Under ``torchrun`` each process is one rank:
+process per device; ``--fsdp`` beside ``--mesh`` also shards the towers'
+large weights, their gradients and BertAdam's moments over the data axis.
+Under ``torchrun`` each process is one rank:
 
-    torchrun --nproc-per-node 4 -m ccmh_torch.cli --mesh 4 ...
+    torchrun --nproc-per-node 4 -m ccmh_torch.cli --mesh 4 --fsdp ...
 
 Otherwise the CLI starts the ranks itself: one per visible card (a mesh
 larger than the cards raises), or gloo ranks on the CPU with ``--device
 cpu``, each with its share of the cores.  The kernels are built once
 before the ranks start.
 
-Flags of features the port does not have (FSDP, XLA's compilation cache,
+Flags of features the port does not have (XLA's compilation cache,
 ``param_dtype``) raise ``NotImplementedError`` from the Trainer instead of
 being ignored.
 """
@@ -154,7 +156,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "sharded towers, ccmh_torch/parallel/tp.py); one "
                              "process per device, under torchrun or started "
                              "by this CLI")
-    parser.add_argument("--fsdp", action="store_true", default=False, help=unported)
+    parser.add_argument("--fsdp", action="store_true", default=False,
+                        help="ZeRO-style fully-sharded data parallelism: "
+                             "large tower weights + optimizer moments shard "
+                             "over the mesh's data axis instead of "
+                             "replicating (ccmh_torch/parallel/fsdp.py; "
+                             "composes with a dp,tp mesh)")
     parser.add_argument("--shard-gallery", type=str, default="auto",
                         choices=["auto", "true", "false"],
                         help="mesh eval gallery placement: shard the gallery "

@@ -30,7 +30,12 @@ final LayerNorm and the projection, the last layer's attention row of the
 cls (vision) or EOS (text) token and the extended key-padding mask (MITH).
 Under a mesh with a model axis (``parallel/tp.py``) the blocks run
 Megatron-sharded at the local widths, each rank's heads in local packed
-order on the same kernels.
+order on the same kernels.  Every read of a tower leaf goes through
+``parallel/fsdp.py``'s :func:`~ccmh_torch.parallel.fsdp.full` (a stacked
+block leaf through :func:`~ccmh_torch.parallel.fsdp.layer`, one layer at a
+time), which gathers a leaf sharded over the data axis and is the leaf
+itself otherwise; the towers run under its saved-tensor hooks, so that a
+gathered weight is gathered again in backward instead of kept.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ccmh_torch.ops.attention import attention_reference, fused_attention
+from ccmh_torch.parallel import fsdp
+from ccmh_torch.parallel.mesh import copy_marks
 from ccmh_torch.parallel.tp import copy_to_model, reduce_from_model, tp_mesh
 from ccmh_torch.ops.layernorm import (
     fused_add_layer_norm, fused_layer_norm, layer_norm_reference,
@@ -237,8 +244,11 @@ def _block(x: torch.Tensor, p: Params, n_head: int, attn_bias: Optional[torch.Te
     return x + (reduce_from_model(y, mesh) + mlp["proj_b"]), weights
 
 
-def _layer(tree: Params, i: int) -> Params:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _layer(tree: Params, i: int, dtype: torch.dtype) -> Params:
+    """Layer ``i`` of the stacked blocks in ``dtype``, each data-axis shard
+    gathered (``parallel/fsdp.py``)."""
+    return {k: _layer(v, i, dtype) if isinstance(v, dict) else fsdp.layer(v, i, dtype)
+            for k, v in tree.items()}
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -252,27 +262,21 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_block(x: torch.Tensor, layer: Params, n_head: int,
+def _remat_block(x: torch.Tensor, stacked: Params, i: int, n_head: int,
                  attn_bias: Optional[torch.Tensor], mesh, remat) -> torch.Tensor:
-    """One block under activation checkpointing: only its input (and the
-    layer's weights, views of the stacked leaves) stay saved, and the
-    backward recomputes the block; ``"dots"`` also keeps its matmul outputs."""
+    """Block ``i`` under activation checkpointing: only its input (and the
+    stacked weights) stay saved, and the backward recomputes the block,
+    its layer's gathers included; ``"dots"`` also keeps its matmul outputs."""
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     def block(h):
-        return _block(h, _cast_layer(layer, h.dtype), n_head, attn_bias, mesh=mesh)[0]
+        return _block(h, _layer(stacked, i, h.dtype), n_head, attn_bias, mesh=mesh)[0]
 
     if remat == "dots":
         return checkpoint(block, x, use_reentrant=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                        _dots_policy))
     return checkpoint(block, x, use_reentrant=False)
-
-
-def _cast_layer(layer: Params, dtype: torch.dtype) -> Params:
-    if layer["ln_1"]["scale"].dtype != dtype:
-        layer = _map(lambda t: t.to(dtype), layer)
-    return layer
 
 
 def transformer(x: torch.Tensor, stacked: Params, n_head: int,
@@ -298,18 +302,19 @@ def transformer(x: torch.Tensor, stacked: Params, n_head: int,
     n_layers = stacked["ln_1"]["scale"].shape[0]
     weights = None
     for i in range(n_layers):
-        layer = _layer(stacked, i)
         last = need_last_attn and i == n_layers - 1
         if remat and not last:
-            x = _remat_block(x, layer, n_head, attn_bias, mesh, remat)
+            x = _remat_block(x, stacked, i, n_head, attn_bias, mesh, remat)
         else:
-            x, weights = _block(x, _cast_layer(layer, x.dtype), n_head, attn_bias,
+            x, weights = _block(x, _layer(stacked, i, x.dtype), n_head, attn_bias,
                                 need_weights=last, mesh=mesh)
     return x, weights
 
 
-def _map(fn, tree: Params) -> Params:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def _tower_ln(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``ln_pre``, ``ln_post`` and ``ln_final``: plain, with their leaves
+    read through the gather as every tower leaf is."""
+    return layer_norm(x, fsdp.full(p["scale"]), fsdp.full(p["bias"]))
 
 
 def cast_clip_params(clip: Params, dtype: torch.dtype) -> Params:
@@ -323,7 +328,7 @@ def cast_clip_params(clip: Params, dtype: torch.dtype) -> Params:
 
     def cast(tree: Params) -> Params:
         return {k: (v if k in keep else cast(v) if isinstance(v, dict)
-                    else v.to(dtype)) for k, v in tree.items()}
+                    else copy_marks(v.to(dtype), v)) for k, v in tree.items()}
 
     return cast(clip)
 
@@ -371,6 +376,12 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
         raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
     if images.dtype == torch.uint8:
         images = normalize_pixels(images)
+    with fsdp.regather_in_backward():
+        return _vision(p, cfg, images, dtype, features, remat)
+
+
+def _vision(p: Params, cfg: ClipConfig, images: torch.Tensor, dtype: torch.dtype,
+            features: str, remat) -> VisionOutput:
     if cfg.is_resnet:
         if features != "pooled":
             raise ValueError(
@@ -380,21 +391,21 @@ def vision_forward(p: Params, cfg: ClipConfig, images: torch.Tensor, *,
 
         return VisionOutput(pooled=resnet_forward(p, cfg, images, dtype=dtype))
     x = patchify(images.to(dtype), cfg.vision_patch_size)
-    x = x @ p["patch_w"].to(dtype)                         # [B, P, W]
+    x = x @ fsdp.full(p["patch_w"], dtype)                 # [B, P, W]
     B = x.shape[0]
-    cls = p["class_embedding"].to(dtype).expand(B, 1, cfg.vision_width)
+    cls = fsdp.full(p["class_embedding"], dtype).expand(B, 1, cfg.vision_width)
     x = torch.cat([cls, x], dim=1)
-    x = x + p["positional_embedding"].to(dtype)
-    x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
+    x = x + fsdp.full(p["positional_embedding"], dtype)
+    x = _tower_ln(x, p["ln_pre"])
     x, attn = transformer(x, p["blocks"], cfg.vision_heads, None,
                           need_last_attn=features == "mith", remat=remat, mesh=tp_mesh())
     if features == "mith":
-        h = layer_norm(x, p["ln_post"]["scale"], p["ln_post"]["bias"])
-        tokens_proj = h @ p["proj"].to(dtype)              # [B, 1+P, E]
+        h = _tower_ln(x, p["ln_post"])
+        tokens_proj = h @ fsdp.full(p["proj"], dtype)      # [B, 1+P, E]
         return VisionOutput(pooled=tokens_proj[:, 0, :], tokens_pre=x,
                             tokens_proj=tokens_proj, cls_attn=attn[:, 0, 1:])
-    pooled = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
-    pooled = pooled @ p["proj"].to(dtype)
+    pooled = _tower_ln(x[:, 0, :], p["ln_post"])
+    pooled = pooled @ fsdp.full(p["proj"], dtype)
     return VisionOutput(pooled=pooled, tokens_pre=x if features == "tokens" else None)
 
 
@@ -424,10 +435,16 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
     :func:`vision_forward`."""
     if features not in ("pooled", "tokens", "mith"):
         raise ValueError(f"features must be 'pooled', 'tokens' or 'mith', got {features!r}")
+    with fsdp.regather_in_backward():
+        return _text(p, cfg, ids, dtype, features, key_padding_mask, remat)
+
+
+def _text(p: Params, cfg: ClipConfig, ids: torch.Tensor, dtype: torch.dtype, features: str,
+          key_padding_mask: Optional[torch.Tensor], remat) -> TextOutput:
     B, L = ids.shape
     ids = ids.long()
-    x = p["token_embedding"].to(dtype)[ids]               # [B, L, W]
-    x = x + p["positional_embedding"].to(dtype)[:L]
+    x = fsdp.full(p["token_embedding"], dtype)[ids]       # [B, L, W]
+    x = x + fsdp.full(p["positional_embedding"], dtype)[:L]
     bias = causal_mask(L, device=x.device)
     if key_padding_mask is not None:
         kp = torch.zeros(key_padding_mask.shape, device=x.device).masked_fill(
@@ -437,9 +454,9 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
                           need_last_attn=features == "mith", remat=remat, mesh=tp_mesh())
     eos_pos = ids.argmax(dim=-1)                           # [B]
     rows = torch.arange(B, device=x.device)
-    h = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])
+    h = _tower_ln(x, p["ln_final"])
     if features == "mith":
-        tokens_proj = h @ p["text_projection"].to(dtype)   # [B, L, E]
+        tokens_proj = h @ fsdp.full(p["text_projection"], dtype)   # [B, L, E]
         eos_attn = attn[rows, eos_pos]                     # [B, L]
         eos_attn = eos_attn * (1.0 - torch.nn.functional.one_hot(eos_pos, L).to(eos_attn.dtype))
         kpm = (key_padding_mask.to(torch.bool) if key_padding_mask is not None
@@ -447,7 +464,7 @@ def text_forward(p: Params, cfg: ClipConfig, ids: torch.Tensor, *,
         return TextOutput(pooled=tokens_proj[rows, eos_pos], tokens_pre=x,
                           tokens_proj=tokens_proj, eos_attn=eos_attn,
                           key_padding_mask=kpm | (ids == cfg.vocab_size - 1))
-    pooled = h[rows, eos_pos] @ p["text_projection"].to(dtype)
+    pooled = h[rows, eos_pos] @ fsdp.full(p["text_projection"], dtype)
     return TextOutput(pooled=pooled, tokens_pre=x if features == "tokens" else None)
 
 

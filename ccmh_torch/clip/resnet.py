@@ -20,6 +20,8 @@ so that weights cross between the two packages unchanged
 
 Convolutions, pooling and the pool's attention are plain PyTorch (cuDNN
 and cuBLAS on the card): ``ccmh``'s tower runs no Pallas kernel either.
+Every leaf is read through ``parallel/fsdp.py``'s gather as it is cast
+(:func:`_cast`), so a leaf sharded over the data axis arrives whole.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ccmh_torch.clip.model import _normal, _uniform
+from ccmh_torch.parallel import fsdp
 
 Params = Dict[str, Any]
 
@@ -96,7 +99,9 @@ def _attn_pool(x: torch.Tensor, p: Params, n_head: int) -> torch.Tensor:
 
 
 def _cast(tree: Params, dtype: torch.dtype) -> Params:
-    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+    """``tree`` in ``dtype``, each data-axis shard gathered (the cast shard)."""
+    return {k: _cast(v, dtype) if isinstance(v, dict) else fsdp.full(v, dtype)
+            for k, v in tree.items()}
 
 
 def resnet_forward(p: Params, cfg, images: torch.Tensor, *,

@@ -19,7 +19,9 @@ another function.  The port keeps ``ccmh``'s semantics:
 4. after ``backward`` the CLIP leaves' gradients are summed over the data
    group, one flat buffer per dtype (:func:`sync_gradients`); the leaves
    after the gather (heads, a method's ``extra``) already hold the whole
-   gradient, the same on every rank, and are left alone.
+   gradient, the same on every rank, and are left alone, and so are the
+   leaves sharded over the data axis (``parallel/fsdp.py``), whose
+   gradients were reduce-scattered in ``backward``.
 
 One process drives one device.  Collectives run over NCCL on the card and
 gloo on the CPU; gloo takes only ``broadcast`` and ``all_reduce`` on CUDA
@@ -28,9 +30,12 @@ zero-filled ``[world, ...]`` buffer in which each rank fills its own slot
 (exact: every sum adds zeros to one value).
 
 The 2-D ``(data, model)`` mesh and its Megatron-sharded towers are in
-``parallel/tp.py``.  Ranks are numbered ``data_rank * tp + model_rank``:
-the model axis, which carries the per-block all-reduces, on neighbouring
-ranks, as ``ccmh``'s device order puts it.
+``parallel/tp.py``, the towers' weights sharded over the data axis in
+``parallel/fsdp.py``; a sharded leaf carries the mesh axes it is sharded
+on, and the dimension of each (:func:`shard_axes`).  Ranks are numbered
+``data_rank * tp + model_rank``: the model axis, which carries the
+per-block all-reduces, on neighbouring ranks, as ``ccmh``'s device order
+puts it.
 """
 
 from __future__ import annotations
@@ -112,6 +117,39 @@ class Mesh:
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE
+
+
+DATA_AXIS, MODEL_AXIS = "data", "model"
+
+
+def shard_axes(leaf: torch.Tensor) -> Dict[str, int]:
+    """{mesh axis: dimension} of the axes ``leaf`` is a shard on (``model``
+    from ``parallel/tp.py``, ``data`` from ``parallel/fsdp.py``); empty for
+    a whole leaf."""
+    return getattr(leaf, "shard_axes", {})
+
+
+def mark_shard(leaf: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Mark ``leaf`` as a shard on mesh axis ``axis`` along ``dim``."""
+    leaf.shard_axes = {**shard_axes(leaf), axis: dim}
+    return leaf
+
+
+def copy_marks(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst`` with ``src``'s shard marks (a cast or a gathered copy)."""
+    if shard_axes(src):
+        dst.shard_axes = dict(shard_axes(src))
+    return dst
+
+
+def sum_over_shards(t: torch.Tensor, axes, mesh: "Mesh") -> torch.Tensor:
+    """``t`` (a partial sum over a shard's elements) summed in place over
+    the ranks of each mesh axis in ``axes``: the model axis, then the data
+    axis."""
+    for axis, group in ((MODEL_AXIS, mesh.model_group), (DATA_AXIS, mesh.data_group)):
+        if axis in axes:
+            dist.all_reduce(t, group=group)
+    return t
 
 
 @contextlib.contextmanager
@@ -320,12 +358,16 @@ def sync_gradients(params) -> None:
     """Under an active mesh, SUM the gradients of the CLIP leaves
     (``params["clip"]``) over the data axis: each rank's towers saw only
     its rows.  Call after ``backward`` and before any clip or update.  With
-    one data rank the sum is the gradient itself, and nothing moves."""
+    one data rank the sum is the gradient itself, and nothing moves.  A
+    leaf sharded over the data axis is skipped: its gradient is the
+    reduce-scattered sum already (``parallel/fsdp.py``)."""
     mesh = _ACTIVE
     if mesh is None or mesh.dp == 1:
         return
-    grads = [p.grad for p in _leaves(params["clip"]) if p.grad is not None]
-    all_reduce_flat(grads, mesh.data_group)
+    grads = [p.grad for p in _leaves(params["clip"])
+             if p.grad is not None and DATA_AXIS not in shard_axes(p)]
+    if grads:
+        all_reduce_flat(grads, mesh.data_group)
 
 
 @torch.no_grad()

@@ -38,14 +38,16 @@ import torch
 import torch.distributed as dist
 
 from ccmh_torch.device import DeviceLike
-from ccmh_torch.parallel.mesh import Mesh, active_mesh, build_mesh, gather_tensor
+from ccmh_torch.parallel.mesh import (
+    MODEL_AXIS, Mesh, active_mesh, build_mesh, gather_tensor, mark_shard, shard_axes,
+)
 
 if TYPE_CHECKING:   # clip/model.py imports this module for its blocks
     from ccmh_torch.clip.model import ClipConfig
 
 __all__ = ["make_mesh_2d", "validate", "relayout_clip",
-           "relayout_state", "map_clip_subtrees", "shard_clip", "unshard_clip", "copy_to_model",
-           "reduce_from_model", "tp_mesh", "is_sharded"]
+           "relayout_state", "map_clip_subtrees", "map_clip_moments", "shard_clip",
+           "unshard_clip", "copy_to_model", "reduce_from_model", "tp_mesh", "is_sharded"]
 
 
 def make_mesh_2d(dp: int, tp: int, device: Optional[DeviceLike] = None) -> Mesh:
@@ -167,13 +169,9 @@ _TP_BLOCK_SPECS: Dict[Tuple[str, str], int] = {
 
 
 def is_sharded(leaf: torch.Tensor) -> bool:
-    """Whether ``leaf`` is a model-axis shard (:func:`shard_clip` marks them)."""
-    return getattr(leaf, "tp_sharded", False)
-
-
-def _mark(t: torch.Tensor) -> torch.Tensor:
-    t.tp_sharded = True
-    return t
+    """Whether ``leaf`` is a model-axis shard (:func:`shard_clip` marks them
+    with their axis, ``parallel/mesh.py`` :func:`shard_axes`)."""
+    return MODEL_AXIS in shard_axes(leaf)
 
 
 def _shard_blocks(blocks: dict, n_head: int, tp: int, m: int) -> dict:
@@ -189,7 +187,8 @@ def _shard_blocks(blocks: dict, n_head: int, tp: int, m: int) -> dict:
     local[("attn", "qkv_w")], local[("attn", "qkv_b")] = qkv["qkv_w"], qkv["qkv_b"]
     out = {k: (dict(v) if isinstance(v, dict) else v) for k, v in blocks.items()}
     for (sub, name), t in local.items():
-        out[sub][name] = _mark(t.contiguous().clone())
+        out[sub][name] = mark_shard(t.contiguous().clone(), MODEL_AXIS,
+                                    _TP_BLOCK_SPECS[(sub, name)])
     return out
 
 
@@ -278,15 +277,16 @@ def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 # ------------------------------------------------------------ optimizer state
 
-def _map_block_moments(sd: dict, fn) -> dict:
+def map_clip_moments(sd: dict, fn) -> dict:
     """A copy of an optimizer ``state_dict`` (BertAdam's: groups carry the
-    tree ``paths``) whose ``m`` and ``v`` of the CLIP blocks' leaves are
-    replaced through ``fn(clip-shaped moment tree)``."""
+    tree ``paths``) whose ``m`` and ``v`` of the CLIP leaves are replaced
+    through ``fn(clip-shaped moment tree)``: the blocks' for the model
+    axis, every sharded leaf's for the data axis (``parallel/fsdp.py``)."""
     out = {"state": {k: dict(v) for k, v in sd["state"].items()},
            "param_groups": sd["param_groups"]}
     where = [(pid, tuple(path)) for group in sd["param_groups"]
              for pid, path in zip(group["params"], group["paths"])
-             if path[0] == "clip" and "blocks" in path and pid in sd["state"]]
+             if path[0] == "clip" and pid in sd["state"]]
     for name in ("m", "v"):
         if not where:
             break
@@ -303,17 +303,3 @@ def _map_block_moments(sd: dict, fn) -> dict:
                 node = node[key]
             out["state"][pid][name] = node
     return out
-
-
-def unshard_optimizer_state(optimizer, cfg: "ClipConfig", mesh: Mesh) -> dict:
-    """``optimizer.state_dict()`` with the sharded blocks' moments gathered
-    to the canonical layout (a collective over the model axis), the form a
-    single-device run loads."""
-    return _map_block_moments(optimizer.state_dict(),
-                              lambda tree: unshard_clip(tree, cfg, mesh))
-
-
-def shard_optimizer_state(sd: dict, cfg: "ClipConfig", mesh: Mesh) -> dict:
-    """A canonical optimizer ``state_dict`` with this model rank's shard of
-    each sharded block's moments."""
-    return _map_block_moments(sd, lambda tree: shard_clip(tree, cfg, mesh))

@@ -422,9 +422,10 @@ class Retriever:
 
     @classmethod
     def from_trainer(cls, trainer) -> "Retriever":
-        """Serve a Trainer's live model.  A tensor-parallel Trainer's state
-        is gathered to the canonical layout (a collective: every rank calls
-        this) and sharded again over its mesh here."""
+        """Serve a Trainer's live model.  A sharded Trainer's state (FSDP,
+        TP) is gathered to the canonical layout (a collective: every rank
+        calls this); serving keeps the weights whole, or Megatron-shards
+        them again over a mesh with a model axis, as ``ccmh`` serves."""
         tp_mesh = trainer.mesh if trainer.mesh is not None and trainer.mesh.tp > 1 else None
         state = trainer._canonical_state()
         return cls(trainer.method, state.params, state.aux, trainer.cfg, trainer.clip_cfg,

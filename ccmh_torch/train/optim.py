@@ -22,9 +22,10 @@ it every step.  A textbook optimizer would skip it and drift from ``ccmh``.
 
 The schedule is computed in float32 as ``ccmh`` computes it.
 
-Under a model axis (``parallel/tp.py``) a sharded leaf's clip norm, per
-layer for the stacked blocks, comes from its squares summed over the model
-ranks, so each rank clips its shard by the whole leaf's norm.
+A leaf sharded over mesh axes (the model axis of ``parallel/tp.py``, the
+data axis of ``parallel/fsdp.py``, or both) takes its clip norm, per layer
+for the stacked blocks, from its squares summed over the ranks of each of
+those axes, so each rank clips its shard by the whole leaf's norm.
 
 ``moments_dtype`` (``--set optim_moments_dtype=bfloat16``) stores ``m`` and
 ``v`` in a reduced type, ``ccmh``'s opt-in departure from the reference:
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ccmh_torch.bridge import tensor_from_numpy
-from ccmh_torch.parallel.tp import is_sharded, tp_mesh
+from ccmh_torch.parallel.mesh import active_mesh, shard_axes, sum_over_shards
 
 Params = Dict[str, Any]
 
@@ -106,17 +107,18 @@ class BertAdam(torch.optim.Optimizer):
         progress = _f32(step) / _f32(self.t_total)
         return SCHEDULES[self.schedule](progress, self.warmup)
 
-    def _clip(self, g: torch.Tensor, stacked: bool, sharded: bool = False) -> torch.Tensor:
+    def _clip(self, g: torch.Tensor, stacked: bool, axes=()) -> torch.Tensor:
+        """``g`` clipped to ``max_grad_norm`` (per layer when ``stacked``);
+        ``axes``, the mesh axes ``g`` is a shard on."""
         if self.max_grad_norm <= 0:
             return g
         dims = tuple(range(1, g.ndim)) if stacked and g.ndim >= 1 else None
-        mesh = tp_mesh() if sharded else None
+        mesh = active_mesh() if axes else None
         if mesh is not None:
-            # a model-axis shard: the (per-layer) norm of the whole leaf
-            # from the squares summed over the model ranks
+            # a shard: the (per-layer) norm of the whole leaf from the
+            # squares summed over the ranks of each sharded axis
             sq = (g * g).sum(dim=dims, keepdim=True) if dims else (g * g).sum()
-            torch.distributed.all_reduce(sq, group=mesh.model_group)
-            norm = sq.sqrt()
+            norm = sum_over_shards(sq, axes, mesh).sqrt()
         elif dims:
             norm = torch.linalg.vector_norm(g, dim=dims, keepdim=True)
         else:
@@ -138,7 +140,7 @@ class BertAdam(torch.optim.Optimizer):
             step_size = _f32(group["lr"]) * self.lr_scale(group["step"])
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                g = self._clip(g, group["block_stacked"], is_sharded(p))
+                g = self._clip(g, group["block_stacked"], tuple(shard_axes(p)))
                 st = self.state[p]
                 if not st:
                     st["m"] = torch.zeros_like(p, dtype=self.moments_dtype)

@@ -7,9 +7,11 @@ the step counter and the ``torch.Generator`` of the step's randomness, and
 the step is forward, loss, backward, the method's global gradient clip
 where it has one (DPSIH's), and one BertAdam step, updating the parameters
 in place.  Under an active mesh (``parallel/mesh.py``) the CLIP gradients
-are summed over the data axis right after ``backward``, before any clip.  A method's loss-side ``extra`` parameters (DSPH's proxies)
-take the same backward and their own optimizer (``ccmh``'s ``extra_tx``),
-stepped after BertAdam.
+are summed over the data axis right after ``backward``, before any clip
+(those of leaves sharded over the data axis, ``parallel/fsdp.py``, were
+reduce-scattered in ``backward`` itself).  A method's loss-side ``extra``
+parameters (DSPH's proxies) take the same backward and their own optimizer
+(``ccmh``'s ``extra_tx``), stepped after BertAdam.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ccmh_torch.config import Config
-from ccmh_torch.parallel.mesh import sync_gradients
-from ccmh_torch.parallel.tp import is_sharded, tp_mesh
+from ccmh_torch.parallel.mesh import active_mesh, shard_axes, sum_over_shards, sync_gradients
 from ccmh_torch.train.optim import BertAdam, bert_adam_for, tree_leaves_with_path
 
 Params = Dict[str, Any]
@@ -91,18 +92,25 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 def clip_params_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """:func:`clip_by_global_norm_` of the gradients of ``params`` (those
-    that have one).  Under a model axis (``parallel/tp.py``) a sharded leaf
-    counts by its squares summed over the model ranks and a replicated leaf
-    once, so every rank clips by the norm of the whole gradient."""
+    that have one).  A leaf sharded over mesh axes (``parallel/tp.py``'s
+    model axis, ``parallel/fsdp.py``'s data axis) counts by its squares
+    summed over the ranks of those axes and a replicated leaf once, so
+    every rank clips by the norm of the whole gradient."""
     params = [p for p in params if p.grad is not None]
-    mesh = tp_mesh()
-    if mesh is None:
+    mesh = active_mesh()
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for p in params:
+        by_axes.setdefault(tuple(sorted(shard_axes(p))), []).append(p)
+    if mesh is None or set(by_axes) <= {()}:
         return clip_by_global_norm_([p.grad for p in params], max_norm)
     zero = torch.zeros((), device=params[0].grad.device)
-    sharded = sum(((p.grad * p.grad).sum() for p in params if is_sharded(p)), zero)
-    torch.distributed.all_reduce(sharded, group=mesh.model_group)
-    norm = torch.sqrt(sharded + sum(((p.grad * p.grad).sum() for p in params
-                                     if not is_sharded(p)), zero))
+    sharded = zero
+    for axes in (("model",), ("data",), ("data", "model")):
+        if axes in by_axes:
+            part = sum(((p.grad * p.grad).sum() for p in by_axes[axes]), zero)
+            sharded = sharded + sum_over_shards(part, axes, mesh)
+    norm = torch.sqrt(sharded + sum(((p.grad * p.grad).sum() for p in by_axes.get((), [])),
+                                    zero))
     keep = norm < max_norm
     for p in params:
         p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * max_norm))

@@ -53,19 +53,24 @@ into ``save_dir/profile``.
 each rank's loader assembles its rows of the towers' inputs, the towers
 gather, and the heads and the loss run on the global batch on every rank
 (``ccmh``'s one-program semantics); a model axis Megatron-shards the
-towers.  A global or eval batch the data ranks do not divide raises; the
-last train batch is wrap-padded; mesh runs stream (no device-resident
-splits); ``valid`` encodes each eval batch's rows on their rank and ranks
-with the mesh (``calc_map(mesh=)``, ``--shard-gallery``).  The lead rank
-(0) alone writes checkpoints, ``.mat``, csv and ``.npz`` files; every
-other rank logs to ``train.log.p<rank>`` and ``metrics.jsonl.p<rank>``
-(``ccmh``'s names).
-Checkpoints stay canonical: a tensor-parallel state is gathered before the
-lead saves and sharded again on resume.  A SIGTERM that reaches one rank
-stops every rank at the same step.
+towers, and ``--fsdp`` (``cfg.fsdp``, with more than one rank, as in
+``ccmh``) shards the towers' large weights, their gradients and
+BertAdam's moments over the data axis, on top of the model axis
+(``parallel/fsdp.py``: gathered per layer, reduce-scattered in
+backward).  A global or eval batch the data ranks do not divide raises;
+the last train batch is wrap-padded; mesh runs stream (no
+device-resident splits); ``valid`` encodes each eval batch's rows on
+their rank and ranks with the mesh (``calc_map(mesh=)``,
+``--shard-gallery``).  The lead rank (0) alone writes checkpoints,
+``.mat``, csv and ``.npz`` files; every other rank logs to
+``train.log.p<rank>`` and ``metrics.jsonl.p<rank>`` (``ccmh``'s names).
+Checkpoints stay canonical: a sharded state (FSDP, then TP) is gathered
+before the lead saves and sharded again on resume, so that mesh and
+single-device runs interchange slots and ``.npz`` files.  A SIGTERM that
+reaches one rank stops every rank at the same step.
 
-Not ported, each raising when asked for: FSDP, compilation caches (XLA's;
-the port builds its kernels once into ``build/``), and ``param_dtype``,
+Not ported, each raising when asked for: compilation caches (XLA's; the
+port builds its kernels once into ``build/``), and ``param_dtype``,
 which ``ccmh`` reads nowhere, so that accepting it would differ from
 nothing and mislead.
 """
@@ -112,8 +117,6 @@ def _unported(cfg: Config):
         (bool(cfg.compilation_cache),
          "--compilation-cache (XLA's compilation cache; the port builds its "
          "kernels once into build/)"),
-        (cfg.fsdp, "--fsdp (BertAdam's moments and clip norms sharded over the data "
-                   "axis on top of the tensor-parallel specs)"),
         (cfg.param_dtype != "float32",
          "param_dtype (ccmh reads it nowhere: the parameters are float32)"),
     )
@@ -150,6 +153,10 @@ class Trainer:
         if self.mesh is not None:
             self.device = self.mesh.device
         self.tp = self.mesh.tp if self.mesh is not None else 1
+        # ccmh's rule: --fsdp under a mesh of more than one rank; on one
+        # device it is ignored, and one data rank shards nothing
+        self.fsdp = bool(cfg.fsdp) and self.mesh is not None
+        self._sharded = self.tp > 1 or (self.fsdp and self.mesh.dp > 1)
         os.makedirs(cfg.save_dir, exist_ok=True)
         # every rank runs the same Trainer; files written once are the
         # lead's, and each other rank's streams take a ".p<rank>" suffix
@@ -304,19 +311,19 @@ class Trainer:
             # checkpoint's own)
             aux["train_labels"] = torch.from_numpy(self.train_data.all_labels()).to(self.device)
         if self.mesh is not None:
-            # rank 0's canonical state on every rank, then each model rank's
-            # shard of the blocks
+            # rank 0's canonical state on every rank, then this rank's
+            # shards of the towers (model axis, then data axis)
             replicate(self.mesh, (params, extra, aux))
-            if self.tp > 1:
-                from ccmh_torch.parallel import tp as tp_mod
+            from ccmh_torch.parallel.fsdp import local_clip
 
-                tp_mod.validate(clip_cfg, self.tp)
-                params = {**params, "clip": tp_mod.shard_clip(params["clip"], clip_cfg,
-                                                              self.mesh)}
-                self.logger.info(f"2-D mesh: data={self.mesh.dp} x model={self.tp} "
-                                 "(Megatron-sharded towers)")
-            else:
-                self.logger.info(f"data-parallel mesh over {self.mesh.dp} ranks")
+            params = {**params, "clip": local_clip(params["clip"], clip_cfg, self.mesh,
+                                                   self.fsdp)}
+            sharding = (["Megatron-sharded towers"] if self.tp > 1 else []) + (
+                ["FSDP weight/moment sharding"] if self.fsdp else [])
+            self.logger.info((f"2-D mesh: data={self.mesh.dp} x model={self.tp}"
+                              if self.tp > 1 else
+                              f"data-parallel mesh over {self.mesh.dp} ranks")
+                             + (f" ({', '.join(sharding)})" if sharding else ""))
         params = trainable(params)
         self.optimizer = make_main_optimizer(cfg, params, len(self.train_loader))
         # the loss-side extra parameters train only under the method's own
@@ -900,25 +907,26 @@ class Trainer:
 
     def _canonical_state(self) -> TrainState:
         """The live state in the canonical (packed, whole) layout, the form
-        every checkpoint stores: the live state itself, or under a model
-        axis the gathered blocks (a collective: every rank calls it; gating
-        it on the lead would leave the others waiting)."""
-        if self.tp == 1:
+        every checkpoint stores: the live state itself, or under a sharded
+        mesh the CLIP tree gathered over the data axis (FSDP), then the
+        model axis (a collective: every rank calls it; gating it on the
+        lead would leave the others waiting)."""
+        if not self._sharded:
             return self.state
-        from ccmh_torch.parallel.tp import unshard_clip
+        from ccmh_torch.parallel.fsdp import canonical_clip
 
         st = self.state
-        params = {**st.params, "clip": unshard_clip(st.params["clip"], self.clip_cfg,
-                                                    self.mesh)}
+        params = {**st.params, "clip": canonical_clip(st.params["clip"], self.clip_cfg,
+                                                      self.mesh)}
         return TrainState(params, st.extra, st.aux, st.step, st.generator)
 
     def _canonical_optimizer(self):
-        """The main optimizer, or under a model axis a stand-in whose
+        """The main optimizer, or under a sharded mesh a stand-in whose
         ``state_dict`` holds the moments gathered to the canonical layout
         (a collective)."""
-        if self.tp == 1:
+        if not self._sharded:
             return self.optimizer
-        from ccmh_torch.parallel.tp import unshard_optimizer_state
+        from ccmh_torch.parallel.fsdp import unshard_optimizer_state
 
         sd = unshard_optimizer_state(self.optimizer, self.clip_cfg, self.mesh)
         return types.SimpleNamespace(state_dict=lambda: sd)
@@ -969,14 +977,17 @@ class Trainer:
         if path is None:
             return 0, 0
         tree = load_state(path)
-        if self.tp > 1:
-            # the canonical slot, sharded again for this model rank
-            from ccmh_torch.parallel import tp as tp_mod
+        if self._sharded:
+            # the canonical slot, sharded again for this rank, parameters
+            # and moments alike
+            from ccmh_torch.parallel.fsdp import local_clip
+            from ccmh_torch.parallel.tp import map_clip_moments, map_clip_subtrees
 
-            tree = {**tree, "params": tp_mod.map_clip_subtrees(
-                        tree["params"], lambda c: tp_mod.shard_clip(c, self.clip_cfg, self.mesh)),
-                    "optimizer": tp_mod.shard_optimizer_state(tree["optimizer"],
-                                                              self.clip_cfg, self.mesh)}
+            def shard(clip):
+                return local_clip(clip, self.clip_cfg, self.mesh, self.fsdp)
+
+            tree = {**tree, "params": map_clip_subtrees(tree["params"], shard),
+                    "optimizer": map_clip_moments(tree["optimizer"], shard)}
         restore_state(tree, self.state, self.optimizer, self.extra_optimizer)
         meta, epoch = tree["meta"], int(tree["epoch"])
         self.max_mapi2t = meta.get("max_mapi2t", 0.0)

@@ -213,6 +213,22 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    Trainer epoch whose canonical ``.npz`` serves on one device.  Each rank
    counts its launches (``[parallel]`` lines); two ranks on one card
    measure no scaling across cards.
+17. FSDP (``ccmh_torch/parallel/fsdp.py``), ViT-B/32 K=64, LayerNorm
+   kernels on, global batch 128: (a) ``--fsdp`` over a one-rank NCCL group
+   shards nothing, the DSPH step's gradients bit-equal to the plain
+   step's (fp32, bf16), and FSDP's gather and reduce-scatter driven by
+   hand through it on the token embedding and a layer's fc_w and qkv_w,
+   identities bit for bit, with their ms; (b) two gloo ranks on cuda:0,
+   DSPH and DCHMT with fp32 and bf16 towers, DP then FSDP from one init:
+   the first step's gradients gathered to canonical within 1e-6 of DP's
+   and within 1e-3 (fp32) / 1e-2 (bf16) of one rank's step on the whole
+   batch, the persistent bytes of parameters, gradients and moments a
+   rank at most 0.51 of DP's, the second step's peak allocated below
+   DP's, its ms, and equal launches of #1, #2, #4, #5; a DSPH Trainer
+   epoch under ``--fsdp`` whose lead's ``.npz`` serves its codes; (d)
+   the same DP-then-FSDP check for ViT-L/14 DSPH fp32 at batch 16; (c)
+   four gloo ranks, a (2, 2) mesh: one DSPH step within 1e-3 of one
+   rank's, a quarter of ``qkv_w`` on each rank (``[fsdp]`` lines).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -4117,65 +4133,74 @@ def _add_counts(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
 
 
-def _par_init(name, seed, dtype="float32"):
-    """(cfg, {"params", "extra", "aux"}) of ``name`` at ViT-B/32 K=64, drawn
-    from ``seed`` on the card (the same on every rank)."""
+def _par_init(name, seed, dtype="float32", clip_cfg=None):
+    """(cfg, {"params", "extra", "aux"}) of ``name`` at K=64 on ViT-B/32 (or
+    ``clip_cfg``), drawn from ``seed`` on the card (the same on every rank)."""
     import torch
 
     from ccmh_torch.clip.model import ClipConfig, init_clip_params
     from ccmh_torch.config import Config
     from ccmh_torch.train.methods import get_method
 
+    clip_cfg = clip_cfg or ClipConfig()
     cfg = Config(method=name, output_dim=K_BITS, nclass=24, batch_size=PAR_BATCH,
                  train_num=TRAIN_SPLIT, epochs=2, compute_dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    heads, extra, aux = get_method(name).init(gen, cfg, ClipConfig())
-    return cfg, {"params": {"clip": init_clip_params(gen, ClipConfig()), **heads},
+    heads, extra, aux = get_method(name).init(gen, cfg, clip_cfg)
+    return cfg, {"params": {"clip": init_clip_params(gen, clip_cfg), **heads},
                  "extra": extra, "aux": aux}
 
 
 def _par_fresh(cfg, init, mesh=None):
     """(state, step, loss_fn) from a copy of ``init`` on the card; the
     blocks are this rank's shard under a model axis."""
+    return _fsdp_fresh(cfg, init, mesh)[:3]
+
+
+def _fsdp_fresh(cfg, init, mesh=None, fsdp=False, clip_cfg=None):
+    """(state, step, loss_fn, optimizer) from a copy of ``init`` on the card;
+    the blocks are this rank's shard under a model axis, and with ``fsdp``
+    the large tower leaves this data rank's chunk (on top)."""
     import copy
 
     import torch
 
     from ccmh_torch.clip.model import ClipConfig
-    from ccmh_torch.parallel import tp
+    from ccmh_torch.parallel.fsdp import local_clip
     from ccmh_torch.train.methods import get_method
     from ccmh_torch.train.state import TrainState, make_main_optimizer, make_train_step, trainable
 
+    clip_cfg = clip_cfg or ClipConfig()
     method = get_method(cfg.method)
     tree = copy.deepcopy(init)
     params = tree["params"]
-    if mesh is not None and mesh.tp > 1:
-        params = {**params, "clip": tp.shard_clip(params["clip"], ClipConfig(), mesh)}
+    if mesh is not None:
+        params = {**params, "clip": local_clip(params["clip"], clip_cfg, mesh, fsdp)}
     params, extra = trainable(params), tree["extra"]
     opt = make_main_optimizer(cfg, params, 4)
     extra_opt = method.extra_optimizer(cfg, extra) if extra is not None and method.extra_optimizer else None
     if extra_opt is not None:
         trainable(extra)
-    loss_fn = method.make_loss_fn(cfg, ClipConfig())
+    loss_fn = method.make_loss_fn(cfg, clip_cfg)
     step = make_train_step(loss_fn, opt, extra_opt, grad_clip=method.grad_clip)
     state = TrainState(params, extra, tree["aux"], 0,
                        torch.Generator(device="cuda").manual_seed(3))
-    return state, step, loss_fn
+    return state, step, loss_fn, opt
 
 
-def _par_batch(seed):
-    """A seeded global batch of PAR_BATCH 224x224 items on the card."""
+def _par_batch(seed, n=PAR_BATCH):
+    """A seeded global batch of ``n`` 224x224 items on the card."""
     import torch
 
     from ccmh_torch.tokenizer import tokenize_batch
 
     rng = np.random.default_rng(seed)
-    labels = (rng.random((PAR_BATCH, 24)) < 0.15).astype(np.float32)
-    labels[np.arange(PAR_BATCH), rng.integers(0, 24, PAR_BATCH)] = 1.0
-    return {"image": torch.from_numpy(random_images(PAR_BATCH, 224, seed)).cuda(),
-            "text": torch.from_numpy(tokenize_batch(captions(PAR_BATCH, seed), 32)).cuda(),
+    labels = (rng.random((n, 24)) < 0.15).astype(np.float32)
+    labels[np.arange(n), rng.integers(0, 24, n)] = 1.0
+    return {"image": torch.from_numpy(random_images(n, 224, seed)).cuda(),
+            "text": torch.from_numpy(tokenize_batch(captions(n, seed), 32)).cuda(),
             "label": torch.from_numpy(labels).cuda(),
-            "index": torch.arange(PAR_BATCH, dtype=torch.int32, device="cuda"),
+            "index": torch.arange(n, dtype=torch.int32, device="cuda"),
             "epoch": torch.tensor(0, dtype=torch.int32, device="cuda")}
 
 
@@ -4199,8 +4224,10 @@ def _par_grads(loss_fn, state, batch, mesh=None):
 
 
 def _rel(got: dict, want: dict) -> float:
-    diff = sum(float((got[p].double() - w.double()).pow(2).sum()) for p, w in want.items())
-    norm = sum(float(w.double().pow(2).sum()) for w in want.values())
+    """||got - want|| / ||want|| over all leaves, in fp64 on the card."""
+    diff = sum(float((got[p].cuda().double() - w.cuda().double()).pow(2).sum())
+               for p, w in want.items())
+    norm = sum(float(w.cuda().double().pow(2).sum()) for w in want.values())
     return (diff / norm) ** 0.5
 
 
@@ -4350,16 +4377,17 @@ def _par_codes_check(rank, trainer, npz, what):
             "differing_bits": differ}
 
 
-def _par_trainer(rank, mesh, out_dir, label):
+def _par_trainer(rank, mesh, out_dir, label, fsdp=False):
     """One DSPH epoch of 2 steps of PAR_BATCH plus ``valid`` and
-    ``--save-model`` through ``Trainer`` over ``mesh``, on phase 5's dataset."""
+    ``--save-model`` through ``Trainer`` over ``mesh`` (``--fsdp`` with
+    ``fsdp``), on phase 5's dataset."""
     from ccmh_torch.config import Config
     from ccmh_torch.train.trainer import Trainer
 
     cfg = Config(method="DSPH", dataset="synthetic", output_dim=K_BITS,
                  data_dir=os.path.join(WORK, "train_data"), save_dir=out_dir, epochs=1,
                  batch_size=PAR_BATCH, query_num=TRAIN_QUERY, train_num=2 * PAR_BATCH,
-                 eval_batch=256, display_step=1, save_model=True, num_workers=2)
+                 eval_batch=256, display_step=1, save_model=True, num_workers=2, fsdp=fsdp)
     reset_counts()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, mesh=mesh)
@@ -4601,6 +4629,299 @@ def parallel_path(state):
     return launches
 
 
+# -------------------------------------------------------------------- phase 17
+
+FSDP_BYTES_RATIO = 0.51   # FSDP's persistent bytes a rank at most this share of DP's
+FSDP_DP_TOL = 1e-6        # FSDP vs DP gradients on the same ranks: relative norm
+# FSDP (= DP) vs one rank's step on the whole batch: relative norm; bf16
+# towers round their products of B/2 rows apart from those of B rows
+FSDP_ONE_RANK_TOL = {"float32": GRAD_REL_TOL, "bfloat16": 1e-2}
+FSDP_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "fused_layer_norm",
+                "fused_add_layer_norm")
+VITL_BATCH = 16           # ViT-L/14's global batch (8 rows a rank)
+
+
+def _persistent_gb(opt) -> float:
+    """GB this rank holds of the main optimizer's parameters, their
+    gradients and both moments (their local shards)."""
+    total = 0
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            for t in (p, p.grad, st.get("m"), st.get("v")):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+    return total / 1e9
+
+
+def _canonical_grads(params, mesh, clip_cfg=None) -> dict:
+    """{path: gradient} on the host, the CLIP ones gathered to the canonical
+    layout (a collective under a sharded mesh: data axis, then model)."""
+    from ccmh_torch.clip.model import ClipConfig
+    from ccmh_torch.parallel.fsdp import canonical_clip
+    from ccmh_torch.parallel.mesh import copy_marks
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    tree = {}
+    for path, leaf in tree_leaves_with_path(params):
+        if leaf.grad is None:
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = copy_marks(leaf.grad, leaf)
+    if mesh is not None:
+        tree["clip"] = canonical_clip(tree["clip"], clip_cfg or ClipConfig(), mesh)
+    return {p: g.detach().cpu() for p, g in tree_leaves_with_path(tree)}
+
+
+def _fsdp_identities(mesh, params) -> dict:
+    """FSDP's gather and reduce-scatter driven by hand through the one-rank
+    NCCL group on the step's largest gather units (the token embedding, one
+    layer of the vision tower's fc_w and qkv_w): identities bit for bit,
+    with the ms of the second call of each."""
+    import torch
+
+    from ccmh_torch.parallel.fsdp import all_gather_shard, reduce_scatter_shard
+
+    clip = params["clip"]
+    units = {"token_embedding": (clip["text"]["token_embedding"], 0),
+             "visual_fc_w_layer": (clip["visual"]["blocks"]["mlp"]["fc_w"][0], 1),
+             "visual_qkv_w_layer": (clip["visual"]["blocks"]["attn"]["qkv_w"][0], 1)}
+    out = {}
+    for name, (leaf, dim) in units.items():
+        x = leaf.detach().contiguous()
+        for _ in range(2):
+            for op, fn in (("gather", all_gather_shard), ("reduce_scatter", reduce_scatter_shard)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = fn(x, dim, mesh)
+                torch.cuda.synchronize()
+                out[f"{name}_{op}_ms"] = 1e3 * (time.perf_counter() - t0)
+                check(torch.equal(x, y), f"the one-rank NCCL {op} changed {name}")
+        out[f"{name}_mb"] = x.numel() * x.element_size() / 1e6
+    return out
+
+
+def fsdp_nccl_world_one():
+    """Phase 17 (a): ``--fsdp`` over a one-rank NCCL group shards nothing
+    (ccmh's rule), so the DSPH step's gradients must be the plain step's
+    bits, fp32 and bf16 towers; then FSDP's collectives by hand through it
+    (:func:`_fsdp_identities`)."""
+    import torch
+    import torch.distributed as dist
+
+    from ccmh_torch.parallel.mesh import make_mesh, shard_axes
+    from ccmh_torch.train.optim import tree_leaves_with_path
+
+    mesh = make_mesh(1, device="cuda")
+    check(mesh.backend == "nccl", f"the one-rank group runs {mesh.backend}, not nccl")
+    launches = {}
+    batch = _par_batch(71)
+    for dtype in ("float32", "bfloat16"):
+        cfg, init = _par_init("DSPH", 70, dtype)
+        st, _, loss_fn, _ = _fsdp_fresh(cfg, init)
+        loss_p, plain = _par_grads(loss_fn, st, batch)
+        st2, _, loss_fn2, _ = _fsdp_fresh(cfg, init, mesh, fsdp=True)
+        marked = [p for p, leaf in tree_leaves_with_path(st2.params) if shard_axes(leaf)]
+        check(not marked, f"one data rank sharded {marked[:3]}")
+        reset_counts()
+        loss_m, meshed = _par_grads(loss_fn2, st2, batch, mesh)
+        torch.cuda.synchronize()
+        launches = _add_counts(launches, read_counts())
+        same = [p for p in plain if torch.equal(plain[p], meshed[p])]
+        check(torch.equal(loss_p, loss_m) and len(same) == len(plain) == len(meshed),
+              f"FSDP NCCL world 1 {dtype}: {len(plain) - len(same)} gradient leaves differ "
+              f"from the plain step's")
+        ident = _fsdp_identities(mesh, st2.params) if dtype == "float32" else {}
+        say("fsdp", part="nccl_world_1", method="DSPH", towers=dtype, batch=PAR_BATCH,
+            sharded_leaves=0, gradients="bit-equal to the plain step's", **ident)
+        del st, st2, plain, meshed
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return launches
+
+
+def _fsdp_against_dp(rank, mesh, name, dtype, batch, res, clip_cfg=None):
+    """One method's DP and FSDP steps on the same ranks from one init, two
+    each: the first step's gradients (canonical) against each other and
+    (rank 0) against one rank's step on the whole batch, and the persistent
+    bytes after it; the second step's peak allocated and host ms; the
+    launches of both."""
+    import torch
+
+    from ccmh_torch.parallel.mesh import data_parallel_train_step, shard_batch
+
+    seed = 80 if clip_cfg is None else 90
+    cfg, init = _par_init(name, seed, dtype, clip_cfg)
+    plain = None
+    if rank == 0:
+        st, step, _, _ = _fsdp_fresh(cfg, init, clip_cfg=clip_cfg)
+        st, _ = step(st, batch)
+        plain = _canonical_grads(st.params, None)
+        del st, step
+        torch.cuda.empty_cache()
+    out, grads, counts = {}, {}, {}
+    local = shard_batch(mesh, batch)
+    for kind in ("dp", "fsdp"):
+        st, step, _, opt = _fsdp_fresh(cfg, init, mesh, fsdp=kind == "fsdp", clip_cfg=clip_cfg)
+        step = data_parallel_train_step(step, mesh)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, local)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        grads[kind] = _canonical_grads(st.params, mesh, clip_cfg)
+        persistent = _persistent_gb(opt)
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        ms = _par_step_ms(step, st, local, steps=1, warm=0)
+        counts[kind] = read_counts()
+        res["launches"] = _add_counts(res["launches"], counts[kind])
+        out[kind] = {"persistent_gb": persistent,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "start_gb": start / 1e9, "first_step_ms": first_ms, "step_ms": ms,
+                     "loss": m["loss"].item()}
+        del st, step, opt
+        torch.cuda.empty_cache()
+    rel_dp = _rel(grads["fsdp"], grads["dp"])
+    rel_one = _rel(grads["fsdp"], plain) if plain is not None else None
+    what = f"FSDP {name} {dtype}" + (" ViT-L/14" if clip_cfg is not None else "")
+    check(rel_dp <= FSDP_DP_TOL, f"{what}: gradients at {rel_dp} of the DP step's > {FSDP_DP_TOL}")
+    check(rel_one is None or rel_one <= FSDP_ONE_RANK_TOL[dtype],
+          f"{what}: gradients at {rel_one} of one rank's > {FSDP_ONE_RANK_TOL[dtype]}")
+    ratio = out["fsdp"]["persistent_gb"] / out["dp"]["persistent_gb"]
+    check(ratio <= FSDP_BYTES_RATIO, f"{what}: persistent bytes at {ratio} of DP's > "
+                                     f"{FSDP_BYTES_RATIO}")
+    check(out["fsdp"]["peak_gb"] < out["dp"]["peak_gb"],
+          f"{what}: the FSDP step peaks at {out['fsdp']['peak_gb']} GB, DP's at "
+          f"{out['dp']['peak_gb']} GB (gathered layers kept?)")
+    kernel_counts = {k: (counts["dp"][k], counts["fsdp"][k]) for k in FSDP_KERNELS}
+    check(all(d == f and (d > 0 or k not in ("fused_attention_fwd", "fused_attention_bwd"))
+              for k, (d, f) in kernel_counts.items()),
+          f"{what}: launches DP vs FSDP {kernel_counts}")
+    bit_equal = sum(torch.equal(grads["fsdp"][p], g) for p, g in grads["dp"].items())
+    return {"grad_rel_dp": rel_dp, "grad_rel_one_rank": rel_one,
+            "grads_bit_equal_dp": f"{bit_equal}/{len(grads['dp'])}",
+            "persistent_ratio": ratio, "launches_dp_fsdp": kernel_counts, **out}
+
+
+def _fsdp_ranks_2(rank, mesh, res):
+    """Phase 17 (b) and (d) on this rank: DSPH and DCHMT, fp32 and bf16
+    towers, DP against FSDP; a DSPH Trainer epoch under --fsdp; ViT-L/14."""
+    import torch
+
+    from ccmh_torch.clip.model import ClipConfig
+
+    batch = _par_batch(81)
+    for name in ("DSPH", "DCHMT"):
+        for dtype in ("float32", "bfloat16"):
+            res["steps"][f"{name} {dtype}"] = _fsdp_against_dp(rank, mesh, name, dtype,
+                                                                batch, res)
+    del batch
+    torch.cuda.empty_cache()
+    launches, out = _par_trainer(rank, mesh, os.path.join(WORK, "fsdp_dp"), "FSDP",
+                                 fsdp=True)
+    res["launches"] = _add_counts(res["launches"], launches)
+    res["trainer"] = out
+    torch.cuda.empty_cache()
+    res["vit_l14"] = _fsdp_against_dp(rank, mesh, "DSPH", "float32",
+                                      _par_batch(91, VITL_BATCH), res,
+                                      clip_cfg=ClipConfig.vit_l14())
+
+
+def _fsdp_rank(rank, world, init_method, out_path):
+    """One of phase 17's gloo ranks, all on cuda:0: two run (b) and (d)
+    over a (2,) mesh, four (c) over a (2, 2) mesh."""
+    import torch
+
+    from ccmh_torch.clip import model as cm
+    from ccmh_torch.parallel.mesh import build_mesh, init_process
+
+    init_process(rank, world, init_method, "cuda:0", backend="gloo")
+    cm.set_ln_impl("fused")
+    res = {"rank": rank, "launches": {}, "steps": {}}
+    t0 = time.perf_counter()
+    if world == 2:
+        _fsdp_ranks_2(rank, build_mesh(2, 1, "cuda:0"), res)
+    else:
+        _fsdp_ranks_4(rank, build_mesh(2, 2, "cuda:0"), res)
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(out_path + f".rank{rank}", "w") as fh:
+        json.dump(res, fh)
+    torch.distributed.destroy_process_group()
+
+
+def _fsdp_ranks_4(rank, mesh, res):
+    """Phase 17 (c): one DSPH step over a (2, 2) mesh under FSDP, its
+    gradients gathered to canonical against one rank's on the whole batch
+    (rank 0's), a quarter of qkv_w on each rank."""
+    import torch
+
+    from ccmh_torch.parallel.mesh import shard_axes
+
+    cfg, init = _par_init("DSPH", 95)
+    batch = _par_batch(96)
+    st, _, loss_fn, _ = _fsdp_fresh(cfg, init, mesh, fsdp=True)
+    qkv = st.params["clip"]["visual"]["blocks"]["attn"]["qkv_w"]
+    whole = init["params"]["clip"]["visual"]["blocks"]["attn"]["qkv_w"]
+    check(qkv.numel() * 4 == whole.numel() and shard_axes(qkv) == {"model": 2, "data": 1},
+          f"(2, 2) FSDP: qkv_w {list(qkv.shape)} {shard_axes(qkv)} of {list(whole.shape)}")
+    reset_counts()
+    loss_m, _ = _par_grads(loss_fn, st, batch, mesh)
+    torch.cuda.synchronize()
+    res["launches"] = _add_counts(res["launches"], read_counts())
+    meshed = _canonical_grads(st.params, mesh)
+    del st
+    res["qkv_w_local"] = list(qkv.shape)
+    if mesh.rank == 0:
+        st1, _, loss_fn1, _ = _fsdp_fresh(cfg, init)
+        loss_p, _ = _par_grads(loss_fn1, st1, batch)
+        rel = _rel(meshed, _canonical_grads(st1.params, None))
+        check(rel <= GRAD_REL_TOL, f"(2, 2) FSDP DSPH: gradients at {rel} of one rank's > "
+                                   f"{GRAD_REL_TOL}")
+        res["grad_rel_one_rank"] = rel
+        res["loss"], res["single_loss"] = loss_m.item(), loss_p.item()
+
+
+def fsdp_path():
+    """Phase 17: (a) the NCCL world of one, in this process; then (b) + (d)
+    in two spawned gloo ranks and (c) in four, all sharing cuda:0.  Each
+    rank counts its launches of the counted parts; returns the sum."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from ccmh_torch.clip import model as cm
+
+    cm.set_ln_impl("fused")
+    try:
+        launches = fsdp_nccl_world_one()
+    finally:
+        cm.set_ln_impl("plain")
+    torch.cuda.empty_cache()
+    for world in (2, 4):
+        store = tempfile.mkdtemp(prefix="fsdp_store_", dir=WORK)
+        out = os.path.join(WORK, f"fsdp_result{world}")
+        t0 = time.perf_counter()
+        mp.spawn(_fsdp_rank, args=(world, f"file://{store}/init", out), nprocs=world,
+                 join=True)
+        seconds = time.perf_counter() - t0
+        for rank in range(world):
+            with open(out + f".rank{rank}") as fh:
+                res = json.load(fh)
+            launches = _add_counts(launches, res.pop("launches"))
+            say("fsdp", part=f"gloo_{world}_ranks_on_cuda0", **res)
+        say("fsdp", world=world, spawn_and_ranks_s=seconds,
+            note="ranks sharing one card measure no scaling across cards")
+    for name in FSDP_KERNELS:
+        check(launches.get(name, 0) > 0, f"phase 17 never launched {name}")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4790,12 +5111,20 @@ def main() -> int:
     say("launches", path="parallel", **parallel)
     say("parallel", phase_seconds=round(time.perf_counter() - t16, 1))
 
+    # FSDP: the NCCL world of one, then gloo ranks on cuda:0 over a (2,)
+    # and a (2, 2) mesh (ViT-B/32 and ViT-L/14); each part resets the
+    # counts just before it and reads them just after, in every rank
+    t17 = time.perf_counter()
+    fsdp = fsdp_path()
+    say("launches", path="fsdp", **fsdp)
+    say("fsdp", phase_seconds=round(time.perf_counter() - t17, 1))
+
     by_path = {k: {"serving": serving[k], "training": training[k],
                    "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
                    "token_methods": token[k], "extra_state": extra_state[k],
                    "lifecycle": lifecycle[k], "input": input_launches.get(k, 0),
                    "long": long_launches.get(k, 0), "rn": rn.get(k, 0),
-                   "parallel": parallel.get(k, 0)}
+                   "parallel": parallel.get(k, 0), "fsdp": fsdp.get(k, 0)}
                for k in serving}
 
     def entry(name, source, replaces, launches, cases):

@@ -177,7 +177,6 @@ def test_token_methods_train_and_save_through_the_cli(tmp_path, method):
 
 @pytest.mark.parametrize("flags", [
     ["--compilation-cache", "cache"],
-    ["--fsdp"],
     ["--set", "param_dtype=bfloat16"],
 ], ids=lambda f: f[0].lstrip("-") + (f[1] if len(f) > 1 and f[0] == "--set" else ""))
 def test_unported_flags_raise_instead_of_being_ignored(tmp_path, flags):

@@ -53,6 +53,7 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.data.builders.make_mirflickr25k\n"
         "import ccmh_torch.data.builders.twdh_centers\n"
         "import ccmh_torch.parallel, ccmh_torch.parallel.mesh, ccmh_torch.parallel.tp\n"
+        "import ccmh_torch.parallel.fsdp\n"
         "from ccmh_torch.retrieval import _demo\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"

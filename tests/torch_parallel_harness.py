@@ -1,5 +1,6 @@
 """Rank workers of the mesh tests (tests/test_torch_parallel.py,
-test_torch_sharded_search.py, test_torch_tp.py, test_torch_cli.py).
+test_torch_sharded_search.py, test_torch_tp.py, test_torch_cli.py,
+test_torch_fsdp.py).
 
 :func:`run` starts ``world`` gloo ranks on the CPU with
 ``torch.multiprocessing.spawn`` (the process group joins through a file in
@@ -24,10 +25,11 @@ import torch.multiprocessing as mp
 from ccmh_torch.bridge import params_from_jax
 from ccmh_torch.clip.model import ClipConfig, init_clip_params
 from ccmh_torch.config import Config
+from ccmh_torch.parallel import fsdp as fsdp_mod
 from ccmh_torch.parallel import tp as tp_mod
 from ccmh_torch.parallel.mesh import (
-    activated, data_parallel_train_step, init_process, make_mesh, shard_batch,
-    sync_gradients,
+    activated, copy_marks, data_parallel_train_step, init_process, make_mesh, shard_batch,
+    shard_axes, sync_gradients,
 )
 from ccmh_torch.train.methods import get_method
 from ccmh_torch.train.optim import tree_leaves_with_path
@@ -112,11 +114,11 @@ def method_config(name, **kw):
     return cfg
 
 
-def initial_state(cfg, seed=5):
-    """The seeded init of ``cfg``'s method on the tiny towers (the same on
-    every rank): {"params", "extra", "aux"}."""
+def initial_state(cfg, seed=5, clip=None):
+    """The seeded init of ``cfg``'s method on the tiny towers (or ``clip``'s;
+    the same on every rank): {"params", "extra", "aux"}."""
     method = get_method(cfg.method)
-    clip = ClipConfig.tiny()
+    clip = clip or ClipConfig.tiny()
     gen = torch.Generator().manual_seed(seed)
     heads, extra, aux = method.init(gen, cfg, clip)
     params = {"clip": init_clip_params(gen, clip), **heads}
@@ -136,15 +138,16 @@ def initial_state(cfg, seed=5):
     return {"params": params, "extra": extra, "aux": aux}
 
 
-def fresh(cfg, init, mesh=None):
+def fresh(cfg, init, mesh=None, fsdp=False, clip=None):
     """(state, step, loss_fn, optimizer) from a copy of ``init``; with a
-    model axis the towers' blocks are this rank's shard."""
+    model axis the towers' blocks are this rank's shard, and with ``fsdp``
+    the large tower leaves are this data rank's chunk (on top)."""
     method = get_method(cfg.method)
-    clip = ClipConfig.tiny()
+    clip = clip or ClipConfig.tiny()
     st = copy.deepcopy(init)
     params = st["params"]
-    if mesh is not None and mesh.tp > 1:
-        params = {**params, "clip": tp_mod.shard_clip(params["clip"], clip, mesh)}
+    if mesh is not None:
+        params = {**params, "clip": fsdp_mod.local_clip(params["clip"], clip, mesh, fsdp)}
     params, extra, aux = trainable(params), st["extra"], st["aux"]
     opt = make_main_optimizer(cfg, params, STEPS_PER_EPOCH)
     extra_opt = (method.extra_optimizer(cfg, extra)
@@ -170,19 +173,20 @@ def loss_and_grads(loss_fn, state, batch, mesh=None):
     return loss.item(), state
 
 
-def gathered_grads(params, mesh=None):
+def gathered_grads(params, mesh=None, clip=None):
     """The CLIP gradients gathered to the canonical layout (a collective
-    under a model axis) and the heads' gradients, as numpy."""
-    grads = {p: leaf.grad for p, leaf in tree_leaves_with_path(params)
-             if leaf.grad is not None}
+    under a sharded mesh: the data axis, then the model axis) and the
+    heads' gradients, as numpy."""
     tree = {}
-    for path, g in grads.items():
+    for path, leaf in tree_leaves_with_path(params):
+        if leaf.grad is None:
+            continue
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = g
-    if mesh is not None and mesh.tp > 1:
-        tree["clip"] = tp_mod.unshard_clip(tree["clip"], ClipConfig.tiny(), mesh)
+        node[path[-1]] = copy_marks(leaf.grad, leaf)
+    if mesh is not None:
+        tree["clip"] = fsdp_mod.canonical_clip(tree["clip"], clip or ClipConfig.tiny(), mesh)
     return {p: g.detach().numpy().copy() for p, g in tree_leaves_with_path(tree)}
 
 
@@ -330,22 +334,24 @@ def _numpy_masks():
     return lambda: setattr(heads, "_dropout", real)
 
 
-def _dp_against_ccmh(payload, mesh):
+def _dp_against_ccmh(payload, mesh, fsdp=False):
     """One mesh step of each method from ccmh's numpy init, numpy dropout
-    masks: the parameters, ``extra`` and metrics after it."""
+    masks: the parameters (canonical), ``extra`` and metrics after it."""
     out = {}
     for name, (cfg, tree, batch) in payload["ccmh"].items():
         init = {"params": params_from_jax(tree["params"], device="cpu"),
                 "extra": (None if tree["extra"] is None
                           else params_from_jax(tree["extra"], device="cpu")),
                 "aux": params_from_jax(tree["aux"], device="cpu")}
-        st, step, _, _ = fresh(cfg, init)
+        st, step, _, _ = fresh(cfg, init, mesh if fsdp else None, fsdp=fsdp)
         restore = _numpy_masks()
         try:
             st, m = data_parallel_train_step(step, mesh)(st, shard_batch(mesh, as_batch(batch)))
         finally:
             restore()
-        state = {"params": np_tree(st.params), "extra": np_tree(st.extra)}
+        params = {**st.params, "clip": fsdp_mod.canonical_clip(st.params["clip"],
+                                                               ClipConfig.tiny(), mesh)}
+        state = {"params": np_tree(params), "extra": np_tree(st.extra)}
         out[name] = {"metrics": {k: float(v) for k, v in m.items()}, "digests":
                      {k: digests(v) for k, v in state.items()},
                      **(state if mesh.rank == 0 else {})}
@@ -447,7 +453,7 @@ def _tp_step(name, payload, mesh):
         clipped = {}
         for path, leaf in tree_leaves_with_path(sharded.params):
             if tp_mod.is_sharded(leaf):
-                clipped[path] = opt2._clip(leaf.grad * scale, True, True)
+                clipped[path] = opt2._clip(leaf.grad * scale, True, tuple(shard_axes(leaf)))
     tree = {}
     for path, g in clipped.items():
         node = tree
@@ -569,5 +575,218 @@ def _cli_sigterm(payload):
     return {"cut_step": cut_trainer.state.step}
 
 
+# --------------------------------------------------------------------- FSDP
+
+def _halves(state, opt, mesh, clip=None):
+    """(number of data-axis shards, whether each of them and its two
+    moments hold 1/dp of the canonical leaf on this rank)."""
+    clip = clip or ClipConfig.tiny()
+    n, ok = 0, True
+    for path, leaf in tree_leaves_with_path(state.params):
+        if path[0] != "clip":
+            continue
+        shape = list(leaf.shape)
+        for axis, size in (("model", mesh.tp), ("data", mesh.dp)):
+            if axis in shard_axes(leaf):
+                shape[shard_axes(leaf)[axis]] *= size
+        spec = fsdp_mod.spec_for_leaf(path, shape, mesh.dp, mesh.tp)
+        if "data" not in spec:
+            ok &= "data" not in shard_axes(leaf)
+            continue
+        n += 1
+        whole = int(np.prod(shape)) // (mesh.tp if "model" in spec else 1)
+        st = opt.state[leaf]
+        ok &= (shard_axes(leaf).get("data") == spec.index("data")
+               and leaf.numel() * mesh.dp == whole
+               and st["m"].shape == leaf.shape == st["v"].shape)
+    return n, bool(ok)
+
+
+def _canonical(state, mesh, clip=None):
+    """The state's trees in the canonical layout, as numpy."""
+    params = {**state.params, "clip": fsdp_mod.canonical_clip(state.params["clip"],
+                                                               clip or ClipConfig.tiny(), mesh)}
+    return {"params": np_tree(params), "extra": np_tree(state.extra),
+            "aux": np_tree(state.aux)}
+
+
+def _two_steps(cfg, init, batches, mesh=None, fsdp=False, clip=None):
+    """The steps from ``init`` on ``batches`` (over ``mesh`` when given):
+    losses, the gradients left by the first and the last step and the
+    state after it, canonical."""
+    st, step, _, opt = fresh(cfg, init, mesh, fsdp=fsdp, clip=clip)
+    if mesh is not None:
+        step = data_parallel_train_step(step, mesh)
+    losses, first = [], None
+    for b in batches:
+        st, m = step(st, shard_batch(mesh, b) if mesh is not None else b)
+        losses.append(m["loss"].item())
+        grads = gathered_grads(st.params, mesh, clip)
+        grads.update({("extra",) + p: g for p, g in grads_of(st.extra).items()})
+        first = grads if first is None else first
+    out = {"losses": losses, "grads": grads, "first_grads": first,
+           "state": _canonical(st, mesh, clip) if mesh is not None else _state_np(st)}
+    if fsdp:
+        out["halves"] = _halves(st, opt, mesh, clip)
+    return out
+
+
+def _versus(got, want, grad_tol=1e-5, state_atol=1e-4):
+    """``got``'s distance from ``want`` (two :func:`_two_steps`): the
+    single-device bounds of test_torch_parallel.py's DP test."""
+    return {"losses": (got["losses"], want["losses"]),
+            "grad_norm": sum(float(np.sum(g.astype(np.float64) ** 2))
+                             for g in want["grads"].values()) ** 0.5,
+            "grads": worst(got["grads"], want["grads"], grad_tol,
+                           lambda leaves: grad_tol * max(np.abs(v).max() for v in leaves)),
+            "grad_rel_norm": rel_norm(got["grads"], want["grads"]),
+            "state": {k: worst(got["state"][k], want["state"][k], 0.0, state_atol)
+                      for k in ("params", "extra", "aux")}}
+
+
+def _fsdp(payload):
+    """Two gloo ranks, FSDP over a (2,) mesh: every case's two steps
+    against the DP steps on the same mesh and the single-device steps (the
+    cases split between the ranks); DSPH under remat full and dots; a tiny
+    RN tower; the Trainer's lifecycle; and the CLI."""
+    mesh = make_mesh(2)
+    out = {"cases": {}, "single": {}}
+    runs = []
+    for label, name, kw in payload["cases"]:
+        cfg = method_config(name, **kw)
+        runs.append((label, cfg, initial_state(cfg),
+                     [as_batch(b) for b in payload["batches"][label]]))
+    fsdp_runs = {}
+    for i, (label, cfg, init, batches) in enumerate(runs):
+        f = _two_steps(cfg, init, batches, mesh, fsdp=True)
+        # the first step of each: the same parameters, so the gradients
+        # differ only by where the sums ran
+        d = _two_steps(cfg, init, batches[:1], mesh)
+        fsdp_runs[label] = f
+        out["cases"][label] = {"halves": f["halves"], "vs_dp": {
+                                   "grad_rel_norm": rel_norm(f["first_grads"], d["grads"]),
+                                   "grads_bit_equal": sum(
+                                       np.array_equal(f["first_grads"][p], g)
+                                       for p, g in d["grads"].items()),
+                                   "n_grads": len(d["grads"]),
+                                   "losses": (f["losses"][:1], d["losses"])},
+                               "digests": {k: digests(v) for k, v in f["state"].items()},
+                               "grad_digests": digests(f["grads"])}
+    for i, (label, cfg, init, batches) in enumerate(runs):
+        if i % mesh.world == mesh.rank:
+            out["single"][label] = _versus(fsdp_runs[label], _two_steps(cfg, init, batches))
+    remat = {"off": fsdp_runs["DSPH"]}
+    cfg0, init, batches = next((c, i, b) for label, c, i, b in runs if label == "DSPH")
+    for policy in ("full", "dots"):
+        cfg = cfg0.replace(remat=True, remat_policy=policy)
+        remat[policy] = _two_steps(cfg, init, batches, mesh, fsdp=True)
+    out["remat"] = {k: {"grads": digests(v["grads"]),
+                        "state": {w: digests(t) for w, t in v["state"].items()}}
+                    for k, v in remat.items()}
+    del fsdp_runs, remat
+    out["rn"] = _fsdp_rn(payload, mesh)
+    out["lifecycle"] = _fsdp_lifecycle(payload)
+    from ccmh_torch import cli
+
+    cli.main(payload["cli"]).metrics.close()
+    return out
+
+
+def _fsdp_rn(payload, mesh):
+    """DSPH's two steps on the tiny RN tower under FSDP against one device
+    (the rank computes both)."""
+    clip = ClipConfig(**payload["rn_clip"])
+    cfg = method_config("DSPH")
+    init = initial_state(cfg, clip=clip)
+    batches = [as_batch(b) for b in payload["rn_batches"]]
+    f = _two_steps(cfg, init, batches, mesh, fsdp=True, clip=clip)
+    return {"halves": f["halves"], "vs_single": _versus(f, _two_steps(cfg, init, batches,
+                                                                      clip=clip))}
+
+
+def _trainer_digests(trainer):
+    """Digests of a Trainer's canonical state: params, extra, aux, both
+    moments (a collective under a sharded mesh)."""
+    canon = trainer._canonical_state()
+    sd = trainer._canonical_optimizer().state_dict()
+    moments = {}
+    for group in sd["param_groups"]:
+        for pid, path in zip(group["params"], group["paths"]):
+            for name in ("m", "v"):
+                moments[(name,) + tuple(path)] = sd["state"][pid][name].numpy()
+    return {"params": digests(np_tree(canon.params)), "extra": digests(np_tree(canon.extra)),
+            "aux": digests(np_tree(canon.aux)), "moments": digests(moments),
+            "step": canon.step}
+
+
+def _fsdp_lifecycle(payload):
+    """A --mesh 2 --fsdp Trainer: one epoch with valid, .npz and a slot
+    (its canonical digests); another resumed from a single-device slot;
+    and two epochs uninterrupted against one cut after epoch 0 and
+    resumed (ccmh's test_fsdp_resume_bit_exact)."""
+    from ccmh_torch.train.trainer import Trainer
+
+    out = {}
+    trainer = Trainer(payload["life_cfg"], clip_cfg=ClipConfig.tiny(), device="cpu")
+    trainer.train()
+    out["trained"] = _trainer_digests(trainer)
+    out["trained_halves"] = _halves(trainer.state, trainer.optimizer, trainer.mesh)
+    trainer.metrics.close()
+    resumed = Trainer(payload["resume_cfg"], clip_cfg=ClipConfig.tiny(), device="cpu")
+    resumed.try_resume()
+    out["resumed"] = _trainer_digests(resumed)
+    out["resumed_halves"] = _halves(resumed.state, resumed.optimizer, resumed.mesh)
+    resumed.metrics.close()
+    whole = Trainer(payload["whole_cfg"], clip_cfg=ClipConfig.tiny(), device="cpu")
+    whole.train()
+    out["whole"] = _trainer_digests(whole)
+    whole.metrics.close()
+    cut = Trainer(payload["cut_cfg"], clip_cfg=ClipConfig.tiny(), device="cpu")
+    cut.train_epoch(0)
+    cut.save_full_checkpoint(0)
+    cut.metrics.close()
+    again = Trainer(payload["cut_cfg"].replace(resume=True), clip_cfg=ClipConfig.tiny(),
+                    device="cpu")
+    again.train()
+    out["cut_resumed"] = _trainer_digests(again)
+    out["cut_resumed_halves"] = _halves(again.state, again.optimizer, again.mesh)
+    again.metrics.close()
+    return out
+
+
+def _fsdp_ccmh(payload):
+    """DSPH's FSDP step over a (2,) mesh from ccmh's init
+    (:func:`_dp_against_ccmh`)."""
+    return _dp_against_ccmh(payload, make_mesh(2), fsdp=True)
+
+
+def _fsdp22(payload):
+    """A (2, 2) mesh under FSDP: one DSPH step's gradients against
+    single-device, the shards' sizes; then the CLI over the same ranks."""
+    mesh = tp_mod.make_mesh_2d(2, 2)
+    cfg = method_config("DSPH")
+    init = initial_state(cfg)
+    batch = as_batch(payload["batch"])
+    single, _, loss_fn1, _ = fresh(cfg, init)
+    loss1, single = loss_and_grads(loss_fn1, single, batch)
+    sharded, _, loss_fn2, _ = fresh(cfg, init, mesh, fsdp=True)
+    qkv = sharded.params["clip"]["text"]["blocks"]["attn"]["qkv_w"]
+    loss2, sharded = loss_and_grads(loss_fn2, sharded, batch, mesh)
+    want = gathered_grads(single.params)
+    got = gathered_grads(sharded.params, mesh)
+    out = {"rank": (mesh.data_rank, mesh.model_rank), "loss_single": loss1,
+           "loss_mesh": loss2, "qkv_axes": dict(shard_axes(qkv)),
+           "qkv_numel": (qkv.numel(), int(np.prod(init["params"]["clip"]["text"]["blocks"]
+                                                  ["attn"]["qkv_w"].shape))),
+           "grads": worst(got, want, 1e-5,
+                          lambda leaves: 1e-5 * max(np.abs(v).max() for v in leaves)),
+           "grad_rel_norm": rel_norm(got, want)}
+    from ccmh_torch import cli
+
+    cli.main(payload["cli"]).metrics.close()
+    return out
+
+
 JOBS = {"dp_methods": _dp_methods, "search": _search,
-        "tp": _tp, "tp22": _tp22, "cli_sigterm": _cli_sigterm}
+        "tp": _tp, "tp22": _tp22, "cli_sigterm": _cli_sigterm,
+        "fsdp": _fsdp, "fsdp_ccmh": _fsdp_ccmh, "fsdp22": _fsdp22}
