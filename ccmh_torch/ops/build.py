@@ -108,10 +108,10 @@ def build_log(name: str) -> Optional[str]:
         return fh.read()
 
 
-def sass_counts(name: str, opcode: str = "HGMMA") -> Optional[Dict[str, int]]:
-    """Instructions of ``opcode`` in each kernel of the built library
-    ``name`` (mangled kernel name -> count), read from ``cuobjdump -sass``
-    beside ``nvcc``; None where the toolkit has no ``cuobjdump``."""
+def sass_listing(name: str) -> Optional[Dict[str, List[str]]]:
+    """The SASS of each kernel of the built library ``name`` (mangled
+    kernel name -> its instruction lines, in order), from ``cuobjdump
+    -sass`` beside ``nvcc``; None where the toolkit has no ``cuobjdump``."""
     try:
         tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     except RuntimeError:
@@ -120,15 +120,25 @@ def sass_counts(name: str, opcode: str = "HGMMA") -> Optional[Dict[str, int]]:
         return None
     out = subprocess.run([tool, "-sass", build_all([name])[name]], capture_output=True,
                          text=True, check=True).stdout
-    counts: Dict[str, int] = {}
+    listing: Dict[str, List[str]] = {}
     kernel = None
     for line in out.splitlines():
         if "Function :" in line:
             kernel = line.split("Function :", 1)[1].strip()
-            counts[kernel] = 0
-        elif kernel is not None and opcode in line:
-            counts[kernel] += 1
-    return counts
+            listing[kernel] = []
+        elif kernel is not None:
+            listing[kernel].append(line)
+    return listing
+
+
+def sass_counts(name: str, opcode: str = "HGMMA") -> Optional[Dict[str, int]]:
+    """Instructions of ``opcode`` in each kernel of the built library
+    ``name`` (mangled kernel name -> count); None where the toolkit has no
+    ``cuobjdump``."""
+    listing = sass_listing(name)
+    if listing is None:
+        return None
+    return {k: sum(opcode in line for line in lines) for k, lines in listing.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

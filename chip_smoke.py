@@ -21,7 +21,8 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    transformers B=128 L=K in {16, 64} D=512 H=8, all with the projection
    bias; fp32 within 1e-4 and bf16 within 2e-2, the backward's relative to
    its output scale) and packed Hamming (Q=512, N=2^20, K=64, exactly
-   equal), the LayerNorm and residual add + LayerNorm (vision rows
+   equal, with the kernel family it took and every family's time in
+   turns), the LayerNorm and residual add + LayerNorm (vision rows
    256x50 W=768, text rows 256x32 W=512; fp32 within 1e-5, bf16 within
    2e-2, the sum exactly equal), each with ms per call beside its bound,
    the plain version's ms and a PyTorch library call's ms where one
@@ -132,8 +133,8 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    OpenAI-layout ``.pt`` and read back through ``--clip-path`` bit for
    bit; DSPH K=64 fp32 through ``ccmh_torch.cli.main`` on phase 5's
    dataset (batch 128, 2 epochs of 4 steps, ``valid``, ``--save-model``,
-   ``--checkpoint-every 1``): run A twice (the two must end in the same
-   bits), run B cut by a real SIGTERM after global step 5 and resumed with
+   ``--checkpoint-every 1``): run A, run B cut by a real SIGTERM after
+   global step 5 and resumed with
    ``--resume``, run C the same with ``--async-checkpoint`` cut at epoch
    0's last step; B and C held to A bit for bit (parameters, ``extra``,
    ``aux``, both optimizers, the generator, the step, the trackers, every
@@ -157,15 +158,22 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    (B=256, L=197, H=12), ViT-L/14 (B=64, L=257, H=16) and ViT-L/14@336
    (B=64, L=577, H=16), fp32 and bf16, and at the edges L in {1, 129,
    143, 192, 256, 577} causal and key-padded (each call one launch,
-   within the gates of phase 2); #3 at K = 512 and 2,048 bits (Q = 512,
-   N = 2^18, exact); then, counters set to 0 just before each run and
+   within the gates of phase 2); #3's tensor-core kernels in the built
+   library (a BGMMA a k-step, POPC only for the row popcounts and after
+   the products, no spill)
+   and #3 at K in {64, 128, 256, 512, 1,024, 2,048} bits (Q = 512, N =
+   2^18) and on a ragged case (Q = 500, N = 2^18 + 37, W = 17), each
+   exact, its family and ms beside the bound, the plain version's and
+   ``hamming_distance``'s on the same codes unpacked to ±1; then,
+   counters set to 0 just before each run and
    read just after: ``python -m ccmh_torch.tools.bench_vitl 64`` (pairs/s,
    TFLOP/s); ViT-L/14 DSPH K=64 fp32 through ``ccmh_torch.cli.main`` from a
    seeded OpenAI-layout ``.pt`` via ``--clip-path``, batch 32, 2 steps
    with remat off, ``--remat`` and ``--remat --set remat_policy=dots``
    (losses, parameters and every gradient bit-equal; peak memory and step
    ms each; #1 twice a block a step under remat), its ``.npz`` serving the
-   trainer's codes and a packed K=512 index ranking as the int8 one;
+   trainer's codes and a packed K=512 index ranking as the int8 one
+   through #3's ``tma`` family;
    batch 128 with ``--remat`` and bf16 moments; ViT-B/16 from a ``.pt``,
    its ``.npz`` serving; ViT-B/32 with bf16 moments cut by SIGTERM and
    resumed bit for bit, and ``--profile`` leaving a trace and the same
@@ -258,14 +266,13 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
-# the peak rate of their type.  The data sheet gives no int32 ALU rate; the
-# fp32 CUDA-core rate stands in (the popcount kernel is bound by bytes
-# either way).  The attention kernels #1 and #2 run their fp32 products on
-# the tensor cores as 3xTF32 (three TF32 products each), a third of the TF32
-# peak.
+# the peak rate of their type.  The attention kernels #1 and #2 run their
+# fp32 products on the tensor cores as 3xTF32 (three TF32 products each), a
+# third of the TF32 peak.  The packed Hamming kernel #3's bound is
+# ccmh_torch/tools/time_hamming.py's (its PEAK_OPS_PER_S holds the one-bit
+# rate), which times it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int32": 67e12,
-                  "3xtf32": 495e12 / 3}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
 # the rate of the attention kernels' products, by input type
 ATTN_OP_TYPE = {"float32": "3xtf32", "bfloat16": "bfloat16"}
 
@@ -304,7 +311,8 @@ def reset_counts() -> None:
     from ccmh_torch.ops import layernorm as ln
 
     attn.launches = attn.backward_launches = ham.launches = 0
-    for by_family in (attn.launches_by_family, attn.backward_launches_by_family):
+    for by_family in (attn.launches_by_family, attn.backward_launches_by_family,
+                      ham.launches_by_family):
         for family in by_family:
             by_family[family] = 0
     ln.launches = ln.add_launches = 0
@@ -321,6 +329,7 @@ def read_counts() -> dict:
     return {"fused_attention_fwd": attn.launches,
             "fused_attention_bwd": attn.backward_launches,
             "hamming_distance_packed": ham.launches,
+            **{f"hamming_{f}": n for f, n in ham.launches_by_family.items()},
             "fused_layer_norm": ln.launches,
             "fused_add_layer_norm": ln.add_launches,
             "backward_x": av.backward_x_launches,
@@ -562,34 +571,49 @@ def attention_bwd_case(name, B, L, H, causal, dtype):
     return case
 
 
-def hamming_case():
+def hamming_row(q, r, what: str) -> dict:
+    """#3 on q [Q, W], r [N, W] through the wrapper, once, against the plain
+    version (exactly), with the family it launched; then timed by
+    ``ccmh_torch/tools/time_hamming.py``: the C entry by its rule and every
+    family that takes these lanes forced, in turns; the plain version; and
+    ``hamming_distance`` on the codes unpacked to ±1 (fp16 cuBLAS), the one
+    PyTorch call that computes the same distances; the tool's bound."""
     import torch
 
     from ccmh_torch.ops import hamming as ham
+    from ccmh_torch.tools import time_hamming as th
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    W = K_BITS // 32
-    lo, hi = -2 ** 31, 2 ** 31
-    q = torch.randint(lo, hi, (SEARCH_Q, W), generator=gen, device=dev, dtype=torch.int32)
-    r = torch.randint(lo, hi, (GALLERY, W), generator=gen, device=dev, dtype=torch.int32)
+    Q, W = q.shape
+    N = r.shape[0]
     with torch.inference_mode():
+        before, fam_before = ham.launches, dict(ham.launches_by_family)
         got = ham.hamming_distance_packed(q, r)
+        took = [f for f, n in ham.launches_by_family.items() if n > fam_before[f]]
+        check(ham.launches == before + 1 and len(took) == 1,
+              f"packed hamming {what}: launched {ham.launches - before} kernels of {took}")
         want = ham.hamming_distance_packed_reference(q, r)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), "packed hamming differs from its plain version")
-        err = (got - want).abs().max().item()
-        del want
-        ms = cuda_ms(lambda: ham.hamming_distance_packed(q, r))
-        plain_ms = cuda_ms(lambda: ham.hamming_distance_packed_reference(q, r), iters=5)
-    n_bytes = (q.numel() + r.numel() + SEARCH_Q * GALLERY) * 4
-    n_ops = 3.0 * SEARCH_Q * GALLERY * W        # xor, popcount, add per lane
-    bound_ms, bound_by = bound(n_bytes, n_ops, "int32")
-    case = {"case": "search int32", "shape": [SEARCH_Q, GALLERY, W],
-            "max_abs_err": err, "tol": 0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        check(torch.equal(got, want), f"packed hamming {what} differs from its plain version")
+        del got, want
+        row = th.measure(q, r)
+    check(took == [row["family"]],
+          f"packed hamming {what}: the wrapper counted {took}, the entry reports {row['family']}")
+    case = {"case": f"search int32 {what}", "shape": [Q, N, W], "family": took[0],
+            "max_abs_err": 0, "tol": 0, "ms": min(row["ms"]), "ms_in_turns": row["ms"],
+            "family_ms": row["family_ms"], "timed": "C entry, steady",
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "library": "hamming_distance on the codes unpacked to ±1 (fp16 cuBLAS)",
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "popc_floor_ms": row["popc_floor_ms"]}
     say("kernel", kernel="hamming_distance_packed", **case)
     return case
+
+
+def hamming_case():
+    """#3 at the serving path's search: Q=512, N=2^20, K=64."""
+    from ccmh_torch.tools import time_hamming as th
+
+    return hamming_row(th.lanes(SEARCH_Q, K_BITS // 32, 7), th.lanes(GALLERY, K_BITS // 32, 8),
+                       f"K={K_BITS}")
 
 
 def layernorm_case(name, rows, W, dtype, add):
@@ -2442,7 +2466,7 @@ def _test_maps(save_dir):
 
 def lifecycle_path():
     """Phase 12: a tower imported from an OpenAI-layout ``.pt``, DSPH
-    trained (run A, twice), preempted by SIGTERM and resumed (B; C with
+    trained (run A), preempted by SIGTERM and resumed (B; C with
     asynchronous saves, preempted at an epoch's last step), each held to A
     bit for bit; ``--test`` on A's ``.npz`` with its exact mAP and curves
     held to the plain CPU computation; A exported to a reference ``.pth``
@@ -2494,27 +2518,17 @@ def lifecycle_path():
     eval_batches = -(-TRAIN_QUERY // BATCH) + -(-(TRAIN_ITEMS - TRAIN_QUERY) // BATCH)
     cm.set_ln_impl("fused")
     try:
-        # 2. run A, uninterrupted, twice: the card's step is deterministic
-        # when the two end in the same bits
-        results = {}
-        for name in ("A", "A2"):
-            _, launches, seconds = _lifecycle_run(
-                train + ["--save-dir", os.path.join(work, name)], timings)
-            _check_launches(name, launches, _lifecycle_launches(2 * steps_per_epoch,
-                                                                2 * eval_batches))
-            add(launches)
-            results[name] = round(seconds, 2)
+        # 2. run A, uninterrupted (once: B and C below are held to it bit
+        # for bit, which a card whose step were not deterministic would fail)
+        _, launches, seconds = _lifecycle_run(train + ["--save-dir", os.path.join(work, "A")],
+                                              timings)
+        _check_launches("A", launches, _lifecycle_launches(2 * steps_per_epoch,
+                                                           2 * eval_batches))
+        add(launches)
         slot_a, rows_a = _final_slot(run_dir("A")), _metric_rows(run_dir("A"))
         slot_bytes = os.path.getsize(os.path.join(run_dir("A"), "state_ckpt", "e000001",
                                                   "state.pt"))
-        slot_a2 = _final_slot(run_dir("A2"))
-        diff = _tree_diff(slot_a2, slot_a) + (["metrics.jsonl"]
-                                              if _metric_rows(run_dir("A2")) != rows_a else [])
-        say("lifecycle", run="A twice", seconds=[results["A"], results["A2"]],
-            differing=diff[:8], spread=_float_spread(slot_a2, slot_a))
-        check(not diff, f"lifecycle: two uninterrupted runs differ at {diff[:8]}")
-        del slot_a2
-        shutil.rmtree(os.path.join(work, "A2"))
+        say("lifecycle", run="A", seconds=round(seconds, 2))
 
         # 3-4. B: SIGTERM after global step 5 (epoch 1 step 1), synchronous
         # saves; C: asynchronous saves, SIGTERM at epoch 0's last step
@@ -3079,7 +3093,7 @@ MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
 # dim, bytes by which qkv, g and the outputs sit off 16-byte alignment)
 LONG_MMA_EDGES = ((200, 128, 0), (257, 64, 8))
 LONG_TIMING = (2, 12)                        # SDPA: (t_12 - t_2) / 10, min of 2
-WIDE_KS = (512, 2048)                        # packed codes past 256 bits
+WIDE_KS = (64, 128, 256, 512, 1024, 2048)    # packed code lengths timed at N = 2^18
 WIDE_GALLERY = 2 ** 18
 LONG_BATCH, LONG_BIG_BATCH = 32, 128         # ViT-L/14 training batches
 LONG_EVAL_BATCH = 128
@@ -3294,38 +3308,70 @@ def tf32_selftest():
 
 
 def wide_hamming_cases():
-    """#3 at K = 512 and 2,048 bits (Q = 512, N = 2^18) against its plain
-    version, exactly, with its ms beside the bound and the plain ms."""
+    """#3 at every code length from 64 to 2,048 bits (Q = 512, N = 2^18) and
+    one ragged case (Q = 500, N = 2^18 + 37, W = 17: rows of 68 bytes, which
+    the ``lanes`` family lands), each against its plain version,
+    exactly, with the family it took, timed beside the bound, the plain ms
+    and ``hamming_distance``'s (``hamming_row``)."""
     import torch
 
-    from ccmh_torch.ops import hamming as ham
+    from ccmh_torch.tools import time_hamming as th
 
     cases = []
-    for k in WIDE_KS:
-        W = k // 32
-        gen = torch.Generator(device="cuda").manual_seed(k)
-        lo, hi = -2 ** 31, 2 ** 31
-        q = torch.randint(lo, hi, (SEARCH_Q, W), generator=gen, device="cuda", dtype=torch.int32)
-        r = torch.randint(lo, hi, (WIDE_GALLERY, W), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        with torch.inference_mode():
-            before = ham.launches
-            got = ham.hamming_distance_packed(q, r)
-            check(ham.launches == before + 1, f"packed hamming K={k} did not launch its kernel")
-            want = ham.hamming_distance_packed_reference(q, r)
-            check(torch.equal(got, want), f"packed hamming K={k} differs from its plain version")
-            del got, want
-            ms = cuda_ms(lambda: ham.hamming_distance_packed(q, r))
-            plain_ms = cuda_ms(lambda: ham.hamming_distance_packed_reference(q, r), iters=2,
-                               warmup=1)
-        bound_ms, bound_by = bound((q.numel() + r.numel() + SEARCH_Q * WIDE_GALLERY) * 4,
-                                   3.0 * SEARCH_Q * WIDE_GALLERY * W, "int32")
-        case = {"case": f"search int32 K={k}", "shape": [SEARCH_Q, WIDE_GALLERY, W],
-                "max_abs_err": 0, "tol": 0, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-        say("kernel", kernel="hamming_distance_packed", **case)
-        cases.append(case)
+    shapes = [(SEARCH_Q, WIDE_GALLERY, k // 32) for k in WIDE_KS] + [th.RAGGED]
+    for Q, N, W in shapes:
+        what = f"K={32 * W}" + (f" Q={Q} N={N}" if (Q, N, W) == th.RAGGED else "")
+        cases.append(hamming_row(th.lanes(Q, W, W), th.lanes(N, W, W + 1), what))
+        torch.cuda.empty_cache()
     return cases
+
+
+def hamming_sass_report():
+    """#3's tensor-core kernels in the built library (one a family and
+    k-step count KS): each one's ptxas line (registers, spills) and, from
+    ``cuobjdump -sass``, its one-bit products (BGMMA, KS of them) and its
+    POPC instructions: 8 KS, the row popcounts of the one row a thread
+    counts (2 KS 16-byte chunks), none for any output (the old kernels took
+    W for each), and none between the first and the last product.  Fails
+    if a kernel spills, or its counts or their order differ."""
+    from ccmh_torch.ops import build
+
+    kernels, current = {}, None
+    for ln in (build.build_log("hamming") or "").splitlines():
+        if "Compiling entry function" in ln:
+            current = ln.split("'")[1] if "'" in ln else None
+        elif current and "hamming_tc_kernel" in current and ("spill" in ln or "registers" in ln):
+            kernels.setdefault(current, []).append(ln.strip())
+    check(len(kernels) == 16, f"hamming: {len(kernels)} tensor-core kernels in the ptxas "
+                              f"report, not 2 families x 8 k-step counts")
+    listing = build.sass_listing("hamming")
+    report = {}
+    for kernel, lines in kernels.items():
+        spills = [ln for ln in lines
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+        check(not spills, f"hamming: {kernel} spills: {spills}")
+        tma, ks = re.search(r"hamming_tc_kernelILb([01])ELi(\d+)E", kernel).groups()
+        name = f"{'tma' if tma == '1' else 'lanes'} KS={ks}"
+        entry = {"ptxas": lines}
+        if listing is not None:
+            sass = listing.get(kernel, [])
+            products = [i for i, ln in enumerate(sass) if "GMMA" in ln]
+            popc = [i for i, ln in enumerate(sass)
+                    if re.search(r"\*/\s+(@!?U?P\w+\s+)?POPC\s", ln)]
+            check(len(products) == int(ks) and all("BGMMA" in sass[i] for i in products),
+                  f"hamming: {name} has {len(products)} tensor-core products, not {ks} BGMMA")
+            check(len(popc) == 8 * int(ks),
+                  f"hamming: {name} has {len(popc)} POPC, not the row popcounts' {8 * int(ks)}")
+            inside = [i for i in popc if products[0] < i < products[-1]]
+            check(not inside, f"hamming: {name} has {len(inside)} POPC between its products")
+            entry.update(bgmma=len(products), popc=len(popc), popc_between_products=len(inside),
+                         product=sass[products[0]].split("*/", 1)[-1].split()[0])
+        report[name] = entry
+    serialized = [ln.strip() for ln in (build.build_log("hamming") or "").splitlines()
+                  if "C7520" in ln or "C7519" in ln]
+    check(not serialized, f"hamming: ptxas serialises the products: {serialized[:2]}")
+    say("build", library="hamming", tensor_core_kernels=report,
+        sass="cuobjdump -sass" if listing is not None else "no cuobjdump in the toolkit")
 
 
 def _long_tower_pt(path, clip_cfg, seed):
@@ -3565,12 +3611,15 @@ def long_path():
     codes = np.where(rng.rand(2 ** 16, 512) < 0.5, -1, 1).astype(np.int8)
     queries = np.where(rng.rand(SEARCH_Q, 512) < 0.5, -1, 1).astype(np.int8)
     before = read_counts()["hamming_distance_packed"]
+    tensor_before = read_counts()["hamming_tma"]
     d_packed, i_packed = HashIndex(codes, packed=True, device="cuda").search(queries, k=10)
     d_int8, i_int8 = HashIndex(codes, packed=False, device="cuda").search(queries, k=10)
     check(np.array_equal(d_packed, d_int8) and np.array_equal(i_packed, i_int8),
           "a packed K=512 index ranks otherwise than the int8 one")
     check(read_counts()["hamming_distance_packed"] > before,
           "the packed K=512 search never launched the hamming kernel")
+    check(read_counts()["hamming_tma"] > tensor_before,
+          "the packed K=512 search never launched #3's tensor-core kernel")
     add(read_counts())
     say("long", run="packed K=512 index", gallery=len(codes), queries=SEARCH_Q,
         equal_to_int8="distances and indices")
@@ -5082,6 +5131,7 @@ def main() -> int:
               f"both the wgmma kernels and the mma.sync ones (other head dims, views at odd "
               f"offsets)")
     tf32_selftest()
+    hamming_sass_report()
     wide_cases = wide_hamming_cases()
     torch.cuda.empty_cache()
     long_launches, long_families = long_path()
@@ -5119,13 +5169,13 @@ def main() -> int:
     say("launches", path="fsdp", **fsdp)
     say("fsdp", phase_seconds=round(time.perf_counter() - t17, 1))
 
-    by_path = {k: {"serving": serving[k], "training": training[k],
-                   "linear_hash": linear_hash[k], "attn_ablation": ablation[k],
-                   "token_methods": token[k], "extra_state": extra_state[k],
-                   "lifecycle": lifecycle[k], "input": input_launches.get(k, 0),
-                   "long": long_launches.get(k, 0), "rn": rn.get(k, 0),
-                   "parallel": parallel.get(k, 0), "fsdp": fsdp.get(k, 0)}
-               for k in serving}
+    paths = {"serving": serving, "training": training, "linear_hash": linear_hash,
+             "attn_ablation": ablation, "token_methods": token, "extra_state": extra_state,
+             "lifecycle": lifecycle, "input": input_launches, "long": long_launches, "rn": rn,
+             "parallel": parallel, "fsdp": fsdp}
+    by_path = {k: {path: counts.get(k, 0) for path, counts in paths.items()} for k in serving}
+
+    from ccmh_torch.ops import hamming as ham
 
     def entry(name, source, replaces, launches, cases):
         top = cases[0]   # vision fp32 (the default's dominant call) or the search
@@ -5133,6 +5183,8 @@ def main() -> int:
                 "launches": launches, "launches_by_path": by_path[name],
                 **({"long_launches_by_family": long_families[name]}
                    if name in long_families else {}),
+                **({"launches_by_family": {f: by_path[f"hamming_{f}"] for f in ham.FAMILIES}}
+                   if name == "hamming_distance_packed" else {}),
                 "max_abs_err": top["max_abs_err"], "ms": top["ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],
