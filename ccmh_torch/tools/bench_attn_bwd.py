@@ -59,15 +59,13 @@ import torch.nn.functional as F
 from ccmh_torch.device import resolve_device
 from ccmh_torch.ops import attention as attn
 from ccmh_torch.ops import attention_variants as av
+from ccmh_torch.tools.floors import bound
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the kernels whose fp32 products run on the tensor cores as 3xTF32 (three
-# TF32 products each): a third of the 495 TFLOP/s TF32 peak
+# TF32 products each): a third of the TF32 peak
 TENSOR_CORE_KERNELS = ("fused_attention_fwd", "fused_attention_bwd", "backward_x",
                        "forward_stacked", "backward_savedp", "backward_merged",
                        "backward_headpair")
-PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 CHECK_TOL = 3e-2
 SHAPES = (("vision ViT-B/32", 256, 50, 768, 12, False), ("text", 256, 32, 512, 8, True))
 TINY_SHAPES = (("vision tiny", 16, 8, 64, 4, False), ("text tiny", 16, 8, 64, 4, True))
@@ -190,10 +188,12 @@ def bound_us(n_bytes, n_ops, dtype, kernel):
     """The least time the card could take, in us, and what sets it, for
     ``kernel`` (a key of :data:`COUNTERS`): its fp32 products at the rate
     of the path it takes."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    tensor_fp32 = dtype == torch.float32 and kernel in TENSOR_CORE_KERNELS
-    t_ops = n_ops / (PEAK_3XTF32_OPS_PER_S if tensor_fp32 else PEAK_OPS_PER_S[dtype])
-    return 1e6 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    if dtype == torch.float32:
+        op_type = "3xtf32" if kernel in TENSOR_CORE_KERNELS else "float32"
+    else:
+        op_type = "bfloat16"
+    ms, by = bound(n_bytes, n_ops, op_type)
+    return 1e3 * ms, by
 
 
 def _rel_err(got, want, cols) -> float:

@@ -13,7 +13,7 @@ Timing, as the TPU tool: a chained loop, each pair's sum fed back into
 the next pair's images, so no pair repeats another; per pair the minimum
 over 3 repeats of (t_8 - t_2) / 6 from CUDA events.  It prints one JSON
 line: ms per pair, image + text pairs/s, and TFLOP/s from the analytic
-count of :func:`encode_flops` (the port has no compiler cost analysis),
+count of ``floors.encode_flops`` (the port has no compiler cost analysis),
 with the card's name and power limit.
 
 Without a card the default device raises; ``--device cpu`` runs the loop
@@ -36,28 +36,10 @@ from ccmh_torch.clip.model import (
     ClipConfig, cast_clip_params, init_clip_params, text_forward, vision_forward,
 )
 from ccmh_torch.device import resolve_device
+from ccmh_torch.tools.floors import TEXT_LEN, encode_flops
 
-TEXT_LEN = 32
 LOOPS = (2, 8)
 REPEATS = 3
-
-
-def encode_flops(cfg: ClipConfig, B: int, text_len: int = TEXT_LEN) -> int:
-    """Multiply-add FLOPs (2 a product term) of one encode pair at batch B.
-
-    A block of width W over L tokens: the qkv, output and two MLP
-    projections, 2 B L W (3 W + W + 8 W) = 24 B L W^2, and the attention's
-    two products q k^T and p v over all heads, 4 B L^2 W (the full [L, L],
-    as the kernels compute it, causal or not).  Plus the patch embedding
-    (2 B P 3 p^2 W) and the two output projections of the pooled rows
-    (2 B W E each).  Softmax, LayerNorm and QuickGELU are not counted."""
-    def tower(layers, width, tokens):
-        return layers * (24 * B * tokens * width ** 2 + 4 * B * tokens ** 2 * width)
-
-    vw, tw, E = cfg.vision_width, cfg.transformer_width, cfg.embed_dim
-    patch = 2 * B * cfg.n_patches * 3 * cfg.vision_patch_size ** 2 * vw
-    return (patch + tower(cfg.vision_layers, vw, cfg.n_patches + 1) + 2 * B * vw * E
-            + tower(cfg.transformer_layers, tw, text_len) + 2 * B * tw * E)
 
 
 def inputs(cfg: ClipConfig, B: int, device: torch.device, dtype: torch.dtype):

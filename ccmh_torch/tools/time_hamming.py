@@ -63,15 +63,10 @@ import torch
 from ccmh_torch.ops import build
 from ccmh_torch.ops import hamming as ham
 from ccmh_torch.ops.packing import unpack_codes
+# the card's rates: b1 is 8x int8, which `--rate` measured at 1.582e16 on
+# an H100 80GB HBM3 at 700 W, 8.0x
+from ccmh_torch.tools.floors import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
-HBM_BYTES_PER_S = 3.35e12
-# peak operations a second of one H100 SXM by operand type: int8 the data
-# sheet's dense rate; the data sheet gives no one-bit rate, and wgmma's
-# one-bit product takes 256 bits of K a step where int8's takes 32 at the
-# same shape otherwise, so b1 is 8x int8.  `--rate` measured 1.582e16 on
-# an H100 80GB HBM3 at 700 W, 8.0x.
-PEAK_OPS_PER_S = {"int8": 1979e12, "b1": 8 * 1979e12}
-POPC_PER_S = 132 * 16 * 1.98e9           # __popc: 16 a clock an SM at the 1.98 GHz maximum
 KSTEP_BITS = 256                         # one k-step of the tensor cores' one-bit product
 LOOPS = (10, 60)
 REPEATS = 3
@@ -85,7 +80,7 @@ def bound(Q: int, N: int, W: int):
     k_padded = -(-32 * W // KSTEP_BITS) * KSTEP_BITS
     t_ops = 2.0 * Q * N * k_padded / PEAK_OPS_PER_S["b1"]
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            1e3 * Q * N * W / POPC_PER_S)
+            1e3 * Q * N * W / PEAK_OPS_PER_S["popc"])
 
 
 def steady_ms(call) -> float:
@@ -241,7 +236,7 @@ def tc_rate(blocks: int = 132 * 8, reps: int = 2000) -> dict:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return {"b1_and_popc_ops_per_s": ops / (best * 1e-3), "ms": best, "blocks": blocks,
-            "reps": reps, "peak_ops_per_s": PEAK_OPS_PER_S}
+            "reps": reps, "peak_ops_per_s": {k: PEAK_OPS_PER_S[k] for k in ("int8", "b1")}}
 
 
 def steady_ms_few(fn, iters: int = 3) -> float:

@@ -220,10 +220,12 @@ def clip_embeds(params: Params, clip_cfg: ClipConfig, batch: Dict[str, torch.Ten
     batch's ``key_padding_mask`` where it has one.  Every method's loss
     comes here, and here alone the run's ``remat`` applies, as in ``ccmh``;
     it and every encoder reach the towers through :func:`image_features`
-    and :func:`text_features`, the mesh's seam."""
+    and :func:`text_features`, the mesh's seam.  A profile of the step
+    finds them under the range "towers" (``ccmh_torch/tools/step_split.py``)."""
     remat = resolve_remat(cfg)
-    return (image_features(params, clip_cfg, batch["image"], cfg, features=features,
-                           dtype=dtype, remat=remat),
-            text_features(params, clip_cfg, batch["text"], cfg, features=features,
-                          key_padding_mask=batch.get("key_padding_mask"), dtype=dtype,
-                          remat=remat))
+    with torch.profiler.record_function("towers"):
+        return (image_features(params, clip_cfg, batch["image"], cfg, features=features,
+                               dtype=dtype, remat=remat),
+                text_features(params, clip_cfg, batch["text"], cfg, features=features,
+                              key_padding_mask=batch.get("key_padding_mask"), dtype=dtype,
+                              remat=remat))

@@ -117,42 +117,80 @@ def clip_params_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
-                    extra_optimizer: Optional[torch.optim.Optimizer] = None,
-                    grad_clip: float = 0.0, custom_step=None):
+class TrainStep:
     """``(state, batch) -> (state, metrics)``: one eager step.
 
     ``loss_fn(params, extra, aux, batch, generator) -> (loss, (new_aux,
-    metrics))``; one backward differentiates the parameters and ``extra``
-    together, then ``optimizer`` steps the parameters and
-    ``extra_optimizer`` the ``extra`` leaves (``ccmh``'s two updates of
-    one step).  ``grad_clip`` > 0 clips the gradients of ``optimizer``'s
-    parameters by their global norm first (``ccmh`` chains
-    ``clip_by_global_norm`` before BertAdam).  ``metrics`` holds detached
-    device scalars, ``loss`` among them (reading them synchronises with the
-    card, so the caller decides when).  ``custom_step``, a method's own
-    ``(state, batch) -> (state, metrics)`` (DGHDGH's sequenced mode, built
-    by ``Method.custom_step``), replaces the generic body."""
-    if custom_step is not None:
-        return custom_step
-    optimizers = [optimizer] + ([extra_optimizer] if extra_optimizer is not None else [])
+    metrics))``.  The step is three parts, each under a
+    ``torch.profiler.record_function`` range (a profile of the step, and
+    ``ccmh_torch/tools/step_split.py``'s timings, split it by these; the
+    towers inside the loss run under "towers", ``methods/base.py``
+    ``clip_embeds``):
 
-    def step_fn(state: TrainState, batch: Dict[str, Any]):
-        for opt in optimizers:
+    * :meth:`forward` ("heads+loss"): zero the gradients, the loss forward;
+    * :meth:`backward` ("backward"): one backward differentiates the
+      parameters and ``extra`` together, then the mesh's gradient sum;
+    * :meth:`optimize` ("optimizer"): ``grad_clip`` > 0 clips the gradients
+      of ``optimizer``'s parameters by their global norm (``ccmh`` chains
+      ``clip_by_global_norm`` before BertAdam), then ``optimizer`` steps
+      the parameters and ``extra_optimizer`` the ``extra`` leaves
+      (``ccmh``'s two updates of one step).
+
+    ``metrics`` holds detached device scalars, ``loss`` among them (reading
+    them synchronises with the card, so the caller decides when)."""
+
+    def __init__(self, loss_fn: LossFn, optimizer: BertAdam,
+                 extra_optimizer: Optional[torch.optim.Optimizer] = None,
+                 grad_clip: float = 0.0):
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.optimizers = [optimizer] + ([extra_optimizer] if extra_optimizer is not None
+                                         else [])
+        self.grad_clip = grad_clip
+
+    def forward(self, state: TrainState, batch: Dict[str, Any]):
+        """``(loss, (new_aux, metrics))`` with the gradients zeroed."""
+        for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
-        loss, (new_aux, metrics) = loss_fn(state.params, state.extra, state.aux, batch,
-                                           state.generator)
-        loss.backward()
-        sync_gradients(state.params)
-        if grad_clip > 0:
-            clip_params_by_global_norm_([p for group in optimizer.param_groups
-                                         for p in group["params"]], grad_clip)
-        for opt in optimizers:
-            opt.step()
+        with torch.profiler.record_function("heads+loss"):
+            return self.loss_fn(state.params, state.extra, state.aux, batch, state.generator)
+
+    def backward(self, state: TrainState, loss: torch.Tensor) -> None:
+        with torch.profiler.record_function("backward"):
+            loss.backward()
+            sync_gradients(state.params)
+
+    def optimize(self) -> None:
+        with torch.profiler.record_function("optimizer"):
+            if self.grad_clip > 0:
+                clip_params_by_global_norm_([p for group in self.optimizer.param_groups
+                                             for p in group["params"]], self.grad_clip)
+            for opt in self.optimizers:
+                opt.step()
+
+    @staticmethod
+    def finish(state: TrainState, loss: torch.Tensor, new_aux, metrics):
+        """Take the step's ``aux`` and count it; ``(state, metrics)``."""
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         state.aux = new_aux
         state.step += 1
         return state, metrics
 
-    return step_fn
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        loss, (new_aux, metrics) = self.forward(state, batch)
+        self.backward(state, loss)
+        self.optimize()
+        return self.finish(state, loss, new_aux, metrics)
+
+
+def make_train_step(loss_fn: LossFn, optimizer: BertAdam,
+                    extra_optimizer: Optional[torch.optim.Optimizer] = None,
+                    grad_clip: float = 0.0, custom_step=None):
+    """The :class:`TrainStep` of ``loss_fn`` and the optimizers.
+    ``custom_step``, a method's own ``(state, batch) -> (state, metrics)``
+    (DGHDGH's sequenced mode, built by ``Method.custom_step``), replaces
+    the generic body."""
+    if custom_step is not None:
+        return custom_step
+    return TrainStep(loss_fn, optimizer, extra_optimizer, grad_clip)

@@ -5,7 +5,8 @@ LayerNorm kernels, the token-level methods (MITH, DPSIH, DHaPH), the
 methods with extra state (DNPH, DPBE, DGHDGH, TwDH), the lifecycle of a
 model (tower import, preemption and resume, ``--test``, export), the
 real-data input path, the towers past 128 tokens (ViT-L/14), the
-ModifiedResNet tower (RN50), and data and tensor parallelism.
+ModifiedResNet tower (RN50), data and tensor parallelism, FSDP, the train
+step's split with its floors, and the quickstart.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,8 @@ checkout.  It exits non-zero, printing no result, when there is no card or
 the ``ccmh_torch`` package is not beside it.  Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA kernel from the sources in the checkout, one ``nvcc`` per source;
+   CUDA kernel from the sources in the checkout, one ``nvcc`` per source,
+   all started together;
 2. each kernel against its plain PyTorch version on the card, at the
    paths' shapes: the attention forward and backward (vision B=256 L=50
    D=768 H=12, text B=256 L=32 D=512 H=8 causal, MITH's concept
@@ -152,8 +154,9 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
 13. the real-data input path, LayerNorm kernels on: a 12,000-item JPEG
    dataset at MIRFlickr-25K's split sizes, decoded on the card's host
    and held to the fixtures' PIL decodes, BPE rates, four transports and
-   a streamed and a resident epoch bit for bit, JPEG serving, encode at
-   prefetch depth 1 and 2 (``[input]`` lines);
+   a streamed and a resident epoch over the train split's first 2,576
+   items bit for bit, JPEG serving, encode at prefetch depth 1 and 2
+   (``[input]`` lines);
 14. the towers past 128 tokens: the long path of #1 and #2 at ViT-B/16
    (B=256, L=197, H=12), ViT-L/14 (B=64, L=257, H=16) and ViT-L/14@336
    (B=64, L=577, H=16), fp32 and bf16, and at the edges L in {1, 129,
@@ -237,6 +240,19 @@ the ``ccmh_torch`` package is not beside it.  Phases, one line each:
    the same DP-then-FSDP check for ViT-L/14 DSPH fp32 at batch 16; (c)
    four gloo ranks, a (2, 2) mesh: one DSPH step within 1e-3 of one
    rank's, a quarter of ``qkv_w`` on each rank (``[fsdp]`` lines).
+18. the train step's split (``tools/profile_torch_training.py``, DSPH,
+   bf16 towers, LayerNorm kernels on): ``--quick`` at ViT-B/32, then the
+   whole split at ViT-B/32 (batch 256), ViT-L/14 (32) and RN50 (128): the
+   full step, the towers, the heads and loss, the backward, the optimizers
+   and the unattributed rest, each in host ms by CUDA events over chained
+   calls and device ms by ``torch.profiler`` ranges, with its idle share
+   and its floor at the card's rates (``ccmh_torch/tools/floors.py``); the
+   towers' analytic FLOP count equal to ``FlopCounterMode``'s under the
+   plain attention; then ``examples/quickstart_torch.py --device cuda``
+   (a JPEG dataset, DCHMT through the CLI with checkpoints, ``--test``,
+   a top-5 text→image search from the ``.npz``).  Counters set to 0 just
+   before each run and read just after, each equal to the count its
+   passes imply (``[split]``, ``[quickstart]`` lines).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -264,17 +280,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is the larger of its bytes over the memory rate and its operations over
-# the peak rate of their type.  The attention kernels #1 and #2 run their
-# fp32 products on the tensor cores as 3xTF32 (three TF32 products each), a
-# third of the TF32 peak.  The packed Hamming kernel #3's bound is
-# ccmh_torch/tools/time_hamming.py's (its PEAK_OPS_PER_S holds the one-bit
-# rate), which times it.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
-# the rate of the attention kernels' products, by input type
-ATTN_OP_TYPE = {"float32": "3xtf32", "bfloat16": "bfloat16"}
+# A kernel's bound is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type, from the one table of the
+# card's rates, ccmh_torch/tools/floors.py (attention kernels #1 and #2 run
+# their fp32 products on the tensor cores as 3xTF32, a third of the TF32
+# peak; the packed Hamming kernel #3's bound is
+# ccmh_torch/tools/time_hamming.py's, which times it).
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 STEADY_LOOPS = (40, 240)   # the attention kernels' and SDPA's steady timing
@@ -426,48 +437,6 @@ def host_s(fn, reps: int = 3) -> float:
     return best
 
 
-def bound(n_bytes: float, n_ops: float, op_type: str):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[op_type]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def time_train_steps(loss_fn, st, batch, optimizers, steps: int, warm: int,
-                     grad_clip: float = 0.0) -> dict:
-    """Host ms per eager train step and its forward, backward and optimizer
-    device ms by CUDA events, over ``steps`` steps after ``warm`` (the
-    method's global gradient clip in the optimizer part, as in the step)."""
-    import torch
-
-    from ccmh_torch.train.state import clip_by_global_norm_
-
-    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    t_host = 0.0
-    for i in range(warm + steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        ev[0].record()
-        for opt in optimizers:
-            opt.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(st.params, st.extra, st.aux, batch, st.generator)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        if grad_clip:
-            clip_by_global_norm_([p.grad for g in optimizers[0].param_groups
-                                  for p in g["params"] if p.grad is not None], grad_clip)
-        for opt in optimizers:
-            opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        if i >= warm:
-            t_host += time.perf_counter() - h0
-            for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
-                parts[k] += ev[a].elapsed_time(ev[b]) / steps
-    return {"step_ms": 1e3 * t_host / steps, **{f"{k}_ms": v for k, v in parts.items()}}
-
-
 # --------------------------------------------------------------------- phase 1
 
 def phase_build():
@@ -492,6 +461,7 @@ def attention_case(name, B, L, H, causal, dtype):
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
     from ccmh_torch.tools import bench_attn_bwd as bench
+    from ccmh_torch.tools import floors
 
     dev = torch.device("cuda")
     D, Dh = H * 64, 64
@@ -515,7 +485,7 @@ def attention_case(name, B, L, H, causal, dtype):
     item = qkv.element_size()
     n_bytes = (qkv.numel() + qkv_b.numel() + B * L * D) * item + (L * L * 4 if causal else 0)
     n_ops = 4.0 * B * H * L * L * Dh
-    bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
+    bound_ms, bound_by = floors.bound(n_bytes, n_ops, floors.ATTN_OP_TYPE[tname])
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "tol": ATTN_TOL[tname], "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -531,6 +501,7 @@ def attention_bwd_case(name, B, L, H, causal, dtype):
     from ccmh_torch.clip.model import causal_mask
     from ccmh_torch.ops import attention as attn
     from ccmh_torch.tools import bench_attn_bwd as bench
+    from ccmh_torch.tools import floors
 
     dev = torch.device("cuda")
     D, Dh = H * 64, 64
@@ -561,7 +532,7 @@ def attention_bwd_case(name, B, L, H, causal, dtype):
     item = qkv.element_size()
     n_bytes = (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item + (L * L * 4 if causal else 0)
     n_ops = 10.0 * B * H * L * L * Dh
-    bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
+    bound_ms, bound_by = floors.bound(n_bytes, n_ops, floors.ATTN_OP_TYPE[tname])
     case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
             "causal": causal, "max_abs_err": err, "output_scale": scale,
             "tol": ATTN_TOL[tname], "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -1244,6 +1215,7 @@ def beside_training(state):
 
     from ccmh_torch.clip import model as cm
     from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.tools.step_split import time_train_steps
 
     trainer = state["trainer"]
     cfg, clip_cfg, method = trainer.cfg, trainer.clip_cfg, trainer.method
@@ -1455,6 +1427,7 @@ def beside_linear_hash(state):
 
     from ccmh_torch.clip import model as cm
     from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.tools.step_split import time_train_steps
 
     trainer = state["dsph"]
     cfg, clip_cfg, method, st = trainer.cfg, trainer.clip_cfg, trainer.method, trainer.state
@@ -1493,7 +1466,7 @@ def beside_linear_hash(state):
             for impl in ("plain", "fused", "fused", "plain"):
                 cm.set_ln_impl(impl)
                 runs.append({"dtype": name, "ln": impl,
-                             **time_train_steps(loss_fn, st, batch, opts, steps=8, warm=2)})
+                             **time_train_steps(loss_fn, st, batch, opts, steps=4, warm=1)})
     finally:
         cm.set_ln_impl("plain")
     say("rates", dsph_train_step_batch=TRAIN_BATCH, runs=runs)
@@ -2051,6 +2024,7 @@ def beside_token_methods(state):
 
     from ccmh_torch.clip import model as cm
     from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.tools.step_split import time_train_steps
 
     trainer = state["mith"]
     cfg, clip_cfg, method, st = trainer.cfg, trainer.clip_cfg, trainer.method, trainer.state
@@ -2196,6 +2170,7 @@ def extra_state_method(label, name, sets, k_bits, timings):
     from ccmh_torch.losses import dnph_tomm
     from ccmh_torch.train.optim import tree_leaves_with_path
     from ccmh_torch.train.trainer import Trainer
+    from ccmh_torch.tools.step_split import time_train_steps
 
     data = os.path.join(WORK, "train_data")      # written by phase 5
     twdh = os.path.join(REPO, "ccmh_torch", "assets", "twdh", "mirflickr.npz")
@@ -2644,8 +2619,12 @@ def lifecycle_path():
 
 # MIRFlickr-25K's split sizes (query 2,000, train 10,000, retrieval 10,000)
 INPUT_ITEMS, INPUT_QUERY, INPUT_TRAIN = 12000, 2000, 10000
+# the transports and the streamed and resident epochs train on the split's
+# first 2,576 items: 20 steps of 128 and a ragged 16, as the whole split's
+# 78 and 16
+INPUT_EPOCH_TRAIN = 2576
 INPUT_SIZES = ((375, 500), (500, 375))     # MIRFlickr's two orientations
-INPUT_STEPS = 16                           # the transports' bit-equality run
+INPUT_STEPS = 8                            # the transports' bit-equality run
 INPUT_EVAL_BATCH = 256
 # the card's decode of the fixtures against ccmh's PIL outputs, LSB at 224:
 # libjpeg decodes as PIL does (ccmh's own gate, tests/test_native_loader.py);
@@ -2783,8 +2762,10 @@ def _with(patches, fn):
 
 
 def input_transports(data, work):
-    """Gate 3: the first 16 steps of epoch 0 in four transports, bit-equal
-    step losses and parameters after step 16."""
+    """Gate 3: the first 8 steps of epoch 0 over the train split's first
+    2,576 items in four transports (the chunked mode's region of 759 rows
+    and two of its 512-row superblocks), bit-equal step losses and
+    parameters after step 8."""
     import torch
 
     from ccmh_torch import cli
@@ -2793,13 +2774,13 @@ def input_transports(data, work):
 
     base = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
             "--data-dir", data, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
-            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_TRAIN),
+            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_EPOCH_TRAIN),
             "--eval-batch", str(INPUT_EVAL_BATCH), "--display-step", "1",
             "--num-workers", "8", "--device", "cuda"]
     cache_dir = os.path.join(work, "cache")
     row = 224 * 224 * 3
-    # chunked: a budget under the 1.51 GB split, above two 512-row superblocks
-    chunk_mb = 1024
+    # chunked: a budget under the 388 MB split, above two 512-row superblocks
+    chunk_mb = 256
     modes = (("streaming", ["--device-resident", "off"]),
              ("cached", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "off"]),
              ("resident", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "on"]),
@@ -2831,7 +2812,7 @@ def input_transports(data, work):
         check(all(math.isfinite(l) for l in losses), f"input {name}: losses {losses}")
         ck = tr.train_chunked
         if name == "chunked":
-            check(ck is not None and ck["R"] < INPUT_TRAIN
+            check(ck is not None and ck["R"] < INPUT_EPOCH_TRAIN
                   and ck["region"].nbytes + 2 * ck["M"] * row <= chunk_mb * 2**20,
                   f"input chunked: the plan {ck and (ck['R'], ck['M'])} is not chunked in budget")
         check((tr.train_resident is not None) == (name == "resident"),
@@ -2858,9 +2839,11 @@ def input_transports(data, work):
 
 
 def input_epochs(data, work):
-    """Gate 4: a whole epoch streamed and one resident (79 steps, a ragged
-    last batch of 16) through ``ccmh_torch.cli.main``, each with ``valid``
-    (streamed, then resident): bit-equal parameters, equal codes and mAPs;
+    """Gate 4: an epoch streamed and one resident over the train split's
+    first 2,576 items (21 steps, a ragged last batch of 16) through
+    ``ccmh_torch.cli.main``, each with ``valid`` over the whole query and
+    retrieval splits (streamed, then resident): bit-equal parameters,
+    equal codes and mAPs;
     epoch seconds, step ms, device ms by CUDA events, idle share and the
     streamed epoch's share spent waiting on the batches."""
     import scipy.io as scio
@@ -2871,7 +2854,7 @@ def input_epochs(data, work):
 
     base = ["--method", "DSPH", "--dataset", "synthetic", "--output-dim", str(K_BITS),
             "--data-dir", data, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
-            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_TRAIN),
+            "--query-num", str(INPUT_QUERY), "--train-num", str(INPUT_EPOCH_TRAIN),
             "--eval-batch", str(INPUT_EVAL_BATCH), "--display-step", "100",
             "--num-workers", "8", "--device", "cuda"]
     cache_dir = os.path.join(work, "cache")
@@ -2879,7 +2862,7 @@ def input_epochs(data, work):
             ("resident", ["--cache-images", "--cache-dir", cache_dir, "--device-resident", "on",
                           "--save-model"]))
     results, trainers, launches = {}, {}, {}
-    n_steps = -(-INPUT_TRAIN // TRAIN_BATCH)
+    n_steps = -(-INPUT_EPOCH_TRAIN // TRAIN_BATCH)
     for name, flags in runs:
         steps = [0]
         rec, patches = _input_hooks(steps)
@@ -3016,7 +2999,7 @@ def input_path():
     """Phase 13: the real-data input path, LayerNorm kernels on.  A 12,000
     item JPEG dataset (MIRFlickr-25K's split sizes and orientations)
     written by the port's encoder; the fixtures against PIL; decode and BPE
-    rates; the four transports bit-equal over 16 steps; a streamed and a
+    rates; the four transports bit-equal over 8 steps; a streamed and a
     resident epoch with ``valid``; JPEG serving.  Returns the summed
     launches of the runs."""
     import torch
@@ -3055,14 +3038,14 @@ def input_path():
             for family, n in counts.items():
                 families.setdefault(kernel, dict.fromkeys(counts, 0))[family] += n
 
-    n_steps = -(-INPUT_TRAIN // TRAIN_BATCH)
+    n_steps = -(-INPUT_EPOCH_TRAIN // TRAIN_BATCH)
     eval_batches = (-(-INPUT_QUERY // INPUT_EVAL_BATCH)
                     + -(-(INPUT_ITEMS - INPUT_QUERY) // INPUT_EVAL_BATCH))   # query, retrieval
     cm.set_ln_impl("fused")
     try:
         transports, _ = input_transports(data, work)
         for name, launches in transports.items():
-            _check_launches(f"{name} 16 steps", launches,
+            _check_launches(f"{name} {INPUT_STEPS} steps", launches,
                             extra_state_launches(INPUT_STEPS, 0, ClipConfig()), phase="input")
             add(launches)
         epochs, epoch_results, model = input_epochs(data, work)
@@ -3183,6 +3166,7 @@ def long_attention_cases(name, B, L, H, dtype):
 
     from ccmh_torch.ops import attention as attn
     from ccmh_torch.tools import bench_attn_bwd as bench
+    from ccmh_torch.tools import floors
 
     tname = "float32" if dtype == torch.float32 else "bfloat16"
     qkv, qkv_b, g = _long_inputs(B, L, H, dtype, seed=L * 1000 + H)
@@ -3222,7 +3206,7 @@ def long_attention_cases(name, B, L, H, dtype):
              4.0 * B * H * L * L * Dh),
             ("bwd", err_b, (2 * qkv.numel() + g.numel() + qkv_b.numel()) * item,
              10.0 * B * H * L * L * Dh)):
-        bound_ms, bound_by = bound(n_bytes, n_ops, ATTN_OP_TYPE[tname])
+        bound_ms, bound_by = floors.bound(n_bytes, n_ops, floors.ATTN_OP_TYPE[tname])
         case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
                 "causal": False, "path": family, "max_abs_err": err, "tol": ATTN_TOL[tname],
                 "ms": ms[kind], "plain_ms": plain[kind], "library_ms": lib[kind],
@@ -3739,19 +3723,6 @@ RN_BF16_COSINE = 0.999       # bf16 embeddings against fp32, each row
 RN_GRAD_PROBE = 2            # fp32 gradients computed twice, per cuDNN mode
 
 
-def rn50_config():
-    """OpenAI's RN50 (openai/CLIP clip/model.py build_model and
-    ModifiedResNet): stages of 3, 4, 6 and 3 bottlenecks from a width-64
-    stem, a 32-head attention pool over 7x7 + 1 tokens 2,048 wide, a
-    1,024-wide embedding and ViT-B/32's 12-layer text tower."""
-    from ccmh_torch.clip.model import ClipConfig
-
-    return ClipConfig(embed_dim=1024, image_resolution=224, vision_layers=(3, 4, 6, 3),
-                      vision_width=64, vision_patch_size=None, context_length=77,
-                      vocab_size=49408, transformer_width=512, transformer_heads=8,
-                      transformer_layers=12)
-
-
 def _rn_tower(seed):
     """A seeded RN50 CLIP tree on the card: ``init_clip_params`` with every
     BatchNorm's scale and bias and its running mean and var redrawn as a
@@ -3761,6 +3732,7 @@ def _rn_tower(seed):
     import torch
 
     from ccmh_torch.clip.model import init_clip_params
+    from ccmh_torch.tools.floors import rn50_config
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     clip = init_clip_params(gen, rn50_config())
@@ -3833,6 +3805,8 @@ def rn_launches(text_passes: int, train_steps: int) -> dict:
     """The launches an RN run implies, LayerNorm kernels on: the tower
     runs no kernel, the text tower's 12 blocks take #1, #4 and #5 once a
     pass each and #2 once a train step each."""
+    from ccmh_torch.tools.floors import rn50_config
+
     layers = rn50_config().transformer_layers
     return {"fused_attention_fwd": layers * text_passes,
             "fused_attention_bwd": layers * train_steps,
@@ -3881,6 +3855,7 @@ def rn_serving(work, tower, clip0, images, total):
     from ccmh_torch.train.checkpoint import save_checkpoint
     from ccmh_torch.train.methods import get_method
     from ccmh_torch.train.methods.base import image_embeds
+    from ccmh_torch.tools.floors import rn50_config
 
     rn50 = rn50_config()
     ckpt = os.path.join(work, "rn50_dchmt_k64.npz")
@@ -3988,6 +3963,8 @@ def rn_path():
     from ccmh_torch.models.heads import linear_hash
     from ccmh_torch.train.methods.base import image_embeds, text_embeds
     from ccmh_torch.train.optim import tree_leaves_with_path
+    from ccmh_torch.tools.floors import rn50_config
+    from ccmh_torch.tools.step_split import time_train_steps
 
     work = os.path.join(WORK, "rn")
     os.makedirs(work, exist_ok=True)
@@ -4971,6 +4948,128 @@ def fsdp_path():
     return launches
 
 
+# -------------------------------------------------------------------- phase 18
+
+# (tower, batch): ViT-B/32 at profile_step.py's 256; the others at half the
+# tool's default, to keep the script inside its time
+SPLIT_RUNS = (("vit-b-32", 256), ("vit-l-14", 32), ("rn50", 128))
+SPLIT_LOOPS = ("--loops", "1,2", "--repeats", "1")
+QUICKSTART_EPOCHS = 2
+
+
+def _split_launches(row) -> dict:
+    """The launches a run of the split tool implies (LayerNorm kernels on):
+    #1 once per attention layer of every tower forward on the kernels, #2
+    once per such layer of every backward, #4 and #5 once per block of
+    every forward, the plain-attention counting passes' included."""
+    fused, plain = row["passes"]["fused_attention"], row["passes"]["plain_attention"]
+    layers = row["attention_layers"]
+    ln = (fused["forward"] + plain["forward"]) * layers
+    return {"fused_attention_fwd": fused["forward"] * layers,
+            "fused_attention_bwd": fused["backward"] * layers,
+            "fused_layer_norm": ln, "fused_add_layer_norm": ln}
+
+
+def _split_line(row) -> dict:
+    """A split's figures for its "[split]" line."""
+    def r(x):
+        return None if x is None else round(x, 4)
+
+    return {"tower": row["tower"], "batch": row["batch"], "dtype": row["dtype"],
+            "ln": row["ln"], "quick": row["quick"],
+            "parts": {n: {k: r(v) for k, v in p.items()} for n, p in row["parts"].items()},
+            "floors": row["floors"],
+            "gflop": {k: round(v["total"] / 1e9, 3) if isinstance(v, dict) else round(v / 1e9, 3)
+                      for k, v in row["flops"].items()
+                      if k in ("towers_fwd", "towers_bwd", "heads_loss_fwd", "heads_loss_bwd")},
+            "towers_count_exact": row["flops"]["towers_count_exact"],
+            "device_ms_by_class": row.get("device_ms_by_class"),
+            "device_ms_linked_outside_ranges": row.get("device_ms_linked_outside_ranges"),
+            "card": row["card"]}
+
+
+def split_path():
+    """Phase 18: the step's split (``tools/profile_torch_training.py``)
+    with its floors, and the quickstart, on the card.  The split ``--quick``
+    at ViT-B/32, then one whole split at each tower's full width (DSPH,
+    bf16 towers, LayerNorm kernels on; the batches of ``SPLIT_RUNS``); each
+    run's towers count held to ``FlopCounterMode``'s
+    under the plain attention, exactly, and its launches of #1, #2, #4,
+    #5 to the count its passes imply.  Then ``examples/quickstart_torch.py
+    --device cuda`` (DCHMT, the tiny tower, 2 epochs), its launches of #1
+    and #2 as its steps and encodes imply.  Counters set to 0 just before
+    each run and read just after; returns (the split's summed launches,
+    the quickstart's)."""
+    import torch
+
+    from examples import quickstart_torch
+    from tools import profile_torch_training as ptt
+
+    total = {}
+    runs = [("vit-b-32", ["--quick"])] + [(t, ["--batch", str(b), *SPLIT_LOOPS])
+                                          for t, b in SPLIT_RUNS]
+    for tower, flags in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = ptt.main(["--tower", tower, "--ln", "fused"] + flags)[0]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        what = f"{tower}{' --quick' if row['quick'] else ''}"
+        _check_launches(what, launches, _split_launches(row), phase="split")
+        check(row["flops"]["towers_count_exact"],
+              f"split {what}: the towers' analytic count {row['flops']['towers_fwd']}, "
+              f"{row['flops']['towers_bwd']} is not FlopCounterMode's "
+              f"{row['flops']['towers_counted']}")
+        parts = row["parts"]
+        check(all(p["host_ms"] is not None and math.isfinite(p["host_ms"])
+                  for p in parts.values()), f"split {what}: parts {parts}")
+        check(parts["full"]["host_ms"] > 0 and 0 < parts["full"]["floor_share"] < 1,
+              f"split {what}: the full step {parts['full']}")
+        if not row["quick"]:
+            for name in ("towers", "heads+loss", "backward", "optimizer"):
+                check(parts[name]["device_ms"] > 0, f"split {what}: no device time in {name}")
+        say("split", seconds=round(seconds, 1), launches={k: launches[k] for k in LIFECYCLE_KERNELS},
+            **_split_line(row))
+        total = _add_counts(total, launches)
+        torch.cuda.empty_cache()
+
+    work = os.path.join(WORK, "quickstart")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = quickstart_torch.main(["--device", "cuda", "--epochs", str(QUICKSTART_EPOCHS),
+                                 "--workdir", work])
+    torch.cuda.synchronize()
+    quickstart = read_counts()
+    seconds = time.perf_counter() - t0
+    # a step runs both towers forward and backward; valid encodes the query
+    # (12 items) and the retrieval split (36) at 12 a batch after every
+    # epoch, --test once more; serving encodes the gallery and the queries
+    # in one batch each
+    steps = QUICKSTART_EPOCHS * 2
+    encodes = (QUICKSTART_EPOCHS + 1) * (1 + 3) + 1
+    want = {**extra_state_launches(steps, encodes, _tiny_clip()),
+            "fused_layer_norm": 0, "fused_add_layer_norm": 0}
+    _check_launches("quickstart", quickstart, want, phase="quickstart")
+    dists, ids = out["distances"], out["ids"]
+    check(((ids >= 0) & (ids < out["gallery"])).all()
+          and ((dists >= 0) & (dists <= 16)).all() and (np.diff(dists, axis=1) >= 0).all(),
+          f"quickstart: top-5 ids {ids.tolist()} at distances {dists.tolist()}")
+    check(os.path.isfile(out["checkpoint"]), f"quickstart: no {out['checkpoint']}")
+    say("quickstart", seconds=round(seconds, 1), launches=quickstart,
+        top5_ids=ids.tolist(), distances=dists.tolist())
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total, quickstart
+
+
+def _tiny_clip():
+    from ccmh_torch.clip.model import ClipConfig
+
+    return ClipConfig.tiny()
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -5169,10 +5268,18 @@ def main() -> int:
     say("launches", path="fsdp", **fsdp)
     say("fsdp", phase_seconds=round(time.perf_counter() - t17, 1))
 
+    # the step's split with its floors at every tower, and the quickstart;
+    # each run resets the counts just before it and reads them just after
+    t18 = time.perf_counter()
+    split, quickstart = split_path()
+    say("launches", path="split", **split)
+    say("launches", path="quickstart", **quickstart)
+    say("split", phase_seconds=round(time.perf_counter() - t18, 1))
+
     paths = {"serving": serving, "training": training, "linear_hash": linear_hash,
              "attn_ablation": ablation, "token_methods": token, "extra_state": extra_state,
              "lifecycle": lifecycle, "input": input_launches, "long": long_launches, "rn": rn,
-             "parallel": parallel, "fsdp": fsdp}
+             "parallel": parallel, "fsdp": fsdp, "split": split, "quickstart": quickstart}
     by_path = {k: {path: counts.get(k, 0) for path, counts in paths.items()} for k in serving}
 
     from ccmh_torch.ops import hamming as ham

@@ -19,9 +19,11 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "ccmh", "optax", "orbax", "regex", "PIL", "f
 
 
 def _port_files():
-    # the port's scripts under tools/ run on the card's machine too
+    # the port's scripts under tools/ and examples/ run on the card's
+    # machine too
     files = [os.path.join(REPO, "chip_smoke.py")]
     files += glob.glob(os.path.join(REPO, "tools", "*torch*.py"))
+    files += glob.glob(os.path.join(REPO, "examples", "*torch*.py"))
     for root, _, names in os.walk(os.path.join(REPO, "ccmh_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -54,6 +56,7 @@ def test_import_leaves_no_jax_or_ccmh_module():
         "import ccmh_torch.data.builders.twdh_centers\n"
         "import ccmh_torch.parallel, ccmh_torch.parallel.mesh, ccmh_torch.parallel.tp\n"
         "import ccmh_torch.parallel.fsdp\n"
+        "import ccmh_torch.tools.floors, ccmh_torch.tools.step_split\n"
         "from ccmh_torch.retrieval import _demo\n"
         "from ccmh_torch.train.methods import PORTED, get_method, EXPECTED_METHODS\n"
         "[get_method(EXPECTED_METHODS[m]) for m in PORTED]\n"

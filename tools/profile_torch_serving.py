@@ -21,66 +21,20 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _classify(name: str) -> str:
-    n = name.lower()
-    if "attention_fwd_kernel" in n:
-        return "fused_attention_kernel"
-    if "attention_bwd_kernel" in n:
-        return "fused_attention_bwd_kernel"
-    if "hamming_packed_kernel" in n:
-        return "popcount_kernel"
-    if "layer_norm_kernel<" in n and "at::native" not in n:
-        return "fused_layernorm_kernel"
-    if "memcpy htod" in n or "memcpy h2d" in n:
-        return "h2d_copy"
-    if "memcpy dtoh" in n or "memcpy d2h" in n:
-        return "d2h_copy"
-    if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")):
-        return "matmul"
-    if "topk" in n or "sort" in n or "radix" in n:
-        return "topk"
-    return "other"
-
-
 def profile_step(name: str, fn, top: int = 6):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One JSON line of ``torch.profiler`` over one steady ``fn()``
+    (``ccmh_torch/tools/step_split.py`` ``profile_ranges``)."""
+    from ccmh_torch.tools.step_split import profile_ranges
 
-    fn()                                   # warm: allocator, cuBLAS handles
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()                               # ends in a device-to-host copy
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_class, by_name = {}, {}
-    for evt in prof.events():
-        # device-side records only (kernels, copies, memsets); the CPU ops
-        # that launched them carry the same time again, and so do the device
-        # spans of record_function ranges (e.g. "Optimizer.step#...")
-        if (evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer")
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        ms = (evt.time_range.end - evt.time_range.start) / 1e3
-        cls = _classify(evt.name)
-        by_class[cls] = by_class.get(cls, 0.0) + ms
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
-    device_ms = sum(by_class.values())
-    out = {
-        "step": name, "wall_ms": wall_ms, "device_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms": {k[:120]: v for k, v in
-                           sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
-    }
+    prof = profile_ranges(fn, ranges=(), top=top)
+    out = {"step": name, **{k: prof[k] for k in ("wall_ms", "device_ms", "device_idle_share",
+                                                 "device_ms_by_class", "top_kernels_ms")}}
     print(json.dumps(out), flush=True)
     return out
 

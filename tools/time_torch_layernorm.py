@@ -54,8 +54,6 @@ LOOPS = (40, 240)
 REPEATS = 3
 SHAPES = (("vision", 256 * 50, 768), ("text", 256 * 32, 512))
 L2_BYTES = 50e6
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 EPS = 1e-5
 
 
@@ -114,8 +112,20 @@ def bound(rows: int, W: int, item: int, add: bool):
     """(bound ms, what bounds it, bytes) of one call."""
     n_bytes = ((4 if add else 2) * rows * W + 2 * W) * item
     n_ops = 8.0 * rows * W + (rows * W if add else 0)   # fp32 arithmetic per element
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
+    return (*_floors().bound(n_bytes, n_ops, "float32"), n_bytes)
+
+
+def _floors():
+    """This checkout's ``ccmh_torch/tools/floors.py`` (the card's rates),
+    loaded by its path: ``--root`` may name a checkout without it."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "ccmh_torch", "tools", "floors.py")
+    spec = importlib.util.spec_from_file_location("_card_floors", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def inputs(rows: int, W: int, dtype, add: bool):
