@@ -301,9 +301,10 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, v
 
 // ---------------------------------------------------------------------------
 // The long path on Hopper's warpgroup products: L > 128 in bf16 with Dh = 64
-// and 16-byte aligned pointers (long_family), which is every CLIP tower past
-// 128 tokens (ViT-B/16's 197, ViT-L/14's 257, @336's 577) and MITH's concept
-// transformers past K = 128.  Replaces ccmh/ops/attention.py
+// and 16-byte aligned pointers (long_family) past the one-pass kernel's
+// kOnePassMaxL = 336 keys (below), which is ViT-L/14@336's 577 tokens and
+// MITH's concept transformers past K = 336; up to it the one-pass kernel
+// takes ViT-B/16's 197 and ViT-L/14's 257.  Replaces ccmh/ops/attention.py
 // `_pallas_forward` / `_kernel` past 128 tokens, with its rounding points:
 // q + b, k + b, v + b rounded to bf16; logits (q . k) * scale + mask in fp32;
 // p = exp(x - max) / sum formed in fp32 from the row's final max and sum,
@@ -466,6 +467,381 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 long path up to kOnePassMaxL = 336 keys (attention_family.cuh),
+// which holds ViT-B/16's 197 and ViT-L/14's 256 and 257 tokens: one pass
+// over the keys, a warpgroup's whole [64, L] logit tile in registers, the
+// head's k and v resident in shared memory.  The same function and
+// rounding points as the two-pass kernel above: q + b, k + b, v + b rounded
+// to bf16; logits (q . k) * scale + mask in fp32; p = exp(x - max) / sum
+// formed in fp32 from the row's whole max and sum, then rounded to bf16;
+// ctx = p . v summed in fp32, stored in bf16.
+//
+// What bounds it on an H100: bytes, as above (ViT-L/14 0.040 ms, ViT-B/16
+// at B = 256 0.092 ms; the products 17.5 and 37 us at the bf16 peak).
+// Inside an SM nothing leads alone: a block's time splits between the bias
+// folds, the products of S and of p v, the softmax and the landing of a
+// head's tiles (tools/tune_torch_attention.py's ablations, PERF.md), and
+// registers hold it to two warpgroups an SM.
+//
+// Design: a block per (batch element, head), one warpgroup.  An m64nN fp32
+// accumulator holds N / 2 floats a thread, so a query tile's logits fit in
+// registers: NT products of 64 key columns, plus one of 16 for a last tile
+// of <= 16 keys (the class token of L = 64 n + 1): ViT-L/14 4 x 64 + 16 =
+// 272 columns, 136 registers a thread; ViT-B/16 3 x 64 + 16, 104.  Every k
+// and v tile of the head lands at once by TMA (the tensor map and swizzle
+// above) and is folded with its bias once a block (v while the first S
+// runs), then the block walks over the head's query tiles.  A tile: S = q
+// k^T over every key tile in one group of products; the next q tile lands
+// meanwhile into the same buffer once every warp is done with it (a sync);
+// the softmax in registers: logits where a tile has a mask or keys past L
+// (Tile), each row's max by quad shuffles, one ex2 a logit (no mask: 2^(s
+// scale log2 e - m log2 e), one FMA on a full tile; a mask: 2^((x - m) log2
+// e), exact where x = m, so a row that a finite mask covers entirely is
+// ccmh's uniform row), the row's sum from the same registers, p = e * (1 /
+// sum) in fp32, rounded to bf16 as the register A operand of p v (v the
+// MN-major operand, the transpose bit); ctx += p v over every value tile
+// in one group, while the next q tile is folded.  So q k^T runs once, each
+// logit takes one exponential, each k and v tile is landed and folded once
+// a head (the two-pass kernel: k twice and v once a query tile), and a
+// query tile waits on no copy.  The logit columns are NT tiles of 64
+// keys and one of 16 for a last tile of <= 16 (TAIL), KT = NT + TAIL tiles
+// of k and of v.  Shared memory 1 KB of slack + q + 2 KT tiles (ViT-L/14
+// 89 KB, 105 KB at 336 keys) and 132-241 registers: two blocks an SM.  No atomics and a fixed order of sums: two calls give the
+// same bits.
+//
+// Measured and lost on the way (PERF.md): the same kernel streaming k and v
+// through a ring a query tile (a block per query tile, three an SM: the
+// per-tile folds and syncs cost more than the occupancy bought; at 168
+// registers the 4-tile instances spilled); q as the register A operand of
+// S with its bias added in registers (slower at ViT-B/16, and its buffer's
+// refill raced the generic loads); three blocks an SM where the tiles fit
+// (ptxas serialised the products for want of registers); two or three
+// query tiles a block instead of the head's all.  No producer warp and no
+// setmaxnreg: with the logits of a whole row in registers, two consumer
+// warpgroups of ~230 registers already take an SM's register file, and two
+// blocks an SM overlap one's softmax with the other's products.
+
+// a tile's row maxima in logit units (raw products times scale on a plain
+// tile: the multiply is monotone) folded into the thread's mx
+template <int N>
+__device__ __forceinline__ void tile_max(const float (&s)[N / 2], const ccmh::wg::Tile& tile,
+                                         float (&mx)[2]) {
+  float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) cm[(i >> 1) & 1] = fmaxf(cm[(i >> 1) & 1], s[i]);
+  mx[0] = fmaxf(mx[0], cm[0] * tile.cm);
+  mx[1] = fmaxf(mx[1], cm[1] * tile.cm);
+}
+
+// e = exp(x - m) in place over a tile (the exponent in the call's form,
+// Tile), summed into the thread's l; mb: m log2 e without a mask, m with one
+template <bool MASK, int N>
+__device__ __forceinline__ void tile_exp(float (&s)[N / 2], const ccmh::wg::Tile& tile,
+                                         const float (&mb)[2], float (&l)[2]) {
+  using namespace ccmh::wg;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = MASK ? ex2((s[i] - mb[r]) * kLog2e) : ex2(fmaf(s[i], tile.c, -mb[r]));
+    l[r] += s[i];
+  }
+}
+
+// p = e * (1 / sum) in fp32, rounded to bf16 as the A operand of p v
+template <int N>
+__device__ __forceinline__ void tile_probs(uint32_t (&a)[N / 16][4], float (&s)[N / 2],
+                                           const float (&inv)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] *= inv[(i >> 1) & 1];
+  ccmh::wg::to_a<N>(a, s);
+}
+
+template <int NT, bool TAIL, bool MASK>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 2)
+attention_fwd_wgmma_onepass_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                   const __nv_bfloat16* __restrict__ qkv_b,
+                                   const float* __restrict__ mask,
+                                   __nv_bfloat16* __restrict__ out, int L, int H, float scale) {
+  using namespace ccmh::wg;
+  constexpr int KT = NT + (TAIL ? 1 : 0);      // k tiles, and v tiles
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align1024(smem_raw);
+  unsigned char* sk = sq + kTileBytes;            // KT k tiles
+  unsigned char* sv = sk + KT * kTileBytes;       // KT v tiles
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(sv + KT * kTileBytes);
+  uint64_t* vbar = kbar + 1;
+  uint64_t* qbar = kbar + 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int n_qt = (L + kRows - 1) / kRows;     // the head's query tiles
+  const int D = H * kDh;
+  const bf16* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const CUtensorMap* map = &qkv_map;
+
+  if (tid == 0) {
+    bar_init(kbar, 1);
+    bar_init(vbar, 1);
+    bar_init(qbar, 1);
+    bar_init_fence();
+    bar_expect_tx(qbar, kTileBytes);
+    tma_load(sq, map, qbar, h * kDh, 0, b);
+    bar_expect_tx(kbar, KT * kTileBytes);
+    for (int j = 0; j < KT; ++j) tma_load(sk + j * kTileBytes, map, kbar, D + h * kDh, j * kRows, b);
+    bar_expect_tx(vbar, KT * kTileBytes);
+    for (int j = 0; j < KT; ++j)
+      tma_load(sv + j * kTileBytes, map, vbar, 2 * D + h * kDh, j * kRows, b);
+  }
+  __syncthreads();
+  const uint4 cb_q = bias_chunk(bq, tid);
+  bar_wait(kbar, 0);
+  if (bq != nullptr) {
+    const uint4 cb_k = bias_chunk(bq + D, tid);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) fold_tile(sk + j * kTileBytes, min(kRows, L - j * kRows), cb_k, tid);
+  }
+  bar_wait(qbar, 0);
+  if (bq != nullptr) fold_tile(sq, min(kRows, L), cb_q, tid);
+  fence_async_smem();     // k's and the first q's folds, published by the loop's first sync
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q0 = qt * kRows;
+    const int i0 = q0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+    __syncthreads();      // q's fold (made while the last tile's p v ran) published
+
+    float s[NT][32];
+    float st[TAIL ? 8 : 1];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+    fence_regs(st);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) rows_times<64>(s[j], sq, sk + j * kTileBytes);
+    if constexpr (TAIL) rows_times<16>(st, sq, sk + NT * kTileBytes);
+    wg_commit();
+    if (qt == 0) {
+      // v lands and is folded while the first tile's S runs
+      bar_wait(vbar, 0);
+      if (bq != nullptr) {
+        const uint4 cb_v = bias_chunk(bq + 2 * D, tid);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          fold_tile(sv + j * kTileBytes, min(kRows, L - j * kRows), cb_v, tid);
+      }
+      fence_async_smem();
+    }
+    wg_wait0();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+    fence_regs(st);
+    // every warp's products are done with q: its buffer takes the next
+    // tile, which lands during the softmax (the first tile: v's fold
+    // published too)
+    __syncthreads();
+    if (tid == 0 && qt + 1 < n_qt) {
+      bar_expect_tx(qbar, kTileBytes);
+      tma_load(sq, map, qbar, h * kDh, (qt + 1) * kRows, b);
+    }
+
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const Tile tile(mask, j * kRows, L, scale);
+      logits<64>(s[j], tile, scale, mask, i0, j * kRows, L, t);
+      tile_max<64>(s[j], tile, mx);
+    }
+    if constexpr (TAIL) {
+      const Tile tile(mask, NT * kRows, L, scale);
+      logits<16>(st, tile, scale, mask, i0, NT * kRows, L, t);
+      tile_max<16>(st, tile, mx);
+    }
+    float mb[2], l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      mb[r] = MASK ? finite_max(mx[r]) : max_log2e(mx[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tile_exp<MASK, 64>(s[j], Tile(mask, j * kRows, L, scale), mb, l);
+    if constexpr (TAIL) tile_exp<MASK, 16>(st, Tile(mask, NT * kRows, L, scale), mb, l);
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
+    uint32_t a[NT][4][4];
+    uint32_t at[1][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tile_probs<64>(a[j], s[j], inv);
+    if constexpr (TAIL) tile_probs<16>(at, st, inv);
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc_times(o, a[j], sv + j * kTileBytes);
+    if constexpr (TAIL) acc_times(o, at, sv + NT * kTileBytes);
+    wg_commit();
+    if (qt + 1 < n_qt) {
+      // the next q tile folded while p v runs
+      bar_wait(qbar, (qt + 1) & 1);
+      if (bq != nullptr) fold_tile(sq, min(kRows, L - q0 - kRows), cb_q, tid);
+      fence_async_smem();
+    }
+    wg_wait0();
+    fence_regs(o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        bf16* dst = out + ((size_t)b * L + i) * D + h * kDh + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 long path past kOnePassMaxL up to kResidentMaxL keys
+// (attention_family.cuh; ViT-L/14@336's 577): the two-pass kernel's
+// arithmetic (above: the stats pass, then S again, p and p v), bit for bit,
+// over the head's k and v resident in shared memory.  What bounds it on an
+// H100: bytes for the function at @336 (B = 64, L = 577, H = 16: 0.090 ms;
+// its 87.3 GFLOP take 88 us at the bf16 peak), and the kernel's own
+// products, the stats pass's 44 GFLOP more: 133 us.
+// Design: a block per (batch element, head) of kResidentGroups warpgroups;
+// every k and v tile of the head lands at once and is folded once (each
+// warpgroup folds every kResidentGroups-th tile), where the two-pass kernel
+// lands and folds k twice and v once a query tile; then warpgroup w walks
+// over query tiles w, w + kResidentGroups, ..., its own q tile landed,
+// folded and published on a named barrier of the warpgroup.  Shared memory
+// 1 KB + 2 KT + kResidentGroups tiles (@336: 193 KB at 4 warpgroups), one
+// block an SM of four warpgroups of <= 128 registers; with a mask three
+// (168 registers: the mask's addressing spilled 16 bytes at 128).  Two
+// warpgroups a block measured slower (PERF.md).
+constexpr int kResidentGroups = 4;
+constexpr int kResidentGroupsMask = 3;
+
+// the warpgroup's named barrier (ids 1.., 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+template <bool MASK, int W>
+__global__ void __launch_bounds__(W * ccmh::wg::kWgThreads, 1)
+attention_fwd_wgmma_resident_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                    const __nv_bfloat16* __restrict__ qkv_b,
+                                    const float* __restrict__ mask,
+                                    __nv_bfloat16* __restrict__ out, int L, int H, float scale) {
+  using namespace ccmh::wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_kt = (L + kRows - 1) / kRows;      // key tiles, and query tiles
+  unsigned char* sk = align1024(smem_raw);       // n_kt k tiles
+  unsigned char* sv = sk + n_kt * kTileBytes;    // n_kt v tiles
+  unsigned char* sqs = sv + n_kt * kTileBytes;   // a q tile a warpgroup
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(sqs + W * kTileBytes);
+  uint64_t* qbars = kbar + 1;
+  const int tid = threadIdx.x, w = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid >> 5, lane = tid & 31, t = lane & 3;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int D = H * kDh;
+  const bf16* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const CUtensorMap* map = &qkv_map;
+  unsigned char* sq = sqs + w * kTileBytes;
+  uint64_t* qbar = qbars + w;
+
+  if (tid == 0) {
+    bar_init(kbar, 1);
+    for (int i = 0; i < W; ++i) bar_init(&qbars[i], 1);
+    bar_init_fence();
+    bar_expect_tx(kbar, 2 * n_kt * kTileBytes);
+    for (int j = 0; j < n_kt; ++j) {
+      tma_load(sk + j * kTileBytes, map, kbar, D + h * kDh, j * kRows, b);
+      tma_load(sv + j * kTileBytes, map, kbar, 2 * D + h * kDh, j * kRows, b);
+    }
+    for (int i = 0; i < W && i < n_kt; ++i) {
+      bar_expect_tx(&qbars[i], kTileBytes);
+      tma_load(sqs + i * kTileBytes, map, &qbars[i], h * kDh, i * kRows, b);
+    }
+  }
+  __syncthreads();
+  const uint4 cb_q = bias_chunk(bq, wtid);
+  bar_wait(kbar, 0);
+  if (bq != nullptr) {
+    const uint4 cb_k = bias_chunk(bq + D, wtid), cb_v = bias_chunk(bq + 2 * D, wtid);
+    for (int j = w; j < n_kt; j += W) {
+      fold_tile(sk + j * kTileBytes, min(kRows, L - j * kRows), cb_k, wtid);
+      fold_tile(sv + j * kTileBytes, min(kRows, L - j * kRows), cb_v, wtid);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // the steps over 64 key columns, or 16 for a last tile of <= 16 keys
+  const int n_full = L % kRows != 0 && L % kRows <= 16 ? n_kt - 1 : n_kt;
+  for (int qt = w, it = 0; qt < n_kt; qt += W, ++it) {
+    const int q0 = qt * kRows;
+    const int i0 = q0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+    bar_wait(qbar, it & 1);
+    if (bq != nullptr) fold_tile(sq, min(kRows, L - q0), cb_q, wtid);
+    fence_async_smem();
+    wg_sync(1 + w);
+
+    Stats64 st;            // pass 1: each row's max and sum
+    st.init();
+    auto stats = [&](auto n, int j) {
+      constexpr int N = decltype(n)::value;
+      float s[N / 2];
+      run(s, [&] { rows_times<N>(s, sq, sk + j * kTileBytes); });
+      const Tile tile(mask, j * kRows, L, scale);
+      logits<N>(s, tile, scale, mask, i0, j * kRows, L, t);
+      st.add<false, MASK, N>(s, s, tile);
+    };
+    for (int j = 0; j < n_full; ++j) stats(std::integral_constant<int, 64>(), j);
+    if (n_full < n_kt) stats(std::integral_constant<int, 16>(), n_full);
+    st.finish();
+    const RowLse rl[2] = {st.row(0), st.row(1)};
+
+    float o[32];          // pass 2: ctx = p v
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    auto probs_v = [&](auto n, int j) {
+      constexpr int N = decltype(n)::value;
+      float s[N / 2];
+      run(s, [&] { rows_times<N>(s, sq, sk + j * kTileBytes); });
+      const Tile tile(mask, j * kRows, L, scale);
+      logits<N>(s, tile, scale, mask, i0, j * kRows, L, t);
+      probs<MASK, N>(s, tile, rl);
+      uint32_t a[N / 16][4];
+      to_a<N>(a, s);
+      run(o, [&] { acc_times(o, a, sv + j * kTileBytes); });
+    };
+    for (int j = 0; j < n_full; ++j) probs_v(std::integral_constant<int, 64>(), j);
+    if (n_full < n_kt) probs_v(std::integral_constant<int, 16>(), n_full);
+
+    // every warp of the warpgroup is done with q: its next tile lands
+    wg_sync(1 + w);
+    if (wtid == 0 && qt + W < n_kt) {
+      bar_expect_tx(qbar, kTileBytes);
+      tma_load(sq, map, qbar, h * kDh, (qt + W) * kRows, b);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        bf16* dst = out + ((size_t)b * L + i) * D + h * kDh + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -635,7 +1011,7 @@ attention_fwd_wgmma32_kernel(const __grid_constant__ CUtensorMap qkv_map,
 
 // Which kernel the C entry launches, by the rule of attention_family.cuh
 int long_family(const void* qkv, const void* qkv_b, const void* out, int L, int Dh, int dtype) {
-  return ccmh::attention_family(L, Dh, dtype, qkv, qkv_b, out, nullptr);
+  return ccmh::attention_fwd_family(L, Dh, dtype, qkv, qkv_b, out);
 }
 
 cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, void* out, int B,
@@ -655,6 +1031,71 @@ cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, 
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
       map, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(out), L, H, scale, n_qt);
+  return cudaGetLastError();
+}
+
+template <int NT, bool TAIL>
+cudaError_t launch_onepass_tiles(const CUtensorMap& map, const void* qkv_b, const float* mask,
+                                 void* out, int B, int L, int H, float scale,
+                                 cudaStream_t stream) {
+  using namespace ccmh::wg;
+  constexpr int KT = NT + (TAIL ? 1 : 0);      // k tiles, and v tiles
+  const size_t smem = 1024 + (size_t)(1 + 2 * KT) * kTileBytes + 24;
+  auto kernel = mask ? attention_fwd_wgmma_onepass_kernel<NT, TAIL, true>
+                     : attention_fwd_wgmma_onepass_kernel<NT, TAIL, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      map, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(out), L, H, scale);
+  return cudaGetLastError();
+}
+
+// the one-pass kernel for 128 < L <= kOnePassMaxL: NT tiles of 64 keys, and
+// one of 16 where the last tile holds <= 16 keys
+cudaError_t launch_onepass(const void* qkv, const void* qkv_b, const float* mask, void* out,
+                           int B, int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  CUtensorMap map;
+  const uint64_t row = (uint64_t)3 * H * kDh;
+  cudaError_t err = make_map(&map, qkv, kMapBf16, row, L, B, row, kDh);
+  if (err != cudaSuccess) return err;
+  const int rem = L % kRows;
+  const bool tail = rem != 0 && rem <= 16;
+  const int nt = L / kRows + (rem > 16 ? 1 : 0);
+  switch (2 * nt + (tail ? 1 : 0)) {
+    case 5: return launch_onepass_tiles<2, true>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 6: return launch_onepass_tiles<3, false>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 7: return launch_onepass_tiles<3, true>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 8: return launch_onepass_tiles<4, false>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 9: return launch_onepass_tiles<4, true>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 10: return launch_onepass_tiles<5, false>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    case 11: return launch_onepass_tiles<5, true>(map, qkv_b, mask, out, B, L, H, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the resident two-pass kernel for kOnePassMaxL < L <= kResidentMaxL
+cudaError_t launch_resident(const void* qkv, const void* qkv_b, const float* mask, void* out,
+                            int B, int L, int H, float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  const int W = mask ? kResidentGroupsMask : kResidentGroups;
+  CUtensorMap map;
+  const uint64_t row = (uint64_t)3 * H * kDh;
+  cudaError_t err = make_map(&map, qkv, kMapBf16, row, L, B, row, kDh);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (L + kRows - 1) / kRows;
+  const size_t smem = 1024 + (size_t)(2 * n_kt + W) * kTileBytes + 8 * (1 + W);
+  auto kernel = mask ? attention_fwd_wgmma_resident_kernel<true, kResidentGroupsMask>
+                     : attention_fwd_wgmma_resident_kernel<false, kResidentGroups>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, W * kWgThreads, smem, stream>>>(
+      map, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(out), L, H, scale);
   return cudaGetLastError();
 }
 
@@ -835,6 +1276,10 @@ extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b
           return (int)launch<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
         case ccmh::kFamilyLongWgmma:
           return (int)launch_wgmma(qkv, qkv_b, mask, out, B, L, H, scale, s);
+        case ccmh::kFamilyLongOnePass:
+          return (int)launch_onepass(qkv, qkv_b, mask, out, B, L, H, scale, s);
+        case ccmh::kFamilyLongResident:
+          return (int)launch_resident(qkv, qkv_b, mask, out, B, L, H, scale, s);
         default:
           return (int)launch_long<__nv_bfloat16>(qkv, qkv_b, mask, out, B, L, H, Dh, scale, s);
       }
@@ -844,8 +1289,9 @@ extern "C" int ccmh_attention_fwd(int device, const void* qkv, const void* qkv_b
 }
 
 // The kernel family ccmh_attention_fwd launches for these arguments: 0 the
-// short kernel, 1 the long mma.sync kernel, 2 the long wgmma kernel (the
-// wrapper counts its launches by family).
+// short kernel, 1 the long mma.sync kernel, 2 the long two-pass wgmma
+// kernel (fp32's, or bf16's past kResidentMaxL), 3 the bf16 one-pass one, 4
+// the bf16 resident one (the wrapper counts its launches by family).
 extern "C" int ccmh_attention_fwd_family(const void* qkv, const void* qkv_b, const void* out,
                                          int L, int Dh, int dtype) {
   return long_family(qkv, qkv_b, out, L, Dh, dtype);

@@ -10,7 +10,15 @@
 //     3xTF32): every CLIP tower past 128 tokens and MITH's concept
 //     transformers past K = 128, in either compute type;
 //   1 long mma.sync: the other shapes past 128 (other head dims, views at
-//     odd offsets), attention_long.cuh.
+//     odd offsets), attention_long.cuh;
+//   3 long one-pass (#1's forward only, attention_fwd_family): of the
+//     wgmma family, bf16 up to kOnePassMaxL keys, where a warpgroup's whole
+//     [64, L] logit tile fits in its registers: one q k^T, one exponential
+//     a logit (ViT-B/16's 197, ViT-L/14's 256 and 257).  Past it (@336's
+//     577) and in fp32 the forward stays on the two-pass wgmma kernels;
+//   4 long resident (#1's forward only): of the wgmma family, bf16 past
+//     kOnePassMaxL up to kResidentMaxL keys, the two passes over the head's
+//     k and v resident in shared memory (@336's 577).
 
 #pragma once
 
@@ -18,10 +26,18 @@
 
 namespace ccmh {
 
-enum AttentionFamily : int { kFamilyShort = 0, kFamilyLongMma = 1, kFamilyLongWgmma = 2 };
+enum AttentionFamily : int {
+  kFamilyShort = 0,
+  kFamilyLongMma = 1,
+  kFamilyLongWgmma = 2,
+  kFamilyLongOnePass = 3,
+  kFamilyLongResident = 4
+};
 
 constexpr int kShortMaxL = 128;      // the short kernels' L
 constexpr int kWgmmaHeadDim = 64;    // the head dim of the wgmma kernels
+constexpr int kOnePassMaxL = 336;    // 5 x 64 + 16 keys: the one-pass kernel's logit columns
+constexpr int kResidentMaxL = 768;   // 12 key tiles: 2 x 96 KB of k and v, 4 q tiles
 
 inline bool aligned16_or_null(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -35,6 +51,16 @@ inline int attention_family(int L, int Dh, int dtype, const void* p0, const void
   const bool wgmma = (dtype == 0 || dtype == 1) && Dh == kWgmmaHeadDim && aligned16_or_null(p0) &&
                      aligned16_or_null(p1) && aligned16_or_null(p2) && aligned16_or_null(p3);
   return wgmma ? kFamilyLongWgmma : kFamilyLongMma;
+}
+
+// #1's forward: attention_family, with the bf16 wgmma shapes up to
+// kOnePassMaxL keys on the one-pass kernel and past it up to kResidentMaxL
+// on the resident one (p0..p2: qkv, qkv_b, out)
+inline int attention_fwd_family(int L, int Dh, int dtype, const void* p0, const void* p1,
+                                const void* p2) {
+  const int family = attention_family(L, Dh, dtype, p0, p1, p2, nullptr);
+  if (family != kFamilyLongWgmma || dtype != 1 || L > kResidentMaxL) return family;
+  return L <= kOnePassMaxL ? kFamilyLongOnePass : kFamilyLongResident;
 }
 
 }  // namespace ccmh

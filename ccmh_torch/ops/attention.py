@@ -27,8 +27,11 @@ chosen by the C entries from L: the head streams through shared memory in
 rounded, and the backward still free of atomics.  With head dim 64 and
 16-byte aligned tensors (every tower), bf16 or fp32, the long path runs on
 Hopper's warpgroup products (``wgmma``) fed by TMA
-(``csrc/wgmma_tiles.cuh``; fp32 as 3xTF32 on ``wgmma .tf32``); other long
-shapes take the ``mma.sync`` kernels of ``csrc/attention_long.cuh``.
+(``csrc/wgmma_tiles.cuh``; fp32 as 3xTF32 on ``wgmma .tf32``); the bf16
+forward up to :data:`ONEPASS_MAX_L` tokens in one pass over the keys, its
+logits in registers, and past it in two (up to :data:`RESIDENT_MAX_L` over
+the head's keys held in shared memory); other long shapes take the
+``mma.sync`` kernels of ``csrc/attention_long.cuh``.
 The C entries choose by that fixed rule and report the family they took
 (``ccmh_attention_{fwd,bwd}_family``); the wrapper counts launches by
 family in :data:`launches_by_family` and
@@ -49,8 +52,12 @@ from ccmh_torch.ops import build
 launches = 0            # the forward, kernel A
 backward_launches = 0   # the backward, kernel C
 # the same launches by the kernel family the C entry took: "short" (L <= 128),
-# "long_mma" (the long path on mma.sync), "long_wgmma" (on wgmma)
-FAMILIES = ("short", "long_mma", "long_wgmma")   # the C entries' family codes 0, 1, 2
+# "long_mma" (the long path on mma.sync), "long_wgmma" (on wgmma, two passes
+# over the keys streamed a query tile), and for the bf16 forward on wgmma
+# "long_onepass" (one pass, up to ONEPASS_MAX_L keys) and "long_resident"
+# (two passes over the head's keys held in shared memory, up to
+# RESIDENT_MAX_L)
+FAMILIES = ("short", "long_mma", "long_wgmma", "long_onepass", "long_resident")  # codes 0-4
 launches_by_family = dict.fromkeys(FAMILIES, 0)
 backward_launches_by_family = dict.fromkeys(FAMILIES, 0)
 
@@ -59,6 +66,12 @@ backward_launches_by_family = dict.fromkeys(FAMILIES, 0)
 # (csrc/attention_long.cuh) up to MAX_SEQ (its row statistics in shared
 # memory and the mask's int offsets)
 SHORT_SEQ = 128
+# the forward in bf16 at head dim 64 up to this L holds a warpgroup's whole
+# [64, L] logit tile in registers, and past it up to RESIDENT_MAX_L the
+# head's k and v in shared memory (csrc/attention_family.cuh kOnePassMaxL,
+# kResidentMaxL)
+ONEPASS_MAX_L = 336
+RESIDENT_MAX_L = 768
 MAX_SEQ = 4096
 MAX_HEAD_DIM = 128   # a warp's [16, Dh] products in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -13,14 +13,16 @@ transposed tiles and the register operands) on one [64, 64] product
 against ``torch.matmul``, prints whether the tensor cores ignore the low 13
 mantissa bits of a raw fp32 operand (``tf32_low_13_bits``), then one JSON
 line per case with the kernel family each call took (``short``,
-``long_mma``, ``long_wgmma``):
+``long_mma``, ``long_wgmma``, ``long_onepass``, ``long_resident``):
 the kernels' max abs error against the plain versions (fp32 within 1e-4,
 bf16 within 2e-2, the backward's times its output scale), whether two
-backward calls give the same bits, and at the towers' shapes the ms per
+calls of each give the same bits, and at the towers' shapes the ms per
 call through the wrappers (mean of 20 after 3, CUDA events).  The cases
 cover both head-dim classes (Dh = 64, 128), the scalar load path (Dh = 30,
 6), causal and key-padded masks, rows that a finite mask covers entirely
-(-1e9, -1e30, finfo.min / 2), L from 1 to 577; #3 at K = 64, 288, 512
+(-1e9, -1e30, finfo.min / 2), L from 1 to 768 (the bf16 one-pass
+kernel's limit and one past it, and the resident kernel's limit, among
+them); #3 at K = 64, 288, 512
 and 2,048 bits over Q = 512, N = 2^18, exactly.  The last line is
 ``{"failed": n}``; the exit code is 1 when a case failed.  A new version of
 the kernels takes this call first, before ``chip_smoke.py``.  Needs one
@@ -46,6 +48,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (B, L, H, Dh, mask); the towers' shapes (B >= 64) are timed
 CASES = ((2, 129, 2, 64, "none"), (2, 143, 2, 64, "causal"), (2, 192, 3, 64, "pad"),
          (2, 577, 2, 64, "pad"), (2, 257, 2, 64, "rows"), (2, 200, 2, 128, "rows"),
+         (2, attn.ONEPASS_MAX_L, 2, 64, "causal"), (2, attn.ONEPASS_MAX_L + 1, 2, 64, "pad"),
+         (2, 272, 2, 64, "rows"), (2, 256, 2, 64, "none"), (2, 577, 2, 64, "rows"),
+         (2, attn.RESIDENT_MAX_L, 2, 64, "causal"),
          (2, 200, 2, 128, "none"), (2, 150, 2, 30, "causal"),
          (2, 150, 2, 6, "none"), (64, 257, 16, 64, "none"), (256, 197, 12, 64, "none"),
          (64, 577, 16, 64, "none"), (8, 1, 2, 64, "none"))
@@ -165,6 +170,7 @@ def attention_case(B, L, H, Dh, kind, dtype, dev) -> dict:
         out = attn.fused_attention(qkv, mask, H, qkv_b=qkv_b)
         want = attn.attention_reference(qkv, mask, H, qkv_b=qkv_b)
         err = (out.float() - want.float()).abs().max().item()
+        fwd_same_bits = torch.equal(out, attn.fused_attention(qkv, mask, H, qkv_b=qkv_b))
         dqkv = attn.attention_backward(qkv, mask, qkv_b, g, H)
         dwant = attn.attention_backward_reference(qkv, mask, qkv_b, g, H)
         scale = max(1.0, dwant.float().abs().max().item())
@@ -172,10 +178,10 @@ def attention_case(B, L, H, Dh, kind, dtype, dev) -> dict:
         same_bits = torch.equal(dqkv, attn.attention_backward(qkv, mask, qkv_b, g, H))
         torch.cuda.synchronize()
     ok = (math.isfinite(err) and err <= TOL[dtype] and math.isfinite(err_b)
-          and err_b <= TOL[dtype] * scale and same_bits)
+          and err_b <= TOL[dtype] * scale and same_bits and fwd_same_bits)
     row = {"B": B, "L": L, "H": H, "Dh": Dh, "mask": kind, "dtype": str(dtype),
            "fwd_err": err, "bwd_err": err_b, "bwd_scale": scale, "same_bits": same_bits,
-           "ok": ok,
+           "fwd_same_bits": fwd_same_bits, "ok": ok,
            "families": [[f for f in attn.FAMILIES if counts[f] > was[f]]
                         for counts, was in zip((attn.launches_by_family,
                                                 attn.backward_launches_by_family), before)]}

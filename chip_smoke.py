@@ -352,7 +352,7 @@ def read_counts() -> dict:
 
 def family_counts() -> dict:
     """#1's and #2's launches by the kernel family their C entries took
-    (short, long_mma, long_wgmma) since the counts were last set to 0."""
+    (ccmh_torch.ops.attention.FAMILIES) since the counts were last set to 0."""
     from ccmh_torch.ops import attention as attn
 
     return {"fused_attention_fwd": dict(attn.launches_by_family),
@@ -3068,7 +3068,10 @@ def input_path():
 # the towers past 128 tokens: (name, B, L, H), head dim 64
 LONG_SHAPES = (("ViT-B/16", 256, 197, 12), ("ViT-L/14", 64, 257, 16),
                ("ViT-L/14@336", 64, 577, 16))
-LONG_EDGES = (1, 129, 143, 192, 256, 577)    # L at the edge cases, B=4 H=4
+# L at the edge cases, B=4 H=4: 336 is the bf16 one-pass forward's limit
+# (ccmh_torch.ops.attention.ONEPASS_MAX_L), 337 the first L past it, 768
+# the resident two-pass forward's (RESIDENT_MAX_L), 769 past it
+LONG_EDGES = (1, 129, 143, 192, 256, 336, 337, 577, 768, 769)
 # rows 0, 1 and L - 1 masked entirely by these finite values (the plain
 # softmax, and ccmh's, give each a uniform row)
 MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
@@ -3111,12 +3114,14 @@ def wgmma_report(name):
     -sass``; fails if one has none, or if one spills."""
     from ccmh_torch.ops import build
 
-    kernels, current = {}, None
+    kernels, current, serialized = {}, None, []
     for ln in (build.build_log(name) or "").splitlines():
         if "Compiling entry function" in ln:
             current = ln.split("'")[1] if "'" in ln else None
         elif current and "wgmma" in current and ("spill" in ln or "registers" in ln):
             kernels.setdefault(current, []).append(ln.strip())
+        if "serialized" in ln:       # ptxas waits after each wgmma it cannot prove safe
+            serialized.append(ln.strip())
     counts = build.sass_counts(name)
     check(kernels, f"{name}: no wgmma kernel in the ptxas report")
     for kernel, lines in kernels.items():
@@ -3128,18 +3133,37 @@ def wgmma_report(name):
     say("build", library=name, wgmma_kernels={
         k: {"ptxas": v, "hgmma": None if counts is None else counts.get(k)}
         for k, v in kernels.items()},
-        sass="cuobjdump -sass" if counts is not None else "no cuobjdump in the toolkit")
+        sass="cuobjdump -sass" if counts is not None else "no cuobjdump in the toolkit",
+        serialized_wgmma=serialized)
+    new = {k: [int(n) for ln in v for n in re.findall(r"Used (\d+) registers", ln)]
+           for k, v in kernels.items() if "onepass" in k or "resident" in k}
+    if name == "attention":
+        check(any("onepass" in k for k in new) and any("resident" in k for k in new),
+              f"attention: the one-pass and resident kernels are not all in the ptxas "
+              f"report: {sorted(new)}")
+        say("build", library=name, onepass_resident_registers=new,
+            what="registers a thread of each instance of #1's bf16 one-pass and resident "
+                 "kernels, as ptxas allots them (no setmaxnreg: the one-pass kernel two "
+                 "blocks of one warpgroup an SM, the resident one a block of four "
+                 "warpgroups, three with a mask)")
 
 
-def _long_family(L, Dh=64, aligned=True):
-    """The kernel family the C entries take (csrc/attention_family.cuh)
-    for these tensors, fp32 or bf16: past 128 tokens the wgmma kernels at
-    head dim 64 with every pointer 16-byte aligned, else mma.sync."""
+def _long_family(L, Dh=64, aligned=True, kind="bwd", bf16=False):
+    """The kernel family the C entry of ``kind`` ("fwd" #1, "bwd" #2) takes
+    (csrc/attention_family.cuh) for these tensors: past 128 tokens the
+    wgmma kernels at head dim 64 with every pointer 16-byte aligned, else
+    mma.sync; of the wgmma shapes #1's bf16 forward up to ONEPASS_MAX_L
+    keys takes the one-pass kernel, past it up to RESIDENT_MAX_L the
+    resident two-pass one."""
     from ccmh_torch.ops import attention as attn
 
     if L <= attn.SHORT_SEQ:
         return "short"
-    return "long_wgmma" if Dh == 64 and aligned else "long_mma"
+    if not (Dh == 64 and aligned):
+        return "long_mma"
+    if kind != "fwd" or not bf16 or L > attn.RESIDENT_MAX_L:
+        return "long_wgmma"
+    return "long_onepass" if L <= attn.ONEPASS_MAX_L else "long_resident"
 
 
 def _one_launch(fn, what, family):
@@ -3172,15 +3196,18 @@ def long_attention_cases(name, B, L, H, dtype):
     qkv, qkv_b, g = _long_inputs(B, L, H, dtype, seed=L * 1000 + H)
     D, Dh = H * 64, 64
     cases = []
-    family = _long_family(L)
+    family = {kind: _long_family(L, kind=kind, bf16=dtype == torch.bfloat16)
+              for kind in ("fwd", "bwd")}
     with torch.no_grad():
         got = _one_launch(lambda: attn.fused_attention(qkv, None, H, qkv_b=qkv_b),
-                          f"attention {name}", family)
+                          f"attention {name}", family["fwd"])
         want = attn.attention_reference(qkv, None, H, qkv_b=qkv_b)
         err_f = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, attn.fused_attention(qkv, None, H, qkv_b=qkv_b)),
+              f"long attention {name} {tname}: two calls differ")
         del got, want
         dq = _one_launch(lambda: attn.attention_backward(qkv, None, qkv_b, g, H),
-                         f"attention backward {name}", family)
+                         f"attention backward {name}", family["bwd"])
         dq_want = attn.attention_backward_reference(qkv, None, qkv_b, g, H)
         err_b = (dq.float() - dq_want.float()).abs().max().item()
         scale = max(1.0, dq_want.float().abs().max().item())
@@ -3208,7 +3235,8 @@ def long_attention_cases(name, B, L, H, dtype):
              10.0 * B * H * L * L * Dh)):
         bound_ms, bound_by = floors.bound(n_bytes, n_ops, floors.ATTN_OP_TYPE[tname])
         case = {"case": f"{name} {tname}", "shape": [B, L, 3 * D], "heads": H,
-                "causal": False, "path": family, "max_abs_err": err, "tol": ATTN_TOL[tname],
+                "causal": False, "path": family[kind], "max_abs_err": err,
+                "tol": ATTN_TOL[tname],
                 "ms": ms[kind], "plain_ms": plain[kind], "library_ms": lib[kind],
                 "library": "SDPA fwd" if kind == "fwd" else "SDPA fwd+bwd minus SDPA fwd",
                 "bound_ms": bound_ms, "bound_by": bound_by}
@@ -3223,10 +3251,13 @@ def long_attention_edges():
     """#1 and #2 at the edges of the long path (B=4, H=4): L from 1 to 577,
     causal and with the last third of the keys padded; rows that a finite
     mask covers entirely (-1e9, -1e30, finfo.min / 2) on the wgmma kernels
+    (the bf16 forward's one-pass kernel at 257 and its limit, the resident
+    two-pass one past it and at 577)
     and on mma.sync; the shapes the wgmma kernels leave to mma.sync (head
     dim 128, tensors off 16-byte alignment); fp32 and bf16, each call one
     kernel launch of the family the rule gives, within the gates of their
-    plain versions.  Returns the launches by family."""
+    plain versions, each forward's second call the same bits.  Returns the
+    launches by family."""
     import torch
 
     from ccmh_torch.clip.model import causal_mask
@@ -3234,6 +3265,7 @@ def long_attention_edges():
 
     cases = [(L, kind, 64, 0) for L in LONG_EDGES for kind in ("causal", "keypad")]
     cases += [(257, "rows", 64, 0), (200, "rows", 128, 0)]
+    cases += [(L, "rows", 64, 0) for L in (attn.ONEPASS_MAX_L, attn.ONEPASS_MAX_L + 1, 577)]
     cases += [(L, "causal", Dh, off) for L, Dh, off in LONG_MMA_EDGES]
     worst = {}
     reset_counts()
@@ -3249,13 +3281,15 @@ def long_attention_edges():
                 mask = torch.zeros((L, L), device="cuda")
                 for row, value in zip((0, 1, L - 1), MASKED_ROWS):
                     mask[row] = value
-            family = _long_family(L, Dh, aligned=not off)
+            family = {k: _long_family(L, Dh, aligned=not off, kind=k,
+                                      bf16=dtype == torch.bfloat16) for k in ("fwd", "bwd")}
             with torch.no_grad():
                 got = _one_launch(lambda: attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b),
-                                  f"attention L={L} {kind} Dh={Dh}", family)
+                                  f"attention L={L} {kind} Dh={Dh}", family["fwd"])
                 want = attn.attention_reference(qkv, mask, 4, qkv_b=qkv_b)
+                same = torch.equal(got, attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b))
                 dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
-                                 f"attention backward L={L} {kind} Dh={Dh}", family)
+                                 f"attention backward L={L} {kind} Dh={Dh}", family["bwd"])
                 dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
             err = (got.float() - want.float()).abs().max().item()
             err_b = (dq.float() - dq_want.float()).abs().max().item()
@@ -3263,11 +3297,12 @@ def long_attention_edges():
             tag = f"L={L} {kind} Dh={Dh}{f' +{off} B' if off else ''} {tname}"
             check(math.isfinite(err) and err <= ATTN_TOL[tname],
                   f"attention edge {tag}: max abs err {err}")
+            check(same, f"attention edge {tag}: two forward calls differ")
             check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
                   f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
-            worst[tag] = [err, err_b / scale, family]
+            worst[tag] = [err, err_b / scale, family["fwd"], family["bwd"]]
     families = family_counts()
-    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_family=worst,
+    say("long_edges", cases=len(worst), max_abs_err_fwd_bwd_rel_families=worst,
         launches_by_family=families)
     return families
 
@@ -3426,18 +3461,23 @@ def _check_tower_launches(what, launches, want):
                                         f"implies {want.get(kernel, 0)}")
 
 
-def _check_tower_families(what, clip_cfg, steps, remat):
+def _check_tower_families(what, clip_cfg, steps, remat, bf16=False):
     """#1's and #2's launches by kernel family since the counts were set to
     0: the vision tower past 128 tokens all on the wgmma kernels (fp32 or
-    bf16, head dim 64), the text tower on the short ones, none on
-    mma.sync.  Returns them."""
+    bf16, head dim 64; the bf16 forward up to ONEPASS_MAX_L tokens on the
+    one-pass one), the text tower on the short ones, none on mma.sync.
+    Returns them."""
+    from ccmh_torch.ops import attention as attn
+
     took = family_counts()
     fwd = 2 if remat else 1
-    want = {"fused_attention_fwd": {"short": steps * fwd * clip_cfg.transformer_layers,
-                                    "long_mma": 0,
-                                    "long_wgmma": steps * fwd * clip_cfg.vision_layers},
-            "fused_attention_bwd": {"short": steps * clip_cfg.transformer_layers,
-                                    "long_mma": 0, "long_wgmma": steps * clip_cfg.vision_layers}}
+    tokens = clip_cfg.n_patches + 1        # the class token
+    want = {kernel: dict.fromkeys(attn.FAMILIES, 0) for kernel in took}
+    want["fused_attention_fwd"]["short"] = steps * fwd * clip_cfg.transformer_layers
+    want["fused_attention_fwd"][_long_family(tokens, kind="fwd", bf16=bf16)] = (
+        steps * fwd * clip_cfg.vision_layers)
+    want["fused_attention_bwd"]["short"] = steps * clip_cfg.transformer_layers
+    want["fused_attention_bwd"]["long_wgmma"] = steps * clip_cfg.vision_layers
     check(took == want, f"{what}: kernel families {took}, the code implies {want}")
     return took
 
@@ -3638,7 +3678,7 @@ def long_path():
         argv(LONG_BATCH, clip_path=tower) + ["--compute-dtype", "bfloat16", "--save-dir",
                                              os.path.join(work, "bf16")], steps)
     _check_tower_launches("ViT-L/14 bf16", launches, _tower_launches(2, vitl, False))
-    took = _check_tower_families("ViT-L/14 bf16", vitl, 2, False)
+    took = _check_tower_families("ViT-L/14 bf16", vitl, 2, False, bf16=True)
     add(launches)
     losses = [r["loss"] for r in _metric_rows(trainer.cfg.save_dir) if r["event"] == "train"]
     check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
@@ -3706,6 +3746,11 @@ def long_path():
         check(families[kernel]["long_wgmma"] > 0 and families[kernel]["long_mma"] == 0,
               f"phase 14's runs launched {kernel} by family {families[kernel]}: every tower "
               f"past 128 tokens takes the wgmma kernels, fp32 and bf16")
+    check(families["fused_attention_fwd"]["long_onepass"] > 0
+          and families["fused_attention_bwd"]["long_onepass"] == 0
+          and families["fused_attention_bwd"]["long_resident"] == 0,
+          f"phase 14's runs launched #1 by family {families['fused_attention_fwd']}: the bf16 "
+          f"towers (bench_vitl, ViT-L/14 bf16) take the one-pass forward")
     say("long", launches_by_family=families)
     return total, families
 
@@ -5229,6 +5274,10 @@ def main() -> int:
               f"phase 14's edges launched {kernel} by family {counts}: the long path needs "
               f"both the wgmma kernels and the mma.sync ones (other head dims, views at odd "
               f"offsets)")
+    check(edge_families["fused_attention_fwd"]["long_onepass"] > 0
+          and edge_families["fused_attention_fwd"]["long_resident"] > 0,
+          f"phase 14's edges never launched one of #1's bf16 kernels past 128 tokens "
+          f"(one-pass, resident): {edge_families['fused_attention_fwd']}")
     tf32_selftest()
     hamming_sass_report()
     wide_cases = wide_hamming_cases()

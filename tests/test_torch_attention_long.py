@@ -32,11 +32,22 @@ interpret mode on the CPU, as ccmh's own tests run them.
   log2 sum, whose rounding at |m| reaches the exponent (the emulation
   reproduces the fault); after it, 2^((x - m) log2 e - log2 sum) on any
   tile with a mask gives ``ccmh``'s uniform row.
+* The one-pass bf16 forward (the logits of a 64-query tile held in
+  registers, up to ``ONEPASS_MAX_L`` keys) emulated in plain PyTorch
+  against ccmh at L = 197, 257 and the limit +- 1, with the causal,
+  key-padded and finite-mask-row forms: the whole row's max and sum, e =
+  2^((x - m) log2 e) (one multiply-add on full unmasked tiles), p = e *
+  (1 / sum) in fp32 rounded to bf16, p v in 64-column steps (the entry
+  gives limit + 1 to the resident kernel, whose arithmetic is the two-pass
+  schedule's above).  Tolerance: the bf16 gate (2e-2) over BF16_MARGIN
+  (10), 2e-3: the emulation sits at 9.8e-4 or under (both round the same
+  p; their sums run in other orders).
 * The C entries' rule for the kernel family past 128 tokens
   (``csrc/attention_family.cuh``), compiled here with the host compiler:
   which (L, head dim, type, alignment) take the ``wgmma`` kernels and
-  which the ``mma.sync`` ones of ``attention_long.cuh``; and the wrapper's count by the family
-  an entry reports.
+  which the ``mma.sync`` ones of ``attention_long.cuh``; which L #1's
+  bf16 forward takes to the one-pass kernel and which to the resident
+  two-pass one; and the wrapper's count by the family an entry reports.
 * The two faults found on the card: the kernels' checks refused L > 128
   and codes of more than 256 bits.
 """
@@ -379,6 +390,91 @@ def test_softmax_on_rows_a_finite_mask_covers(dtype, form):
     assert math.isfinite(err_b) and err_b <= gate * scale, (err_b, gate * scale)
 
 
+# ---- the one-pass bf16 forward: the whole logit row in registers
+
+BF16_MARGIN = 10.0        # the one-pass emulation sits this far under the bf16 gate
+LIMIT = attn.ONEPASS_MAX_L    # the one-pass kernel's keys (kOnePassMaxL)
+ONEPASS_CASES = [
+    pytest.param(197, "none", id="L197-vitb16"),
+    pytest.param(257, "rows", id="L257-maskedrows"),
+    pytest.param(LIMIT - 1, "causal", id="limit-1-causal"),
+    pytest.param(LIMIT + 1, "pad", id="limit+1-keypad"),
+]
+_CCMH_FWD = {}
+
+
+def _ccmh_forward(B, L, H, Dh, kind):
+    """ccmh's bf16 forward (cached: the interpreted kernel is slow)."""
+    key = (B, L, H, Dh, kind)
+    if key not in _CCMH_FWD:
+        qkv, b, _ = _inputs(B, L, H, Dh, seed=L + H)
+        out = jax_fused(jnp.asarray(qkv).astype(jnp.bfloat16), _mask(L, kind, jax_side=True), H,
+                        qkv_b=jnp.asarray(b).astype(jnp.bfloat16))
+        _CCMH_FWD[key] = np.asarray(out.astype(jnp.float32))
+    return _CCMH_FWD[key]
+
+
+def onepass_tiles(L):
+    """The one-pass kernel's column tiles (start, end): 64 keys each, and
+    16 for a last tile of <= 16 keys (attention.cu launch_onepass)."""
+    rem = L % TILE
+    nt = L // TILE + (rem > 16)
+    return [(TILE * j, TILE * (j + 1)) for j in range(nt)] + (
+        [(TILE * nt, TILE * nt + 16)] if 0 < rem <= 16 else [])
+
+
+def forward_onepass(qkv, b, mask, H):
+    """The one-pass kernel's bf16 forward: the logits of every key at once;
+    each row's max over the whole row; e in the kernel's exponent forms (a
+    call with a mask 2^((x - m) log2 e); without one a full tile takes the
+    raw product in one multiply-add, 2^(s (scale log2 e) - m log2 e), and the
+    last partial tile 2^(x log2 e - m log2 e)); the row's sum of e; p = e *
+    (1 / sum) in fp32, rounded to bf16; ctx = p v summed in fp32 over the
+    key tiles in order."""
+    dtype = torch.bfloat16
+    q, k, v = _heads(qkv, b, H, dtype)
+    B, _, L, Dh = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    s = _mm(q, k.transpose(-1, -2), dtype)             # raw products, fp32
+    x = s * scale
+    if mask is not None:
+        x = x + mask
+    m = x.amax(-1, keepdim=True)
+    mf = torch.where(m == -math.inf, torch.zeros(()), m)   # finite_max
+    mb = mf * LOG2E                                          # max_log2e
+    e = torch.empty_like(x)
+    for j0, j1 in onepass_tiles(L):
+        cols = slice(j0, min(j1, L))
+        if mask is not None:
+            e[..., cols] = torch.exp2((x[..., cols] - mf) * LOG2E)
+        elif j1 <= L:
+            e[..., cols] = torch.exp2(_fma(s[..., cols], scale * LOG2E, -mb))
+        else:
+            e[..., cols] = torch.exp2(_fma(x[..., cols], LOG2E, -mb))
+    p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dtype).float()
+    ctx = torch.zeros_like(q)
+    for j0, j1 in onepass_tiles(L):
+        cols = slice(j0, min(j1, L))
+        ctx = ctx + p[..., cols] @ v[..., cols, :]
+    return ctx.permute(0, 2, 1, 3).reshape(B, L, H * Dh).to(dtype)
+
+
+@pytest.mark.parametrize("L,kind", ONEPASS_CASES)
+def test_onepass_schedule_matches_ccmh(L, kind):
+    B, H, Dh = 1, 2, 64
+    qkv, b, _ = _port_inputs(B, L, H, Dh, torch.bfloat16)
+    want = _ccmh_forward(B, L, H, Dh, kind)
+    got = forward_onepass(qkv, b, _mask(L, kind), H).float().numpy()
+    err = float(np.abs(got - want).max())
+    gate = GATE[torch.bfloat16] / BF16_MARGIN
+    assert math.isfinite(err) and err <= gate, (err, gate)
+    if kind == "rows":     # ccmh's uniform rows: the mean of v over every key
+        _, _, v = _heads(qkv, b, H, torch.bfloat16)
+        mean = v.mean(-2).reshape(B, H * Dh)        # [B, D]: v is [B, H, L, Dh]
+        for row in (0, 1, L - 1):
+            np.testing.assert_allclose(got[:, row], mean.numpy(), atol=GATE[torch.bfloat16])
+
+
 # ---- the kernel family past 128 tokens: the C entries' rule, and the count
 
 _CSRC = os.path.join(os.path.dirname(attn.__file__), os.pardir, "csrc")
@@ -408,10 +504,10 @@ FAMILY_CASES = [
 ]
 
 
-@pytest.fixture(scope="module")
-def family_rule(tmp_path_factory):
-    """The C entries' family rule (csrc/attention_family.cuh), built with
-    the host compiler into a small library."""
+def _rule_library(tmp_path_factory):
+    """csrc/attention_family.cuh built with the host compiler into a small
+    library: ``family`` (attention_family, both entries' rule) and
+    ``fwd_family`` (attention_fwd_family, #1's forward)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -420,11 +516,26 @@ def family_rule(tmp_path_factory):
     src.write_text('#include "attention_family.cuh"\n'
                    'extern "C" int family(int L, int Dh, int dt, const void* a, const void* b,'
                    ' const void* c, const void* e) {\n'
-                   '  return ccmh::attention_family(L, Dh, dt, a, b, c, e);\n}\n')
+                   '  return ccmh::attention_family(L, Dh, dt, a, b, c, e);\n}\n'
+                   'extern "C" int fwd_family(int L, int Dh, int dt, const void* a,'
+                   ' const void* b, const void* c) {\n'
+                   '  return ccmh::attention_fwd_family(L, Dh, dt, a, b, c);\n}\n')
     lib = d / "family.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-I",
                     os.path.abspath(_CSRC), "-o", str(lib), str(src)], check=True)
-    fn = ctypes.CDLL(str(lib)).family
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def rule_library(tmp_path_factory):
+    return _rule_library(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def family_rule(rule_library):
+    """The C entries' family rule (csrc/attention_family.cuh), built with
+    the host compiler into a small library."""
+    fn = rule_library.family
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     return fn
@@ -442,6 +553,50 @@ def test_entries_take_the_wgmma_kernels_for_every_tower(family_rule, L, Dh, dtyp
     if odd != 1:      # no projection bias at all takes the same family
         ptrs[1] = None
         assert attn.FAMILIES[family_rule(L, Dh, dtype, *ptrs)] == want
+
+
+RESIDENT = attn.RESIDENT_MAX_L
+# #1's forward: (L, head dim, dtype code, the pointer off 16-byte alignment,
+# family): bf16 at head dim 64 up to LIMIT keys in one pass, past it up to
+# RESIDENT in two over the head's keys in shared memory, past that and in
+# fp32 on the two-pass wgmma kernels that stream the keys
+FWD_FAMILY_CASES = [
+    (197, 64, 1, None, "long_onepass"),     # ViT-B/16, bf16
+    (257, 64, 1, None, "long_onepass"),     # ViT-L/14
+    (256, 64, 1, None, "long_onepass"),
+    (129, 64, 1, None, "long_onepass"),
+    (LIMIT - 1, 64, 1, None, "long_onepass"),
+    (LIMIT, 64, 1, None, "long_onepass"),
+    (LIMIT + 1, 64, 1, None, "long_resident"),
+    (577, 64, 1, None, "long_resident"),    # ViT-L/14@336
+    (RESIDENT, 64, 1, None, "long_resident"),
+    (RESIDENT + 1, 64, 1, None, "long_wgmma"),
+    (4096, 64, 1, None, "long_wgmma"),
+    (128, 64, 1, None, "short"),
+    (257, 64, 0, None, "long_wgmma"),       # fp32: 3xTF32, two passes
+    (197, 64, 0, None, "long_wgmma"),
+    (LIMIT, 64, 0, None, "long_wgmma"),
+    (577, 64, 0, None, "long_wgmma"),
+    (200, 128, 1, None, "long_mma"),
+    (257, 64, 1, 0, "long_mma"),            # qkv a view at an odd offset
+    (257, 64, 1, 1, "long_mma"),            # the projection bias
+    (257, 64, 1, 2, "long_mma"),            # out
+]
+
+
+@pytest.mark.parametrize("L,Dh,dtype,odd,want", FWD_FAMILY_CASES)
+def test_forward_takes_the_one_pass_kernel_up_to_its_limit(rule_library, L, Dh, dtype, odd,
+                                                           want):
+    fn = rule_library.fwd_family
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    ptrs = [ALIGNED] * 3
+    if odd is not None:
+        ptrs[odd] = ODD
+    assert attn.FAMILIES[fn(L, Dh, dtype, *ptrs)] == want
+    if odd != 1:      # no projection bias at all takes the same family
+        ptrs[1] = None
+        assert attn.FAMILIES[fn(L, Dh, dtype, *ptrs)] == want
 
 
 def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
@@ -463,7 +618,7 @@ def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
     assert calls == [(16, None, 32, 257, 64, 1), (16, 48, 32, 64, 257, 64, 0)]
     assert len(Lib.ccmh_attention_fwd_family.argtypes) == 3 + 3
     assert len(Lib.ccmh_attention_bwd_family.argtypes) == 4 + 3
-    assert attn.FAMILIES == ("short", "long_mma", "long_wgmma")
+    assert attn.FAMILIES == ("short", "long_mma", "long_wgmma", "long_onepass", "long_resident")
     assert set(attn.launches_by_family) == set(attn.backward_launches_by_family) == set(
         attn.FAMILIES)
 

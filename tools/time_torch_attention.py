@@ -20,7 +20,9 @@ C entries (``fwd_ms``, ``bwd_ms``) and through their Python wrappers
 (``*_wrapper_ms``, host-bound where the kernel is short); SDPA runs on the
 same biased q, k, v (forward, and forward + backward minus forward).  One
 JSON line per shape and type, with each kernel's max abs error against
-its plain version; the card's name and power limit first.
+its plain version and a digest of its output's bytes (``fwd_sha256``,
+``bwd_sha256``: two checkouts give the same bits on these seeded inputs
+iff they agree); the card's name and power limit first.
 
 ``--shapes`` (default ``short``) picks the shapes of #1 and #2: ``short``
 the two above, ``long`` the towers past 128 tokens, where the C entries
@@ -28,7 +30,8 @@ take the long path: ViT-B/16 B=256 L=197 H=12, ViT-L/14 B=64 L=257 H=16,
 the same at L=256 (no class token: beside L=257 it prices the last
 query tile, which holds one row), and ViT-L/14@336 B=64 L=577 H=16, no
 mask, with the kernel family each call took (``short``, ``long_mma``,
-``long_wgmma``) where the checkout counts it; their wrapper times are
+``long_wgmma``, and in bf16 ``long_onepass`` and ``long_resident``) where
+the checkout counts it; their wrapper times are
 not taken (the wrapper adds the same microseconds to a millisecond).
 
 ``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
@@ -95,6 +98,18 @@ def steady_ms(fn) -> float:
         t = ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])
         best = min(best, t / (LOOPS[1] - LOOPS[0]))
     return best
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes: two
+    checkouts' kernels on the same seeded inputs give the same bits iff
+    their digests agree."""
+    import hashlib
+
+    import torch
+
+    raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
@@ -352,12 +367,14 @@ def main(argv=None) -> int:
                                                          "backward_launches_by_family")]
             before = [dict(c) if c is not None else None for c in by_family]
             with torch.no_grad():
-                fwd_err = (attn.fused_attention(qkv, mask, H, qkv_b=qkv_b).float()
-                           - attn.attention_reference(qkv, mask, H, qkv_b=qkv_b).float()
-                           ).abs().max().item()
+                fwd_out = attn.fused_attention(qkv, mask, H, qkv_b=qkv_b)
+                fwd_err = (fwd_out.float() - attn.attention_reference(
+                    qkv, mask, H, qkv_b=qkv_b).float()).abs().max().item()
                 want = attn.attention_backward_reference(qkv, mask, qkv_b, g, H).float()
-                bwd_err = (attn.attention_backward(qkv, mask, qkv_b, g, H).float() - want
-                           ).abs().max().item()
+                bwd_out = attn.attention_backward(qkv, mask, qkv_b, g, H)
+                bwd_err = (bwd_out.float() - want).abs().max().item()
+                digests = {"fwd_sha256": digest(fwd_out), "bwd_sha256": digest(bwd_out)}
+                del fwd_out, bwd_out
                 families = [None if c is None else [f for f in c if c[f] > was[f]]
                             for c, was in zip(by_family, before)]
                 fwd_ms = steady_ms(entry_call(attn, "fwd", qkv, mask, qkv_b, H))
@@ -383,7 +400,7 @@ def main(argv=None) -> int:
                 "fwd_wrapper_ms": fwd_wrapper_ms, "bwd_wrapper_ms": bwd_wrapper_ms,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_both - sdpa_fwd,
                 "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-                "bwd_output_scale": want.abs().max().item(),
+                "bwd_output_scale": want.abs().max().item(), **digests,
                 **({"families": families} if families[0] is not None else {})}), flush=True)
             del qkv, g, want, x
             torch.cuda.empty_cache()

@@ -2,7 +2,7 @@
 """Compile variants of the attention kernels' sources side by side and time
 each through its C entry, on one CUDA card.
 
-    python3 tools/tune_torch_attention.py [VARIANTS.json] [--shapes short|long]
+    python3 tools/tune_torch_attention.py [VARIANTS.json] [--shapes short|long|limit]
                                           [--dtypes bf16,fp32]
 
 The checkout's ``ccmh_torch/csrc/attention.cu`` and ``attention_bwd.cu``
@@ -12,7 +12,8 @@ are always built (``fwd_new``, ``bwd_new``).  VARIANTS.json lists more:
 beside it are copied from ``srcdir`` (default: the checkout's csrc) into
 ``build/tune_attention/<name>/``, each substitution is applied to every
 file that holds its old text (it must match somewhere), and the variant is
-compiled with the port's nvcc flags, all variants at once.  A name that
+compiled with the port's nvcc flags, all variants at once (ptxas's registers,
+spills and any wgmma it serialises are printed for each).  A name that
 starts with ``fwd`` is the forward's entry, one that starts with
 ``stacked`` the ablation bench's #7 (``ccmh_attention_fwd_stacked`` of
 ``attention_fwd_stacked.cu``, at bb=16 on the same q, k, v without the
@@ -35,8 +36,9 @@ CUDA events) and whether it agrees with the plain version (fp32 1e-4, bf16
 something else on purpose, an ablation, prints BAD with its error), and
 SDPA's forward and forward + backward minus forward beside them.
 ``--shapes long`` takes the towers past 128 tokens instead (ViT-B/16 B=256
-L=197 H=12, ViT-L/14 B=64 L=257 H=16, ViT-L/14@336 B=64 L=577 H=16, no
-mask), where the C entries take the long path; ``--dtypes`` picks the
+L=197 H=12, ViT-L/14 B=64 L=257 H=16 and at L=256, ViT-L/14@336 B=64 L=577
+H=16, no mask), ``--shapes limit`` ViT-L/14's B=64 H=16 at L = 272, 288,
+320, 336 and 337 (around the bf16 one-pass kernel's limit), where the C entries take the long path; ``--dtypes`` picks the
 types (default both); ``--no-bias`` calls #1 and #2 without the
 projection bias (nothing to fold into the tiles); ``--profile`` adds, for
 each #1 and #2 variant, the device µs a call of each kernel it launches
@@ -57,7 +59,9 @@ CSRC = os.path.join(REPO, "ccmh_torch", "csrc")
 OUT = os.path.join(REPO, "build", "tune_attention")
 SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
 LONG_SHAPES = (("ViT-B/16", 256, 197, 12, False), ("ViT-L/14", 64, 257, 16, False),
-               ("ViT-L/14@336", 64, 577, 16, False))
+               ("ViT-L/14 L=256", 64, 256, 16, False), ("ViT-L/14@336", 64, 577, 16, False))
+# ViT-L/14's batch and heads around the bf16 one-pass kernel's limit (336)
+LIMIT_SHAPES = tuple((f"L={L}", 64, L, 16, False) for L in (272, 288, 320, 336, 337))
 
 
 def variant(name, src, subs=(), srcdir=CSRC):
@@ -95,7 +99,8 @@ def build(variants):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
-        report = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+        report = [ln.strip() for ln in log.splitlines()
+                  if "Used" in ln or "spill" in ln or "serialized" in ln]
         print(json.dumps({"variant": name, "ptxas": report}), flush=True)
         libs[name] = ctypes.CDLL(so)
     return libs
@@ -151,7 +156,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="?", help="JSON list of source variants")
-    ap.add_argument("--shapes", choices=("short", "long"), default="short")
+    ap.add_argument("--shapes", choices=("short", "long", "limit"), default="short")
     ap.add_argument("--dtypes", default="bf16,fp32")
     ap.add_argument("--no-bias", action="store_true",
                     help="#1 and #2 without the projection bias")
@@ -187,7 +192,8 @@ def main(argv=None) -> int:
         return bench._events_ms(run, 40, 240, 3)
 
     for dtype in dtypes:
-        for tag, B, L, H, causal in (LONG_SHAPES if args_ns.shapes == "long" else SHAPES):
+        for tag, B, L, H, causal in {"long": LONG_SHAPES, "limit": LIMIT_SHAPES}.get(
+                args_ns.shapes, SHAPES):
             Dh, D = 64, H * 64
             gen = torch.Generator(device=dev).manual_seed(L)
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
