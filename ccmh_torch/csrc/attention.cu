@@ -526,32 +526,6 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
 // warpgroups of ~230 registers already take an SM's register file, and two
 // blocks an SM overlap one's softmax with the other's products.
 
-// a tile's row maxima in logit units (raw products times scale on a plain
-// tile: the multiply is monotone) folded into the thread's mx
-template <int N>
-__device__ __forceinline__ void tile_max(const float (&s)[N / 2], const ccmh::wg::Tile& tile,
-                                         float (&mx)[2]) {
-  float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) cm[(i >> 1) & 1] = fmaxf(cm[(i >> 1) & 1], s[i]);
-  mx[0] = fmaxf(mx[0], cm[0] * tile.cm);
-  mx[1] = fmaxf(mx[1], cm[1] * tile.cm);
-}
-
-// e = exp(x - m) in place over a tile (the exponent in the call's form,
-// Tile), summed into the thread's l; mb: m log2 e without a mask, m with one
-template <bool MASK, int N>
-__device__ __forceinline__ void tile_exp(float (&s)[N / 2], const ccmh::wg::Tile& tile,
-                                         const float (&mb)[2], float (&l)[2]) {
-  using namespace ccmh::wg;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    s[i] = MASK ? ex2((s[i] - mb[r]) * kLog2e) : ex2(fmaf(s[i], tile.c, -mb[r]));
-    l[r] += s[i];
-  }
-}
-
 // p = e * (1 / sum) in fp32, rounded to bf16 as the A operand of p v
 template <int N>
 __device__ __forceinline__ void tile_probs(uint32_t (&a)[N / 16][4], float (&s)[N / 2],

@@ -912,17 +912,20 @@ cudaError_t launch_long(const void* qkv, const void* qkv_b, const float* mask, c
 //      stream past them; S = q k^T and dP = g v^T (wgmma, both operands
 //      K-major) give each row's max, sum and D_i (Stats64, once a 64-key
 //      tile), written as (max log2 e + log2 sum, D, max, log2 sum) fp32
-//      over the first 16 bytes of the row's own dq slot of dqkv (p = 2^(x
-//      log2 e - the first), the normalisation inside the exponent; in a
-//      call with a mask 2^((x - max) log2 e - log2 sum): wgmma_tiles.cuh
-//      Tile);
+//      into the row's 16 bytes of the statistics buffer, [B, H, L, 4] fp32,
+//      which the wrapper allocates (p = 2^(x log2 e - the first), the
+//      normalisation inside the exponent; in a call with a mask 2^((x -
+//      max) log2 e - log2 sum): wgmma_tiles.cuh Tile);
 //   2. dk and dv, key-major: a block's k and v tiles stay; the q and g
 //      tiles and those rows' 16 bytes of statistics stream past (a third
-//      TMA map reads dqkv as fp32); S^T = k q^T and dP^T = v g^T give p and
+//      TMA map reads the buffer); S^T = k q^T and dP^T = v g^T give p and
 //      dS scale, rounded to bf16 in registers as the A operand of
 //      dv += p^T g and dk += dS^T q (g and q the MN-major B operands);
-//   3. dq, query-major: as 1, each thread's rows' statistics read back
-//      first, dq += dS k (k MN-major), stored over the statistics.
+//   3. dq, query-major: as 1, each thread's rows' statistics read first,
+//      dq += dS k (k MN-major).
+// Up to kBwdOnePassMaxL keys (ViT-B/16, ViT-L/14) kernels 1 and 3 give way
+// to one query-side kernel that holds each row's probabilities in
+// registers (attention_bwd_onepass_q below), and kernel 2 follows it.
 // Each output element is summed by one warpgroup, tile after tile in a
 // fixed order.  Tiles land by TMA through a ring of kBwdStages buffers, as
 // in the forward (attention.cu), the bias folded in bf16 through the
@@ -951,7 +954,8 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
                     const __grid_constant__ CUtensorMap g_map,
                     const __grid_constant__ CUtensorMap stats_map,
                     const __nv_bfloat16* __restrict__ qkv_b, const float* __restrict__ mask,
-                    __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale, int n_t) {
+                    __nv_bfloat16* __restrict__ dqkv, float* __restrict__ stats, int L, int H,
+                    float scale, int n_t) {
   using namespace ccmh::wg;
   constexpr bool KEYS = KIND == kDkDv;   // key-major: k, v stay; q, g, statistics stream
   constexpr int kStage = 2 * kTileBytes + (KEYS ? kStatsBytes : 0);
@@ -981,7 +985,7 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     if (KEYS) {
       tma_load(st, mq, bar, h * kDh, row, b);
       tma_load(st + kTileBytes, mg, bar, h * kDh, row, b);
-      tma_load(st + 2 * kTileBytes, ms, bar, h * kDh / 2, row, b);
+      tma_load(st + 2 * kTileBytes, ms, bar, 0, row, b * H + h);
     } else {
       tma_load(st, mq, bar, D + h * kDh, row, b);
       tma_load(st + kTileBytes, mq, bar, 2 * D + h * kDh, row, b);
@@ -1011,7 +1015,7 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     if (KEYS) fold_tile(r1, nt, bias_chunk(bq + 2 * D, tid), tid);
   }
 
-  // kernel 3: the thread's rows' statistics, read before its dq overwrites them
+  // kernel 3: the thread's rows' statistics
   RowLse rl[2] = {};
   float dd[2] = {0.f, 0.f};
   if (KIND == kDq) {
@@ -1019,7 +1023,8 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     for (int r = 0; r < 2; ++r) {
       const int i = i0 + 8 * r;
       if (i < L) {
-        const float4 v = *reinterpret_cast<const float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh);
+        const float4 v =
+            *reinterpret_cast<const float4*>(stats + (((size_t)b * H + h) * L + i) * 4);
         rl[r] = {v.x, v.z, v.w};
         dd[r] = v.y;
       }
@@ -1128,7 +1133,7 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
         const int i = i0 + 8 * r;
         if (i < L) {
           const RowLse q = st.row(r);
-          *reinterpret_cast<float4*>(dqkv + ((size_t)b * L + i) * D3 + h * kDh) =
+          *reinterpret_cast<float4*>(stats + (((size_t)b * H + h) * L + i) * 4) =
               make_float4(q.lse2, st.dn[r] * (1.f / st.l[r]), q.m, q.l2);
         }
       }
@@ -1152,10 +1157,289 @@ attention_bwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 long path's query side in one pass, up to kBwdOnePassMaxL = 272
+// keys (attention_family.cuh attention_bwd_family: ViT-B/16's 197 and
+// ViT-L/14's 256 and 257 tokens): kernels 1 and 3 above as one kernel,
+// which kernel 2 follows.  The same function and rounding points: q + b,
+// k + b, v + b and g in bf16; logits (q . k) * scale + mask in fp32; p =
+// softmax in fp32 from the row's whole max and sum; D_i = sum_j p_ij dP_ij
+// over the fp32 p and the fp32 dP = g v^T; dS = p (dP - D) scale rounded
+// to bf16; dq = dS k summed in fp32, stored in bf16.
+//
+// What bounds it on an H100: bytes.  At ViT-L/14 it reads qkv and g and
+// writes dq and the statistics, 173 MB, 52 us at 3.35 TB/s; its products
+// (q k^T, g v^T twice and dS k: 35 GFLOP) take 35 us at the bf16 peak.
+// With kernel 2 the backward takes eight products where the function has
+// five (q k^T twice, g v^T three times; the three kernels nine) and two
+// exponentials a logit (three), and each head's k and v land and are
+// folded once on the query side (kernels 1 and 3: once a query tile
+// each).  At ViT-L/14 it took 154 us and kernel 2 195 us, where kernels 1
+// and 3 took 116 and 136 (torch.profiler, PERF.md); 21 us of the 154 are
+// the D sweep.
+//
+// Design: a block per (batch element, head), one warpgroup, as #1's
+// one-pass forward (attention.cu): every k and v tile of the head lands at
+// once by TMA and is folded with its bias once a block (v while the first
+// S runs); the block walks over the head's query tiles, q (folded) and g
+// landed by TMA, g through two buffers so that the next tile's lands under
+// this one's work.  A query tile:
+//   * S = q k^T over every key tile in one group of products: NT tiles of
+//     64 keys, and one of 16 for a last tile of <= 16 keys (TAIL, the class
+//     token of L = 64 n + 1): ViT-L/14 4 x 64 + 16 = 272 columns, 136
+//     registers a thread; ViT-B/16 3 x 64 + 16, 104.  The next q tile lands
+//     meanwhile into q's buffer;
+//   * the row's max by quad shuffles, e in place with one ex2 a logit in
+//     the call's form (tile_exp: without a mask 2^(s scale log2 e - m log2
+//     e), one multiply-add on a full tile; with one 2^((x - m) log2 e)),
+//     the row's sum from the same registers, p = e * (1 / sum) in fp32,
+//     kept in the same registers;
+//   * D = sum_j p_ij dP_ij, dP = g v^T one key tile at a time in fp32
+//     accumulators, reduced by quad shuffles;
+//   * a second sweep over the key tiles: dP again, dS = p (dP - D) scale
+//     rounded to bf16 as the register A operand of dq += dS k (k the
+//     MN-major operand, the transpose bit), the next tile's dP in the same
+//     group of products; the next q tile folded under the last group;
+//   * dq stored into its slot of dqkv, each row's (m log2 e + log2 sum, D,
+//     m, log2 sum) into the statistics buffer for kernel 2, whose
+//     exponentials form p = 2^(s c - (m log2 e + log2 sum)), or with a mask
+//     2^((x - m) log2 e - log2 sum) (its rounding may differ from e * (1 /
+//     sum) here in the last fp32 bits, far under bf16's rounding of p).
+// No atomics and a fixed order of sums: two calls give the same bits.
+// Shared memory 1 KB of slack + q + 2 g + 2 KT tiles (ViT-L/14 105 KB) and
+// 172-248 registers a thread: two blocks an SM, which overlap one's
+// softmax and sweeps with the other's products.  Measured and lost
+// (PERF.md): the D sweep with the next tile's dP in flight (wait_group 1)
+// ran slower; five key tiles (a limit of 336) spill at 255 registers, and
+// with a tail ptxas serialises the products.
+template <int NT, bool TAIL, bool MASK>
+__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 2)
+attention_bwd_onepass_q(const __grid_constant__ CUtensorMap qkv_map,
+                        const __grid_constant__ CUtensorMap g_map,
+                        const __nv_bfloat16* __restrict__ qkv_b, const float* __restrict__ mask,
+                        __nv_bfloat16* __restrict__ dqkv, float* __restrict__ stats, int L,
+                        int H, float scale) {
+  using namespace ccmh::wg;
+  constexpr int KT = NT + (TAIL ? 1 : 0);      // k tiles, and v tiles
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align1024(smem_raw);
+  unsigned char* sg = sq + kTileBytes;            // two g buffers
+  unsigned char* sk = sg + 2 * kTileBytes;        // KT k tiles
+  unsigned char* sv = sk + KT * kTileBytes;       // KT v tiles
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(sv + KT * kTileBytes);
+  uint64_t* vbar = kbar + 1;
+  uint64_t* qbar = kbar + 2;
+  uint64_t* gbar = kbar + 3;                      // one a g buffer
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int n_qt = (L + kRows - 1) / kRows;     // the head's query tiles
+  const int D = H * kDh;
+  const bf16* bq = qkv_b ? qkv_b + h * kDh : nullptr;
+  const CUtensorMap* map = &qkv_map;
+  const CUtensorMap* gmap = &g_map;
+
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) bar_init(kbar + i, 1);   // k, v, q and the two g buffers
+    bar_init_fence();
+    bar_expect_tx(qbar, kTileBytes);
+    tma_load(sq, map, qbar, h * kDh, 0, b);
+    bar_expect_tx(gbar, kTileBytes);
+    tma_load(sg, gmap, gbar, h * kDh, 0, b);
+    bar_expect_tx(kbar, KT * kTileBytes);
+    for (int j = 0; j < KT; ++j) tma_load(sk + j * kTileBytes, map, kbar, D + h * kDh, j * kRows, b);
+    bar_expect_tx(vbar, KT * kTileBytes);
+    for (int j = 0; j < KT; ++j)
+      tma_load(sv + j * kTileBytes, map, vbar, 2 * D + h * kDh, j * kRows, b);
+  }
+  __syncthreads();
+  const uint4 cb_q = bias_chunk(bq, tid);
+  bar_wait(kbar, 0);
+  if (bq != nullptr) {
+    const uint4 cb_k = bias_chunk(bq + D, tid);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) fold_tile(sk + j * kTileBytes, min(kRows, L - j * kRows), cb_k, tid);
+  }
+  bar_wait(qbar, 0);
+  if (bq != nullptr) fold_tile(sq, min(kRows, L), cb_q, tid);
+  fence_async_smem();     // k's and the first q's folds, published by the loop's first sync
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q0 = qt * kRows;
+    const int i0 = q0 + 16 * warp + (lane >> 2);   // the thread's query rows i0, i0 + 8
+    unsigned char* sgt = sg + (qt & 1) * kTileBytes;
+    // q's fold published; every warp done with the last tile's g buffer,
+    // which takes the next tile's g
+    __syncthreads();
+    if (tid == 0 && qt + 1 < n_qt) {
+      uint64_t* bar = gbar + ((qt + 1) & 1);
+      bar_expect_tx(bar, kTileBytes);
+      tma_load(sg + ((qt + 1) & 1) * kTileBytes, gmap, bar, h * kDh, q0 + kRows, b);
+    }
+    // the next q tile folded under the last group of products
+    auto fold_next_q = [&] {
+      if (qt + 1 < n_qt) {
+        bar_wait(qbar, (qt + 1) & 1);
+        if (bq != nullptr) fold_tile(sq, min(kRows, L - q0 - kRows), cb_q, tid);
+        fence_async_smem();
+      }
+    };
+
+    float s[NT][32];
+    float st[TAIL ? 8 : 1];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+    fence_regs(st);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) rows_times<64>(s[j], sq, sk + j * kTileBytes);
+    if constexpr (TAIL) rows_times<16>(st, sq, sk + NT * kTileBytes);
+    wg_commit();
+    if (qt == 0) {
+      // v lands and is folded while the first tile's S runs
+      bar_wait(vbar, 0);
+      if (bq != nullptr) {
+        const uint4 cb_v = bias_chunk(bq + 2 * D, tid);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          fold_tile(sv + j * kTileBytes, min(kRows, L - j * kRows), cb_v, tid);
+      }
+      fence_async_smem();
+    }
+    wg_wait0();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+    fence_regs(st);
+    // every warp's products are done with q: its buffer takes the next
+    // tile (the first tile: v's fold published too)
+    __syncthreads();
+    if (tid == 0 && qt + 1 < n_qt) {
+      bar_expect_tx(qbar, kTileBytes);
+      tma_load(sq, map, qbar, h * kDh, q0 + kRows, b);
+    }
+
+    // p = softmax in fp32, in place
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const Tile tile(mask, j * kRows, L, scale);
+      logits<64>(s[j], tile, scale, mask, i0, j * kRows, L, t);
+      tile_max<64>(s[j], tile, mx);
+    }
+    if constexpr (TAIL) {
+      const Tile tile(mask, NT * kRows, L, scale);
+      logits<16>(st, tile, scale, mask, i0, NT * kRows, L, t);
+      tile_max<16>(st, tile, mx);
+    }
+    float mb[2], l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      mb[r] = MASK ? finite_max(mx[r]) : max_log2e(mx[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tile_exp<MASK, 64>(s[j], Tile(mask, j * kRows, L, scale), mb, l);
+    if constexpr (TAIL) tile_exp<MASK, 16>(st, Tile(mask, NT * kRows, L, scale), mb, l);
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = 1.f / l[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[j][x] *= inv[(x >> 1) & 1];
+    if constexpr (TAIL) {
+#pragma unroll
+      for (int x = 0; x < 8; ++x) st[x] *= inv[(x >> 1) & 1];
+    }
+
+    // D = sum_j p dP over the row
+    bar_wait(gbar + (qt & 1), (qt >> 1) & 1);
+    float dn[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float dp[32];
+      run(dp, [&] { rows_times<64>(dp, sgt, sv + j * kTileBytes); });
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dn[(x >> 1) & 1] += s[j][x] * dp[x];
+    }
+    if constexpr (TAIL) {
+      float dp[8];
+      run(dp, [&] { rows_times<16>(dp, sgt, sv + NT * kTileBytes); });
+#pragma unroll
+      for (int x = 0; x < 8; ++x) dn[(x >> 1) & 1] += st[x] * dp[x];
+    }
+    float dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) dd[r] = quad_sum(dn[r]);
+
+    // dq = dS k over the key tiles, each dP taken again
+    float dq[32], dp[32];
+    float dpt[TAIL ? 8 : 1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    run(dp, [&] { rows_times<64>(dp, sgt, sv); });
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dp[x] = s[j][x] * (dp[x] - dd[(x >> 1) & 1]) * scale;
+      uint32_t a[4][4];
+      to_a<64>(a, dp);
+      fence_regs(dq);
+      fence_regs(dp);
+      fence_regs(dpt);
+      wg_fence();
+      acc_times(dq, a, sk + j * kTileBytes);
+      if (j + 1 < NT) {
+        rows_times<64>(dp, sgt, sv + (j + 1) * kTileBytes);
+      } else if constexpr (TAIL) {
+        rows_times<16>(dpt, sgt, sv + NT * kTileBytes);
+      }
+      wg_commit();
+      if (j + 1 == NT && !TAIL) fold_next_q();
+      wg_wait0();
+      fence_regs(dq);
+      fence_regs(dp);
+      fence_regs(dpt);
+    }
+    if constexpr (TAIL) {
+#pragma unroll
+      for (int x = 0; x < 8; ++x) dpt[x] = st[x] * (dpt[x] - dd[(x >> 1) & 1]) * scale;
+      uint32_t a[1][4];
+      to_a<16>(a, dpt);
+      fence_regs(dq);
+      wg_fence();
+      acc_times(dq, a, sk + NT * kTileBytes);
+      wg_commit();
+      fold_next_q();
+      wg_wait0();
+      fence_regs(dq);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i < L) {
+        bf16* row = dqkv + ((size_t)b * L + i) * 3 * D + h * kDh + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(row + 8 * j) =
+              pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        if (t == 0) {
+          const float l2 = log2f(l[r]);
+          *reinterpret_cast<float4*>(stats + (((size_t)b * H + h) * L + i) * 4) =
+              make_float4(max_log2e(mx[r]) + l2, dd[r], finite_max(mx[r]), l2);
+        }
+      }
+    }
+  }
+}
+
 template <int KIND>
 cudaError_t launch_bwd_wgmma_kernel(const CUtensorMap& mq, const CUtensorMap& mg,
                                     const CUtensorMap& ms, const void* qkv_b, const float* mask,
-                                    void* dqkv, int B, int L, int H, float scale,
+                                    void* dqkv, float* stats, int B, int L, int H, float scale,
                                     cudaStream_t stream) {
   using namespace ccmh::wg;
   constexpr int S = kBwdStages;
@@ -1170,27 +1454,84 @@ cudaError_t launch_bwd_wgmma_kernel(const CUtensorMap& mq, const CUtensorMap& mg
   const long long blocks = (long long)B * H * n_t;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      mq, mg, ms, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(dqkv), L, H, scale,
-      n_t);
+      mq, mg, ms, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(dqkv), stats, L, H,
+      scale, n_t);
   return cudaGetLastError();
 }
 
+template <int NT, bool TAIL>
+cudaError_t launch_bwd_onepass_tiles(const CUtensorMap& mq, const CUtensorMap& mg,
+                                     const void* qkv_b, const float* mask, void* dqkv,
+                                     float* stats, int B, int L, int H, float scale,
+                                     cudaStream_t stream) {
+  using namespace ccmh::wg;
+  constexpr int KT = NT + (TAIL ? 1 : 0);      // k tiles, and v tiles
+  const size_t smem = 1024 + (size_t)(3 + 2 * KT) * kTileBytes + 8 * 5;
+  auto kernel = mask ? attention_bwd_onepass_q<NT, TAIL, true>
+                     : attention_bwd_onepass_q<NT, TAIL, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      mq, mg, static_cast<const bf16*>(qkv_b), mask, static_cast<bf16*>(dqkv), stats, L, H,
+      scale);
+  return cudaGetLastError();
+}
+
+// the one-pass query side for 128 < L <= kBwdOnePassMaxL: NT tiles of 64
+// keys, and one of 16 where the last tile holds <= 16 keys
+cudaError_t launch_bwd_onepass(const CUtensorMap& mq, const CUtensorMap& mg, const void* qkv_b,
+                               const float* mask, void* dqkv, float* stats, int B, int L, int H,
+                               float scale, cudaStream_t stream) {
+  using namespace ccmh::wg;
+  const int rem = L % kRows;
+  const bool tail = rem != 0 && rem <= 16;
+  const int nt = L / kRows + (rem > 16 ? 1 : 0);
+  switch (2 * nt + (tail ? 1 : 0)) {
+    case 5:
+      return launch_bwd_onepass_tiles<2, true>(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                               stream);
+    case 6:
+      return launch_bwd_onepass_tiles<3, false>(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                                stream);
+    case 7:
+      return launch_bwd_onepass_tiles<3, true>(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                               stream);
+    case 8:
+      return launch_bwd_onepass_tiles<4, false>(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                                stream);
+    case 9:
+      return launch_bwd_onepass_tiles<4, true>(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                               stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the bf16 wgmma backward: the one-pass query side and kernel 2 (onepass),
+// or kernels 1, 2 and 3
 cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, const void* g,
-                         void* dqkv, int B, int L, int H, float scale, cudaStream_t stream) {
+                         void* dqkv, float* stats, int B, int L, int H, float scale,
+                         bool onepass, cudaStream_t stream) {
   using namespace ccmh::wg;
   const uint64_t D = (uint64_t)H * kDh;
   CUtensorMap mq, mg, ms;
   cudaError_t err = make_map(&mq, qkv, kMapBf16, 3 * D, L, B, 3 * D, kDh);
   if (err == cudaSuccess) err = make_map(&mg, g, kMapBf16, D, L, B, D, kDh);
-  // dqkv as fp32 rows of 3 D / 2 words: each row's statistics at word 32 h
-  if (err == cudaSuccess) err = make_map(&ms, dqkv, kMapF32Plain, 3 * D / 2, L, B, 3 * D / 2, 4);
+  // the statistics as [B H][L][4] fp32: a tile's rows in one box
+  if (err == cudaSuccess) err = make_map(&ms, stats, kMapF32Plain, 4, L, (uint64_t)B * H, 4, 4);
   if (err == cudaSuccess)
-    err = launch_bwd_wgmma_kernel<kStatsPass>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale,
-                                              stream);
+    err = onepass ? launch_bwd_onepass(mq, mg, qkv_b, mask, dqkv, stats, B, L, H, scale, stream)
+                  : launch_bwd_wgmma_kernel<kStatsPass>(mq, mg, ms, qkv_b, mask, dqkv, stats, B,
+                                                        L, H, scale, stream);
   if (err == cudaSuccess)
-    err = launch_bwd_wgmma_kernel<kDkDv>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
-  if (err == cudaSuccess)
-    err = launch_bwd_wgmma_kernel<kDq>(mq, mg, ms, qkv_b, mask, dqkv, B, L, H, scale, stream);
+    err = launch_bwd_wgmma_kernel<kDkDv>(mq, mg, ms, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                         stream);
+  if (err == cudaSuccess && !onepass)
+    err = launch_bwd_wgmma_kernel<kDq>(mq, mg, ms, qkv_b, mask, dqkv, stats, B, L, H, scale,
+                                       stream);
   return err;
 }
 
@@ -1625,26 +1966,33 @@ cudaError_t launch_wgmma32(const void* qkv, const void* qkv_b, const float* mask
 // Which kernels the C entry launches, by the rule of attention_family.cuh
 int long_family(const void* qkv, const void* qkv_b, const void* g, const void* dqkv, int L,
                 int Dh, int dtype) {
-  return ccmh::attention_family(L, Dh, dtype, qkv, qkv_b, g, dqkv);
+  return ccmh::attention_bwd_family(L, Dh, dtype, qkv, qkv_b, g, dqkv);
 }
 
 }  // namespace
 
 // The kernel family ccmh_attention_bwd launches for these arguments: 0 the
-// short kernel, 1 the long mma.sync kernels, 2 the long wgmma kernels (the
-// wrapper counts its launches by family).
+// short kernel, 1 the long mma.sync kernels, 2 the long wgmma kernels (three
+// in bf16), 3 the bf16 one-pass query side and kernel 2 (the wrapper counts
+// its launches by family).
 extern "C" int ccmh_attention_bwd_family(const void* qkv, const void* qkv_b, const void* g,
                                          const void* dqkv, int L, int Dh, int dtype) {
   return long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype);
 }
 
+// The fp32 values a row of the statistics buffer holds (the entry below
+// takes the buffer since this symbol exists)
+extern "C" int ccmh_attention_bwd_stats_width() { return 4; }
+
 // qkv and dqkv [B, L, 3*H*Dh], g [B, L, H*Dh], all contiguous in `dtype`;
-// qkv_b [3*H*Dh] in `dtype` or null; mask [L, L] fp32 or null; scale is
-// 1/sqrt(Dh) rounded to fp32 by the caller.  Launches on `stream` of card
-// `device` and returns cudaGetLastError() (0 = launched).
+// qkv_b [3*H*Dh] in `dtype` or null; mask [L, L] fp32 or null; stats the
+// bf16 long path's row statistics, [B, H, L, 4] fp32 scratch, 16-byte
+// aligned (the wgmma families in bf16 refuse null; the others ignore it);
+// scale is 1/sqrt(Dh) rounded to fp32 by the caller.  Launches on `stream`
+// of card `device` and returns cudaGetLastError() (0 = launched).
 extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b,
-                                  const float* mask, const void* g, void* dqkv, int B,
-                                  int L, int H, int Dh, float scale, int dtype,
+                                  const float* mask, const void* g, void* dqkv, float* stats,
+                                  int B, int L, int H, int Dh, float scale, int dtype,
                                   void* stream) {
   if (B < 1 || H < 1 || H > 65535 || L < 1 || L > ccmh::attn_long::kMaxL || Dh < 1 ||
       Dh > kMaxDh)
@@ -1665,12 +2013,16 @@ extern "C" int ccmh_attention_bwd(int device, const void* qkv, const void* qkv_b
           return (int)launch_long<float>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale, s);
       }
     case ccmh::kBFloat16:
-      switch (long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype)) {
+      switch (const int family = long_family(qkv, qkv_b, g, dqkv, L, Dh, dtype)) {
         case ccmh::kFamilyShort:
           return (int)launch<__nv_bfloat16>(device, qkv, qkv_b, mask, g, dqkv, B, L, H, Dh,
                                             scale, s);
         case ccmh::kFamilyLongWgmma:
-          return (int)launch_wgmma(qkv, qkv_b, mask, g, dqkv, B, L, H, scale, s);
+        case ccmh::kFamilyLongOnePass:
+          if (stats == nullptr || !ccmh::aligned16_or_null(stats))
+            return (int)cudaErrorInvalidValue;
+          return (int)launch_wgmma(qkv, qkv_b, mask, g, dqkv, stats, B, L, H, scale,
+                                   family == ccmh::kFamilyLongOnePass, s);
         default:
           return (int)launch_long<__nv_bfloat16>(qkv, qkv_b, mask, g, dqkv, B, L, H, Dh, scale,
                                                  s);

@@ -11,7 +11,7 @@
 //     transformers past K = 128, in either compute type;
 //   1 long mma.sync: the other shapes past 128 (other head dims, views at
 //     odd offsets), attention_long.cuh;
-//   3 long one-pass (#1's forward only, attention_fwd_family): of the
+//   3 long one-pass (#1's forward, attention_fwd_family; #2's below): of the
 //     wgmma family, bf16 up to kOnePassMaxL keys, where a warpgroup's whole
 //     [64, L] logit tile fits in its registers: one q k^T, one exponential
 //     a logit (ViT-B/16's 197, ViT-L/14's 256 and 257).  Past it (@336's
@@ -19,6 +19,12 @@
 //   4 long resident (#1's forward only): of the wgmma family, bf16 past
 //     kOnePassMaxL up to kResidentMaxL keys, the two passes over the head's
 //     k and v resident in shared memory (@336's 577).
+// #2's backward (attention_bwd_family) takes family 3 too: of the wgmma
+// family, bf16 up to kBwdOnePassMaxL keys, where a warpgroup's [64, L] fp32
+// probabilities fit in its registers beside dq, one dP tile and one dS
+// operand: the query side in one kernel (row statistics and dq), then the
+// dk dv kernel (ViT-B/16, ViT-L/14).  Past it (@336) and in fp32 it stays
+// on the three wgmma kernels.
 
 #pragma once
 
@@ -38,6 +44,7 @@ constexpr int kShortMaxL = 128;      // the short kernels' L
 constexpr int kWgmmaHeadDim = 64;    // the head dim of the wgmma kernels
 constexpr int kOnePassMaxL = 336;    // 5 x 64 + 16 keys: the one-pass kernel's logit columns
 constexpr int kResidentMaxL = 768;   // 12 key tiles: 2 x 96 KB of k and v, 4 q tiles
+constexpr int kBwdOnePassMaxL = 272; // 4 x 64 + 16 keys: #2's one-pass query side
 
 inline bool aligned16_or_null(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -61,6 +68,16 @@ inline int attention_fwd_family(int L, int Dh, int dtype, const void* p0, const 
   const int family = attention_family(L, Dh, dtype, p0, p1, p2, nullptr);
   if (family != kFamilyLongWgmma || dtype != 1 || L > kResidentMaxL) return family;
   return L <= kOnePassMaxL ? kFamilyLongOnePass : kFamilyLongResident;
+}
+
+// #2's backward: attention_family, with the bf16 wgmma shapes up to
+// kBwdOnePassMaxL keys on the one-pass query side (p0..p3: qkv, qkv_b, g,
+// dqkv)
+inline int attention_bwd_family(int L, int Dh, int dtype, const void* p0, const void* p1,
+                                const void* p2, const void* p3) {
+  const int family = attention_family(L, Dh, dtype, p0, p1, p2, p3);
+  if (family != kFamilyLongWgmma || dtype != 1 || L > kBwdOnePassMaxL) return family;
+  return kFamilyLongOnePass;
 }
 
 }  // namespace ccmh

@@ -447,6 +447,33 @@ struct Stats64 {
   }
 };
 
+// The softmax of the one-pass kernels (#1's bf16 forward, #2's bf16 query
+// side), which hold a query tile's whole row of logits in registers.
+// tile_max: a tile's row maxima in logit units (raw products times scale on
+// a plain tile: the multiply is monotone) folded into the thread's mx
+template <int N>
+__device__ __forceinline__ void tile_max(const float (&s)[N / 2], const Tile& tile,
+                                         float (&mx)[2]) {
+  float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) cm[(i >> 1) & 1] = fmaxf(cm[(i >> 1) & 1], s[i]);
+  mx[0] = fmaxf(mx[0], cm[0] * tile.cm);
+  mx[1] = fmaxf(mx[1], cm[1] * tile.cm);
+}
+
+// e = exp(x - m) in place over a tile (the exponent in the call's form,
+// Tile), summed into the thread's l; mb: m log2 e without a mask, m with one
+template <bool MASK, int N>
+__device__ __forceinline__ void tile_exp(float (&s)[N / 2], const Tile& tile,
+                                         const float (&mb)[2], float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = MASK ? ex2((s[i] - mb[r]) * kLog2e) : ex2(fmaf(s[i], tile.c, -mb[r]));
+    l[r] += s[i];
+  }
+}
+
 // ---- fp32 as 3xTF32 (the fp32 kernels)
 //
 // wgmma's .tf32 products (m64nNk8: 8 fp32 columns a step) read their

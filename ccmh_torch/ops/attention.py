@@ -30,7 +30,10 @@ Hopper's warpgroup products (``wgmma``) fed by TMA
 (``csrc/wgmma_tiles.cuh``; fp32 as 3xTF32 on ``wgmma .tf32``); the bf16
 forward up to :data:`ONEPASS_MAX_L` tokens in one pass over the keys, its
 logits in registers, and past it in two (up to :data:`RESIDENT_MAX_L` over
-the head's keys held in shared memory); other long shapes take the
+the head's keys held in shared memory); the bf16 backward up to
+:data:`BWD_ONEPASS_MAX_L` tokens with its query side in one kernel (each
+row's probabilities in registers: row statistics and dq) and its dk dv
+kernel after it, past it in three kernels; other long shapes take the
 ``mma.sync`` kernels of ``csrc/attention_long.cuh``.
 The C entries choose by that fixed rule and report the family they took
 (``ccmh_attention_{fwd,bwd}_family``); the wrapper counts launches by
@@ -53,9 +56,10 @@ launches = 0            # the forward, kernel A
 backward_launches = 0   # the backward, kernel C
 # the same launches by the kernel family the C entry took: "short" (L <= 128),
 # "long_mma" (the long path on mma.sync), "long_wgmma" (on wgmma, two passes
-# over the keys streamed a query tile), and for the bf16 forward on wgmma
-# "long_onepass" (one pass, up to ONEPASS_MAX_L keys) and "long_resident"
-# (two passes over the head's keys held in shared memory, up to
+# over the keys streamed a query tile), "long_onepass" on wgmma in bf16 (the
+# forward in one pass up to ONEPASS_MAX_L keys; the backward's query side in
+# one kernel up to BWD_ONEPASS_MAX_L) and "long_resident" (the bf16 forward's
+# two passes over the head's keys held in shared memory, up to
 # RESIDENT_MAX_L)
 FAMILIES = ("short", "long_mma", "long_wgmma", "long_onepass", "long_resident")  # codes 0-4
 launches_by_family = dict.fromkeys(FAMILIES, 0)
@@ -72,6 +76,12 @@ SHORT_SEQ = 128
 # kResidentMaxL)
 ONEPASS_MAX_L = 336
 RESIDENT_MAX_L = 768
+# the backward in bf16 at head dim 64 up to this L holds a warpgroup's
+# [64, L] fp32 probabilities in registers (kBwdOnePassMaxL); its two
+# kernels pass each row's four fp32 statistics through a buffer that the
+# wrapper allocates, [B, H, L, STATS_WIDTH], as do the three past it
+BWD_ONEPASS_MAX_L = 272
+STATS_WIDTH = 4
 MAX_SEQ = 4096
 MAX_HEAD_DIM = 128   # a warp's [16, Dh] products in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,7 +139,8 @@ def _check_kernel_inputs(qkv, bias, n_head, qkv_b) -> None:
                          f"1 <= head_dim <= {MAX_HEAD_DIM} (got B={B}, L={L}, "
                          f"head_dim={head_dim})")
     if L > SHORT_SEQ and head_dim * qkv.element_size() < 12:
-        # the long backward keeps each row's three fp32 statistics in its dq slot
+        # the mma.sync long backward keeps each row's three fp32 statistics in its
+        # dq slot (the bf16 wgmma kernels in a buffer of their own)
         raise ValueError(f"past L = {SHORT_SEQ} the attention kernel takes head_dim * "
                          f"itemsize >= 12 bytes (got head_dim={head_dim}, {qkv.dtype})")
     if qkv_b is not None and qkv_b.dtype != qkv.dtype:
@@ -183,7 +194,7 @@ def _entry(name: str):
     else:
         lib = build.load("attention_bwd")
         fn = lib.ccmh_attention_bwd
-        n_ptrs = 5      # qkv, qkv_b, mask, g, dqkv
+        n_ptrs = 6      # qkv, qkv_b, mask, g, dqkv, stats
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -202,6 +213,17 @@ def _family(kind: str, ptrs, L: int, head_dim: int, dtype: torch.dtype) -> str:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _bwd_stats(qkv: torch.Tensor, n_head: int) -> Optional[torch.Tensor]:
+    """The bf16 long backward's scratch for each row's softmax statistics,
+    [B, H, L, STATS_WIDTH] fp32 (its query side writes them, its dk dv
+    kernel reads them), or None where the C entry takes none (L <= 128,
+    fp32)."""
+    B, L, _ = qkv.shape
+    if L <= SHORT_SEQ or qkv.dtype != torch.bfloat16:
+        return None
+    return torch.empty((B, n_head, L, STATS_WIDTH), dtype=torch.float32, device=qkv.device)
 
 
 def _device_of(qkv: torch.Tensor, what: str) -> str:
@@ -252,10 +274,11 @@ def attention_backward(qkv: torch.Tensor, bias: Optional[torch.Tensor],
         raise ValueError("g must be contiguous")
     head_dim = D3 // 3 // n_head
     dqkv = torch.empty_like(qkv)
+    stats = _bwd_stats(qkv, n_head)
     lib, fn = _entry("bwd")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = fn(qkv.device.index, _ptr(qkv), _ptr(qkv_b), _ptr(bias), _ptr(g), _ptr(dqkv),
-             B, L, n_head, head_dim, 1.0 / math.sqrt(head_dim),
+             _ptr(stats), B, L, n_head, head_dim, 1.0 / math.sqrt(head_dim),
              _DTYPE_CODES[qkv.dtype], stream)
     build.raise_on_error(lib, "ccmh_attention_bwd", err)
     backward_launches += 1

@@ -21,8 +21,8 @@ call through the wrappers (mean of 20 after 3, CUDA events).  The cases
 cover both head-dim classes (Dh = 64, 128), the scalar load path (Dh = 30,
 6), causal and key-padded masks, rows that a finite mask covers entirely
 (-1e9, -1e30, finfo.min / 2), L from 1 to 768 (the bf16 one-pass
-kernel's limit and one past it, and the resident kernel's limit, among
-them); #3 at K = 64, 288, 512
+kernels' limits and one past each, the backward's 16-key tails at 144
+and 208, and the resident kernel's limit, among them); #3 at K = 64, 288, 512
 and 2,048 bits over Q = 512, N = 2^18, exactly.  The last line is
 ``{"failed": n}``; the exit code is 1 when a case failed.  A new version of
 the kernels takes this call first, before ``chip_smoke.py``.  Needs one
@@ -50,6 +50,8 @@ CASES = ((2, 129, 2, 64, "none"), (2, 143, 2, 64, "causal"), (2, 192, 3, 64, "pa
          (2, 577, 2, 64, "pad"), (2, 257, 2, 64, "rows"), (2, 200, 2, 128, "rows"),
          (2, attn.ONEPASS_MAX_L, 2, 64, "causal"), (2, attn.ONEPASS_MAX_L + 1, 2, 64, "pad"),
          (2, 272, 2, 64, "rows"), (2, 256, 2, 64, "none"), (2, 577, 2, 64, "rows"),
+         (2, attn.BWD_ONEPASS_MAX_L + 1, 2, 64, "causal"), (2, 208, 2, 64, "pad"),
+         (2, 144, 2, 64, "none"), (2, 145, 2, 64, "rows"),
          (2, attn.RESIDENT_MAX_L, 2, 64, "causal"),
          (2, 200, 2, 128, "none"), (2, 150, 2, 30, "causal"),
          (2, 150, 2, 6, "none"), (64, 257, 16, 64, "none"), (256, 197, 12, 64, "none"),

@@ -417,6 +417,10 @@ def attention_entry(kind, qkv, mask, qkv_b, H, g=None):
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     ptrs = [attn._ptr(qkv), attn._ptr(qkv_b), attn._ptr(mask)]
     ptrs += ([] if kind == "fwd" else [attn._ptr(g)]) + [attn._ptr(out)]
+    stats = None
+    if kind == "bwd":
+        stats = attn._bwd_stats(qkv, H)
+        ptrs.append(attn._ptr(stats))
     args = (qkv.device.index, *ptrs, B, L, H, Dh, 1.0 / math.sqrt(Dh),
             attn._DTYPE_CODES[qkv.dtype], stream)
 
@@ -424,6 +428,7 @@ def attention_entry(kind, qkv, mask, qkv_b, H, g=None):
         code = fn(*args)
         if code:
             fail(f"ccmh_attention_{kind}: CUDA error {code}")
+    call.tensors = (out, stats)      # alive as long as the call
     return call
 
 
@@ -3070,8 +3075,10 @@ LONG_SHAPES = (("ViT-B/16", 256, 197, 12), ("ViT-L/14", 64, 257, 16),
                ("ViT-L/14@336", 64, 577, 16))
 # L at the edge cases, B=4 H=4: 336 is the bf16 one-pass forward's limit
 # (ccmh_torch.ops.attention.ONEPASS_MAX_L), 337 the first L past it, 768
-# the resident two-pass forward's (RESIDENT_MAX_L), 769 past it
-LONG_EDGES = (1, 129, 143, 192, 256, 336, 337, 577, 768, 769)
+# the resident two-pass forward's (RESIDENT_MAX_L), 769 past it; 272 the
+# bf16 one-pass backward's (BWD_ONEPASS_MAX_L), 273 past it; 129 a 1-key
+# and 144, 208 a 16-key last key tile
+LONG_EDGES = (1, 129, 143, 144, 192, 208, 256, 272, 273, 336, 337, 577, 768, 769)
 # rows 0, 1 and L - 1 masked entirely by these finite values (the plain
 # softmax, and ccmh's, give each a uniform row)
 MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
@@ -3111,14 +3118,16 @@ def _long_inputs(B, L, H, dtype, seed, with_g=True, Dh=64, offset=0):
 def wgmma_report(name):
     """Phase 14: the long wgmma kernels of library ``name``: each one's ptxas line
     (registers, spills) and its HGMMA instructions from ``cuobjdump
-    -sass``; fails if one has none, or if one spills."""
+    -sass``; fails if one has none, if one spills, or if ptxas serialises
+    a product (C7512)."""
     from ccmh_torch.ops import build
 
     kernels, current, serialized = {}, None, []
     for ln in (build.build_log(name) or "").splitlines():
         if "Compiling entry function" in ln:
             current = ln.split("'")[1] if "'" in ln else None
-        elif current and "wgmma" in current and ("spill" in ln or "registers" in ln):
+        elif current and ("wgmma" in current or "onepass" in current) and (
+                "spill" in ln or "registers" in ln):
             kernels.setdefault(current, []).append(ln.strip())
         if "serialized" in ln:       # ptxas waits after each wgmma it cannot prove safe
             serialized.append(ln.strip())
@@ -3135,6 +3144,7 @@ def wgmma_report(name):
         for k, v in kernels.items()},
         sass="cuobjdump -sass" if counts is not None else "no cuobjdump in the toolkit",
         serialized_wgmma=serialized)
+    check(not serialized, f"{name}: ptxas serialises wgmma products: {serialized[:2]}")
     new = {k: [int(n) for ln in v for n in re.findall(r"Used (\d+) registers", ln)]
            for k, v in kernels.items() if "onepass" in k or "resident" in k}
     if name == "attention":
@@ -3146,22 +3156,32 @@ def wgmma_report(name):
                  "kernels, as ptxas allots them (no setmaxnreg: the one-pass kernel two "
                  "blocks of one warpgroup an SM, the resident one a block of four "
                  "warpgroups, three with a mask)")
+    if name == "attention_bwd":
+        check(any("onepass_q" in k for k in new),
+              f"attention_bwd: the one-pass query side is not in the ptxas report: {sorted(new)}")
+        say("build", library=name, onepass_registers=new,
+            what="registers a thread of each instance of #2's bf16 one-pass query side "
+                 "(NT key tiles of 64, a tail of 16, a mask), as ptxas allots them: two "
+                 "blocks of one warpgroup an SM")
 
 
 def _long_family(L, Dh=64, aligned=True, kind="bwd", bf16=False):
     """The kernel family the C entry of ``kind`` ("fwd" #1, "bwd" #2) takes
     (csrc/attention_family.cuh) for these tensors: past 128 tokens the
     wgmma kernels at head dim 64 with every pointer 16-byte aligned, else
-    mma.sync; of the wgmma shapes #1's bf16 forward up to ONEPASS_MAX_L
+    mma.sync; of the wgmma shapes in bf16, #1's forward up to ONEPASS_MAX_L
     keys takes the one-pass kernel, past it up to RESIDENT_MAX_L the
-    resident two-pass one."""
+    resident two-pass one, and #2's backward up to BWD_ONEPASS_MAX_L the
+    one-pass query side (then the dk dv kernel)."""
     from ccmh_torch.ops import attention as attn
 
     if L <= attn.SHORT_SEQ:
         return "short"
     if not (Dh == 64 and aligned):
         return "long_mma"
-    if kind != "fwd" or not bf16 or L > attn.RESIDENT_MAX_L:
+    if kind == "bwd":
+        return "long_onepass" if bf16 and L <= attn.BWD_ONEPASS_MAX_L else "long_wgmma"
+    if not bf16 or L > attn.RESIDENT_MAX_L:
         return "long_wgmma"
     return "long_onepass" if L <= attn.ONEPASS_MAX_L else "long_resident"
 
@@ -3248,16 +3268,17 @@ def long_attention_cases(name, B, L, H, dtype):
 
 
 def long_attention_edges():
-    """#1 and #2 at the edges of the long path (B=4, H=4): L from 1 to 577,
+    """#1 and #2 at the edges of the long path (B=4, H=4): L from 1 to 769,
     causal and with the last third of the keys padded; rows that a finite
     mask covers entirely (-1e9, -1e30, finfo.min / 2) on the wgmma kernels
     (the bf16 forward's one-pass kernel at 257 and its limit, the resident
-    two-pass one past it and at 577)
+    two-pass one past it and at 577; the bf16 backward's one-pass query
+    side at 257 and its limit, the three kernels past it)
     and on mma.sync; the shapes the wgmma kernels leave to mma.sync (head
     dim 128, tensors off 16-byte alignment); fp32 and bf16, each call one
     kernel launch of the family the rule gives, within the gates of their
-    plain versions, each forward's second call the same bits.  Returns the
-    launches by family."""
+    plain versions, each forward's and backward's second call the same
+    bits.  Returns the launches by family."""
     import torch
 
     from ccmh_torch.clip.model import causal_mask
@@ -3265,7 +3286,8 @@ def long_attention_edges():
 
     cases = [(L, kind, 64, 0) for L in LONG_EDGES for kind in ("causal", "keypad")]
     cases += [(257, "rows", 64, 0), (200, "rows", 128, 0)]
-    cases += [(L, "rows", 64, 0) for L in (attn.ONEPASS_MAX_L, attn.ONEPASS_MAX_L + 1, 577)]
+    cases += [(L, "rows", 64, 0) for L in (attn.ONEPASS_MAX_L, attn.ONEPASS_MAX_L + 1, 577,
+                                           attn.BWD_ONEPASS_MAX_L, attn.BWD_ONEPASS_MAX_L + 1)]
     cases += [(L, "causal", Dh, off) for L, Dh, off in LONG_MMA_EDGES]
     worst = {}
     reset_counts()
@@ -3290,6 +3312,7 @@ def long_attention_edges():
                 same = torch.equal(got, attn.fused_attention(qkv, mask, 4, qkv_b=qkv_b))
                 dq = _one_launch(lambda: attn.attention_backward(qkv, mask, qkv_b, g, 4),
                                  f"attention backward L={L} {kind} Dh={Dh}", family["bwd"])
+                same_b = torch.equal(dq, attn.attention_backward(qkv, mask, qkv_b, g, 4))
                 dq_want = attn.attention_backward_reference(qkv, mask, qkv_b, g, 4)
             err = (got.float() - want.float()).abs().max().item()
             err_b = (dq.float() - dq_want.float()).abs().max().item()
@@ -3298,6 +3321,7 @@ def long_attention_edges():
             check(math.isfinite(err) and err <= ATTN_TOL[tname],
                   f"attention edge {tag}: max abs err {err}")
             check(same, f"attention edge {tag}: two forward calls differ")
+            check(same_b, f"attention backward edge {tag}: two calls differ")
             check(math.isfinite(err_b) and err_b <= ATTN_TOL[tname] * scale,
                   f"attention backward edge {tag}: max abs err {err_b} (scale {scale})")
             worst[tag] = [err, err_b / scale, family["fwd"], family["bwd"]]
@@ -3464,9 +3488,9 @@ def _check_tower_launches(what, launches, want):
 def _check_tower_families(what, clip_cfg, steps, remat, bf16=False):
     """#1's and #2's launches by kernel family since the counts were set to
     0: the vision tower past 128 tokens all on the wgmma kernels (fp32 or
-    bf16, head dim 64; the bf16 forward up to ONEPASS_MAX_L tokens on the
-    one-pass one), the text tower on the short ones, none on mma.sync.
-    Returns them."""
+    bf16, head dim 64; in bf16 the forward up to ONEPASS_MAX_L tokens and
+    the backward up to BWD_ONEPASS_MAX_L on the one-pass ones), the text
+    tower on the short ones, none on mma.sync.  Returns them."""
     from ccmh_torch.ops import attention as attn
 
     took = family_counts()
@@ -3477,7 +3501,8 @@ def _check_tower_families(what, clip_cfg, steps, remat, bf16=False):
     want["fused_attention_fwd"][_long_family(tokens, kind="fwd", bf16=bf16)] = (
         steps * fwd * clip_cfg.vision_layers)
     want["fused_attention_bwd"]["short"] = steps * clip_cfg.transformer_layers
-    want["fused_attention_bwd"]["long_wgmma"] = steps * clip_cfg.vision_layers
+    want["fused_attention_bwd"][_long_family(tokens, kind="bwd", bf16=bf16)] = (
+        steps * clip_cfg.vision_layers)
     check(took == want, f"{what}: kernel families {took}, the code implies {want}")
     return took
 
@@ -3747,10 +3772,12 @@ def long_path():
               f"phase 14's runs launched {kernel} by family {families[kernel]}: every tower "
               f"past 128 tokens takes the wgmma kernels, fp32 and bf16")
     check(families["fused_attention_fwd"]["long_onepass"] > 0
-          and families["fused_attention_bwd"]["long_onepass"] == 0
+          and families["fused_attention_bwd"]["long_onepass"] > 0
           and families["fused_attention_bwd"]["long_resident"] == 0,
-          f"phase 14's runs launched #1 by family {families['fused_attention_fwd']}: the bf16 "
-          f"towers (bench_vitl, ViT-L/14 bf16) take the one-pass forward")
+          f"phase 14's runs launched #1 by family {families['fused_attention_fwd']} and #2 by "
+          f"{families['fused_attention_bwd']}: the bf16 towers (bench_vitl, ViT-L/14 bf16) "
+          f"take the one-pass forward, ViT-L/14 bf16 the one-pass backward, the fp32 towers "
+          f"the wgmma ones")
     say("long", launches_by_family=families)
     return total, families
 
@@ -4391,11 +4418,11 @@ def parallel_nccl_world_one():
             for kind in ("plain", "mesh", "mesh", "plain"):
                 st, step, _ = _par_fresh(cfg, init)
                 if kind == "plain":
-                    times[kind].append(_par_step_ms(step, st, batch, steps=5, warm=2))
+                    times[kind].append(_par_step_ms(step, st, batch, steps=3, warm=1))
                     continue
                 reset_counts()
                 times[kind].append(_par_step_ms(data_parallel_train_step(step, mesh), st,
-                                                shard_batch(mesh, batch), steps=5, warm=2))
+                                                shard_batch(mesh, batch), steps=3, warm=1))
                 launches = _add_counts(launches, read_counts())
                 del st
             plain_ms, mesh_ms = min(times["plain"]), min(times["mesh"])

@@ -42,12 +42,24 @@ interpret mode on the CPU, as ccmh's own tests run them.
   schedule's above).  Tolerance: the bf16 gate (2e-2) over BF16_MARGIN
   (10), 2e-3: the emulation sits at 9.8e-4 or under (both round the same
   p; their sums run in other orders).
+* The one-pass bf16 backward (its query side holds each row's fp32
+  probabilities in registers, up to ``BWD_ONEPASS_MAX_L`` keys) emulated
+  in plain PyTorch against ccmh's ``jax.vjp`` at L = 197, 257 and the limit
+  and limit + 1, with no mask, the finite-mask rows, causal and key-padded:
+  the query side (p = e * (1 / sum) in the one-pass exponent forms, D over
+  the fp32 p and dP in key-tile order, the second dP sweep, dq summed tile
+  by tile) and then the dk dv kernel with p formed from the row statistics
+  it reads (lse2, or m and log2 sum under a mask).  Tolerance: the bf16
+  gate over BF16_MARGIN, 2e-3 of the output scale (the emulation sits at
+  1.8e-3 or under: single bf16 flips where the two sum in other orders).
 * The C entries' rule for the kernel family past 128 tokens
   (``csrc/attention_family.cuh``), compiled here with the host compiler:
   which (L, head dim, type, alignment) take the ``wgmma`` kernels and
   which the ``mma.sync`` ones of ``attention_long.cuh``; which L #1's
   bf16 forward takes to the one-pass kernel and which to the resident
-  two-pass one; and the wrapper's count by the family an entry reports.
+  two-pass one; which L #2's bf16 backward takes to the one-pass query
+  side; the wrapper's count by the family an entry reports, and the
+  backward entry's row-statistics buffer.
 * The two faults found on the card: the kernels' checks refused L > 128
   and codes of more than 256 bits.
 """
@@ -423,22 +435,18 @@ def onepass_tiles(L):
         [(TILE * nt, TILE * nt + 16)] if 0 < rem <= 16 else [])
 
 
-def forward_onepass(qkv, b, mask, H):
-    """The one-pass kernel's bf16 forward: the logits of every key at once;
-    each row's max over the whole row; e in the kernel's exponent forms (a
-    call with a mask 2^((x - m) log2 e); without one a full tile takes the
-    raw product in one multiply-add, 2^(s (scale log2 e) - m log2 e), and the
-    last partial tile 2^(x log2 e - m log2 e)); the row's sum of e; p = e *
-    (1 / sum) in fp32, rounded to bf16; ctx = p v summed in fp32 over the
-    key tiles in order."""
-    dtype = torch.bfloat16
-    q, k, v = _heads(qkv, b, H, dtype)
-    B, _, L, Dh = q.shape
-    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
-    s = _mm(q, k.transpose(-1, -2), dtype)             # raw products, fp32
+def _onepass_logits(q, k, mask, scale):
+    """The raw products s = q k^T (bf16 values, fp32 sums) and the logits
+    x = s * scale + mask."""
+    s = _mm(q, k.transpose(-1, -2), torch.bfloat16)
     x = s * scale
-    if mask is not None:
-        x = x + mask
+    return s, (x + mask if mask is not None else x)
+
+
+def _onepass_exp(s, x, mask, scale):
+    """e = exp(x - m) over the whole row in the one-pass kernels' exponent
+    forms (tile_exp; see forward_onepass) -> (e, finite_max(m))."""
+    L = x.shape[-1]
     m = x.amax(-1, keepdim=True)
     mf = torch.where(m == -math.inf, torch.zeros(()), m)   # finite_max
     mb = mf * LOG2E                                          # max_log2e
@@ -451,6 +459,23 @@ def forward_onepass(qkv, b, mask, H):
             e[..., cols] = torch.exp2(_fma(s[..., cols], scale * LOG2E, -mb))
         else:
             e[..., cols] = torch.exp2(_fma(x[..., cols], LOG2E, -mb))
+    return e, mf
+
+
+def forward_onepass(qkv, b, mask, H):
+    """The one-pass kernel's bf16 forward: the logits of every key at once;
+    each row's max over the whole row; e in the kernel's exponent forms (a
+    call with a mask 2^((x - m) log2 e); without one a full tile takes the
+    raw product in one multiply-add, 2^(s (scale log2 e) - m log2 e), and the
+    last partial tile 2^(x log2 e - m log2 e)); the row's sum of e; p = e *
+    (1 / sum) in fp32, rounded to bf16; ctx = p v summed in fp32 over the
+    key tiles in order."""
+    dtype = torch.bfloat16
+    q, k, v = _heads(qkv, b, H, dtype)
+    B, _, L, Dh = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    s, x = _onepass_logits(q, k, mask, scale)
+    e, _ = _onepass_exp(s, x, mask, scale)
     p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dtype).float()
     ctx = torch.zeros_like(q)
     for j0, j1 in onepass_tiles(L):
@@ -473,6 +498,82 @@ def test_onepass_schedule_matches_ccmh(L, kind):
         mean = v.mean(-2).reshape(B, H * Dh)        # [B, D]: v is [B, H, L, Dh]
         for row in (0, 1, L - 1):
             np.testing.assert_allclose(got[:, row], mean.numpy(), atol=GATE[torch.bfloat16])
+
+
+# ---- the one-pass bf16 backward: the query side with each row's p in registers
+
+BWD_LIMIT = attn.BWD_ONEPASS_MAX_L    # the one-pass query side's keys (kBwdOnePassMaxL)
+BWD_ONEPASS_CASES = [
+    pytest.param(197, "none", id="L197-vitb16"),
+    pytest.param(257, "rows", id="L257-maskedrows"),
+    pytest.param(BWD_LIMIT, "causal", id="limit-causal"),
+    pytest.param(BWD_LIMIT + 1, "pad", id="limit+1-keypad"),
+]
+
+
+def backward_onepass(qkv, b, mask, g, H):
+    """The bf16 backward as the one-pass query side and kernel 2 take it.
+    Query side (attention_bwd_onepass_q): every logit of the row at once; p
+    = e * (1 / sum) in fp32 with e in the one-pass exponent forms; D = sum_j
+    p dP over the fp32 p and dP = g v^T, the key tiles in order; a second
+    sweep: dS = p (dP - D) scale rounded to bf16, dq += dS k tile by tile;
+    each row's (m log2 e + log2 sum, D, m, log2 sum) to the statistics
+    buffer.  Kernel 2 (dk dv, key-major): p from those statistics in its
+    forms (a call with a mask 2^((x - m) log2 e - log2 sum); without one a
+    full key tile 2^(s (scale log2 e) - lse2), the last partial one 2^(x
+    log2 e - lse2)), dS = p (dP - D) scale; dv += p^T g and dk += dS^T q
+    over 64-query tiles, both rounded to bf16 first."""
+    dtype = torch.bfloat16
+    q, k, v = _heads(qkv, b, H, dtype)
+    B, _, L, Dh = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32)
+    gh = g.to(dtype).float().reshape(B, L, H, Dh).permute(0, 2, 1, 3)
+    s, x = _onepass_logits(q, k, mask, scale)
+    e, mf = _onepass_exp(s, x, mask, scale)
+    total = e.sum(-1, keepdim=True)
+    p = e * (1.0 / total)
+    dp = _mm(gh, v.transpose(-1, -2), dtype)
+    tiles = [slice(j0, min(j1, L)) for j0, j1 in onepass_tiles(L)]
+    d = torch.zeros_like(total)
+    for cols in tiles:
+        d = d + (p[..., cols] * dp[..., cols]).sum(-1, keepdim=True)
+    dq = torch.zeros_like(q)
+    for cols in tiles:
+        ds = (p[..., cols] * (dp[..., cols] - d) * scale).to(dtype).float()
+        dq = dq + ds @ k[..., cols, :]
+    l2 = torch.log2(total)                 # the statistics kernel 2 reads
+    lse2 = mf * LOG2E + l2
+    p2 = torch.empty_like(x)
+    for k0 in range(0, L, TILE):
+        cols = slice(k0, min(k0 + TILE, L))
+        if mask is not None:
+            p2[..., cols] = torch.exp2(_fma(x[..., cols] - mf, LOG2E, -l2))
+        elif k0 + TILE <= L:
+            p2[..., cols] = torch.exp2(_fma(s[..., cols], scale * LOG2E, -lse2))
+        else:
+            p2[..., cols] = torch.exp2(_fma(x[..., cols], LOG2E, -lse2))
+    ds2 = p2 * (dp - d) * scale
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for rows in _chunks(L, TILE):
+        dv = dv + p2[..., rows, :].transpose(-1, -2).to(dtype).float() @ gh[..., rows, :]
+        dk = dk + ds2[..., rows, :].transpose(-1, -2).to(dtype).float() @ q[..., rows, :]
+    out = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4)
+    return out.reshape(B, L, 3 * H * Dh).to(dtype)
+
+
+@pytest.mark.parametrize("L,kind", BWD_ONEPASS_CASES)
+def test_onepass_backward_schedule_matches_ccmh(L, kind):
+    """The one-pass backward's schedule against ccmh's jax.vjp (cached by
+    _ccmh) under the bf16 gate over BF16_MARGIN, times the output scale (the
+    entry gives limit + 1 to the three kernels, whose schedule
+    test_long_schedule_matches_ccmh holds)."""
+    B, H, Dh = 1, 2, 64
+    qkv, b, g = _port_inputs(B, L, H, Dh, torch.bfloat16)
+    _, want = _ccmh(B, L, H, Dh, kind, torch.bfloat16)
+    got = backward_onepass(qkv, b, _mask(L, kind), g, H).float().numpy()
+    err = float(np.abs(got - want).max())
+    gate = GATE[torch.bfloat16] / BF16_MARGIN * max(1.0, float(np.abs(want).max()))
+    assert math.isfinite(err) and err <= gate, (err, gate)
 
 
 # ---- the kernel family past 128 tokens: the C entries' rule, and the count
@@ -506,8 +607,9 @@ FAMILY_CASES = [
 
 def _rule_library(tmp_path_factory):
     """csrc/attention_family.cuh built with the host compiler into a small
-    library: ``family`` (attention_family, both entries' rule) and
-    ``fwd_family`` (attention_fwd_family, #1's forward)."""
+    library: ``family`` (attention_family, both entries' rule),
+    ``fwd_family`` (attention_fwd_family, #1's forward) and ``bwd_family``
+    (attention_bwd_family, #2's backward)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -519,7 +621,10 @@ def _rule_library(tmp_path_factory):
                    '  return ccmh::attention_family(L, Dh, dt, a, b, c, e);\n}\n'
                    'extern "C" int fwd_family(int L, int Dh, int dt, const void* a,'
                    ' const void* b, const void* c) {\n'
-                   '  return ccmh::attention_fwd_family(L, Dh, dt, a, b, c);\n}\n')
+                   '  return ccmh::attention_fwd_family(L, Dh, dt, a, b, c);\n}\n'
+                   'extern "C" int bwd_family(int L, int Dh, int dt, const void* a,'
+                   ' const void* b, const void* c, const void* e) {\n'
+                   '  return ccmh::attention_bwd_family(L, Dh, dt, a, b, c, e);\n}\n')
     lib = d / "family.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-I",
                     os.path.abspath(_CSRC), "-o", str(lib), str(src)], check=True)
@@ -599,6 +704,70 @@ def test_forward_takes_the_one_pass_kernel_up_to_its_limit(rule_library, L, Dh, 
         assert attn.FAMILIES[fn(L, Dh, dtype, *ptrs)] == want
 
 
+# #2's backward: (L, head dim, dtype code, the pointer off 16-byte alignment,
+# family): bf16 at head dim 64 up to BWD_LIMIT keys on the one-pass query
+# side (then the dk dv kernel), past it and in fp32 on the three wgmma
+# kernels
+BWD_FAMILY_CASES = [
+    (197, 64, 1, None, "long_onepass"),     # ViT-B/16, bf16
+    (257, 64, 1, None, "long_onepass"),     # ViT-L/14
+    (256, 64, 1, None, "long_onepass"),
+    (129, 64, 1, None, "long_onepass"),     # a 1-key tail
+    (144, 64, 1, None, "long_onepass"),     # a 16-key tail
+    (208, 64, 1, None, "long_onepass"),
+    (BWD_LIMIT, 64, 1, None, "long_onepass"),
+    (BWD_LIMIT + 1, 64, 1, None, "long_wgmma"),
+    (336, 64, 1, None, "long_wgmma"),
+    (577, 64, 1, None, "long_wgmma"),       # ViT-L/14@336
+    (4096, 64, 1, None, "long_wgmma"),
+    (128, 64, 1, None, "short"),
+    (257, 64, 0, None, "long_wgmma"),       # fp32: 3xTF32, three kernels
+    (197, 64, 0, None, "long_wgmma"),
+    (BWD_LIMIT, 64, 0, None, "long_wgmma"),
+    (200, 128, 1, None, "long_mma"),
+    (257, 64, 1, 0, "long_mma"),            # qkv a view at an odd offset
+    (257, 64, 1, 1, "long_mma"),            # the projection bias
+    (257, 64, 1, 2, "long_mma"),            # g
+    (257, 64, 1, 3, "long_mma"),            # dqkv
+]
+
+
+@pytest.mark.parametrize("L,Dh,dtype,odd,want", BWD_FAMILY_CASES)
+def test_backward_takes_the_one_pass_query_side_up_to_its_limit(rule_library, L, Dh, dtype,
+                                                                odd, want):
+    fn = rule_library.bwd_family
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    ptrs = [ALIGNED] * 4
+    if odd is not None:
+        ptrs[odd] = ODD
+    assert attn.FAMILIES[fn(L, Dh, dtype, *ptrs)] == want
+    if odd != 1:      # no projection bias at all takes the same family
+        ptrs[1] = None
+        assert attn.FAMILIES[fn(L, Dh, dtype, *ptrs)] == want
+
+
+def test_backward_entry_takes_the_row_statistics_buffer(monkeypatch):
+    """The backward's C entry takes a sixth pointer, the bf16 long path's
+    [B, H, L, 4] fp32 statistics, which the wrapper allocates past 128
+    tokens in bf16 and nowhere else."""
+    class Entry:
+        pass
+
+    class Lib:
+        ccmh_attention_bwd = Entry()
+
+    monkeypatch.setattr(attn.build, "load", lambda name: Lib)
+    _, fn = attn._entry("bwd")
+    assert fn.argtypes == [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    stats = attn._bwd_stats(torch.zeros((3, 257, 3 * 4 * 64), dtype=torch.bfloat16), 4)
+    assert stats.shape == (3, 4, 257, attn.STATS_WIDTH) == (3, 4, 257, 4)
+    assert stats.dtype == torch.float32 and stats.is_contiguous()
+    assert attn._bwd_stats(torch.zeros((3, 257, 3 * 4 * 64)), 4) is None           # fp32
+    assert attn._bwd_stats(torch.zeros((3, 128, 3 * 4 * 64), dtype=torch.bfloat16), 4) is None
+
+
 def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
     calls = []
 
@@ -616,6 +785,8 @@ def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
     assert attn._family("fwd", (16, None, 32), 257, 64, torch.bfloat16) == "long_wgmma"
     assert attn._family("bwd", (16, 48, 32, 64), 257, 64, torch.float32) == "long_mma"
     assert calls == [(16, None, 32, 257, 64, 1), (16, 48, 32, 64, 257, 64, 0)]
+    Lib.ccmh_attention_bwd_family = entry(3)       # the bf16 one-pass query side
+    assert attn._family("bwd", (16, 48, 32, 64), 257, 64, torch.bfloat16) == "long_onepass"
     assert len(Lib.ccmh_attention_fwd_family.argtypes) == 3 + 3
     assert len(Lib.ccmh_attention_bwd_family.argtypes) == 4 + 3
     assert attn.FAMILIES == ("short", "long_mma", "long_wgmma", "long_onepass", "long_resident")

@@ -32,6 +32,7 @@ from ccmh.train.methods import get_method
 from ccmh.train.trainer import restore_state
 from ccmh_torch.cli import main as torch_main
 from ccmh_torch.train.optim import tree_leaves_with_path
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 
 K = 16
 

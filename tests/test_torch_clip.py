@@ -22,6 +22,7 @@ from ccmh.clip.convert import save_params_npz as jax_save_npz
 from ccmh_torch.bridge import params_from_jax, params_to_jax
 from ccmh_torch.clip import model as tm
 from ccmh_torch.clip.convert import load_params_npz, save_params_npz
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 
 TINY = jm.ClipConfig.tiny()
 # full-width ViT-B/32, cut to 2 layers per tower

@@ -27,6 +27,7 @@ from ccmh_torch.losses import dghdgh as t_loss
 from ccmh_torch.models.heads import linear_hash
 from ccmh_torch.train.methods.base import image_embeds, text_embeds
 from tests import torch_extra_state_harness as H
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 
 
 def _replay_triplets(monkeypatch):

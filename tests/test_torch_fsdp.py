@@ -29,6 +29,7 @@ on gloo ranks on the CPU, held to ``ccmh`` and to the single-device port.
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -195,8 +196,9 @@ def spawned(tmp_path_factory):
     ccmh_init = H.start(root / "ranks_ccmh", 2, "fsdp_ccmh", {"ccmh": {"DSPH": (
         cfg, {"params": np_tree(h.jstate.params), "extra": np_tree(h.jstate.extra),
               "aux": np_tree(h.jstate.aux)}, batch)}})
-    return {"two": two, "four": four, "ccmh_init": ccmh_init, "h": h, "batch": batch,
-            "root": root, "data": data, "single": H._trainer_digests(single)}
+    yield {"two": two, "four": four, "ccmh_init": ccmh_init, "h": h, "batch": batch,
+           "root": root, "data": data, "single": H._trainer_digests(single)}
+    shutil.rmtree(root)     # the runs' checkpoint slots, ~800 MB
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,7 @@ from ccmh_torch.clip.model import ClipConfig
 from ccmh_torch.config import Config
 from ccmh_torch.retrieval import Retriever
 from ccmh_torch.train.checkpoint import save_checkpoint
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 
 JTINY = JClipConfig.tiny()
 TINY = ClipConfig.tiny()

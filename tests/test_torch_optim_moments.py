@@ -36,6 +36,7 @@ from ccmh_torch.train import checkpoint as ck
 from ccmh_torch.train.optim import bert_adam_for
 from ccmh_torch.train.state import moments_dtype
 from ccmh_torch.train.trainer import Trainer
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 from tests.torch_resume_harness import (  # noqa: F401 -- fixtures
     _argv, _assert_same_run, _cut_at, data, one_thread,
 )

@@ -22,6 +22,7 @@ import scipy.io as scio
 from examples import quickstart_torch
 # many tiny ops: one intra-op thread and no TensorBoard mirror keep them
 # from contending with the other test workers (an autouse fixture)
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 from tests.torch_resume_harness import one_thread  # noqa: F401
 from tools import profile_torch_training as ptt
 

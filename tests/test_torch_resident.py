@@ -51,6 +51,7 @@ from ccmh_torch.data.synthetic import write_synthetic_mat_dataset
 from ccmh_torch.models import heads
 from ccmh_torch.train.optim import tree_leaves_with_path
 from ccmh_torch.train.trainer import Trainer
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 from tests.torch_resume_harness import (  # noqa: F401 -- one_thread: the fixture
     _assert_same, _cut_at, metric_rows, one_thread,
 )

@@ -32,6 +32,7 @@ from ccmh_torch.bridge import params_from_jax
 from ccmh_torch.clip import model as tm
 from ccmh_torch.train.optim import tree_leaves_with_path
 from tests import torch_extra_state_harness as H
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 
 RN_TINY = dict(embed_dim=64, image_resolution=64, vision_layers=(2, 1, 1, 2), vision_width=8,
                vision_patch_size=None, context_length=77, vocab_size=49408,

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from ccmh_torch.train import checkpoint as ck
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 from tests.torch_resume_harness import (  # noqa: F401 -- fixtures
     METHODS, check_resumed_run, data, make_trainer, one_thread,
 )

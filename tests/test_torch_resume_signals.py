@@ -8,6 +8,7 @@ import torch
 
 from ccmh_torch.train import trainer as trainer_mod
 from ccmh_torch.train.trainer import Trainer
+from tests.torch_outputs import drop_large_outputs  # noqa: F401 -- autouse
 from tests.torch_resume_harness import (  # noqa: F401 -- fixtures
     METHODS, check_resumed_run, data, make_trainer, metric_rows, one_thread,
 )

@@ -19,6 +19,7 @@ ranks on the CPU, held to ``ccmh`` and to the single-device port.
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -87,7 +88,8 @@ def ranks(tmp_path_factory):
                "tp_npz": str(root / "mesh" / "model-0.npz"),
                "resume_cfg": _trainer_cfg(data, root / "single", (1, 2), resume=True)}
     results = H.run(root / "ranks", 2, "tp", payload)
-    return results, {"data": data, "root": root, "single": single}
+    yield results, {"data": data, "root": root, "single": single}
+    shutil.rmtree(root)     # the runs' checkpoint slots
 
 
 def test_relayout_state_is_ccmhs_bit_for_bit():

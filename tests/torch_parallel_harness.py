@@ -54,7 +54,10 @@ def start(tmp_path, world, job, payload):
     def results():
         while not ctx.join():
             pass
-        return [torch.load(f"{pay}.rank{r}", weights_only=False) for r in range(world)]
+        out = [torch.load(f"{pay}.rank{r}", weights_only=False) for r in range(world)]
+        for path in [pay] + [f"{pay}.rank{r}" for r in range(world)]:
+            os.remove(path)     # up to ~100 MB each, read now
+        return out
     return results
 
 

@@ -32,7 +32,9 @@ query tile, which holds one row), and ViT-L/14@336 B=64 L=577 H=16, no
 mask, with the kernel family each call took (``short``, ``long_mma``,
 ``long_wgmma``, and in bf16 ``long_onepass`` and ``long_resident``) where
 the checkout counts it; their wrapper times are
-not taken (the wrapper adds the same microseconds to a millisecond).
+not taken (the wrapper adds the same microseconds to a millisecond).  A
+checkout whose backward entry takes the bf16 long path's row-statistics
+buffer is passed one; an older checkout is called without it.
 
 ``--kernels`` (default ``1,2``) picks what is timed: ``1,2`` as above;
 ``6``, ``7``, ``8``, ``9`` and ``10`` add one line per shape, type and
@@ -124,12 +126,19 @@ def entry_call(attn, kind, qkv, mask, qkv_b, H, g=None):
     _, fn = attn._entry(kind)
     ptrs = [attn._ptr(qkv), attn._ptr(qkv_b), attn._ptr(mask)]
     ptrs += ([] if kind == "fwd" else [attn._ptr(g)]) + [attn._ptr(out)]
+    # a checkout whose backward entry takes the row statistics' buffer
+    # (its wrapper has ``_bwd_stats``) gets it; an older one does not
+    stats = None
+    if kind == "bwd" and hasattr(attn, "_bwd_stats"):
+        stats = attn._bwd_stats(qkv, H)
+        ptrs.append(attn._ptr(stats))
     args = (qkv.device.index, *ptrs, B, L, H, Dh, 1.0 / math.sqrt(Dh),
             attn._DTYPE_CODES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream)
 
     def call():
         if fn(*args):
             raise RuntimeError(f"ccmh_attention_{kind} refused the launch")
+    call.tensors = (out, stats)      # alive as long as the call
     return call
 
 

@@ -37,12 +37,16 @@ something else on purpose, an ablation, prints BAD with its error), and
 SDPA's forward and forward + backward minus forward beside them.
 ``--shapes long`` takes the towers past 128 tokens instead (ViT-B/16 B=256
 L=197 H=12, ViT-L/14 B=64 L=257 H=16 and at L=256, ViT-L/14@336 B=64 L=577
-H=16, no mask), ``--shapes limit`` ViT-L/14's B=64 H=16 at L = 272, 288,
-320, 336 and 337 (around the bf16 one-pass kernel's limit), where the C entries take the long path; ``--dtypes`` picks the
+H=16, no mask), ``--shapes limit`` ViT-L/14's B=64 H=16 at L = 272, 273,
+288, 320, 336 and 337 (around the bf16 one-pass kernels' limits), where the C entries take the long path; ``--dtypes`` picks the
 types (default both); ``--no-bias`` calls #1 and #2 without the
 projection bias (nothing to fold into the tiles); ``--profile`` adds, for
 each #1 and #2 variant, the device µs a call of each kernel it launches
-(``torch.profiler`` over 10 calls: the backward's kernels one by one).
+(``torch.profiler`` over 10 calls: the backward's kernels one by one, in
+bf16 up to 272 keys the one-pass query side ``attention_bwd_onepass_q``
+beside kernel 2).  A backward variant whose sources take the bf16 long
+path's row-statistics buffer (``ccmh_attention_bwd_stats_width``) is
+passed one; an older one (``*_parent``) is called without it.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ SHAPES = (("vision", 256, 50, 12, False), ("text", 256, 32, 8, True))
 LONG_SHAPES = (("ViT-B/16", 256, 197, 12, False), ("ViT-L/14", 64, 257, 16, False),
                ("ViT-L/14 L=256", 64, 256, 16, False), ("ViT-L/14@336", 64, 577, 16, False))
 # ViT-L/14's batch and heads around the bf16 one-pass kernel's limit (336)
-LIMIT_SHAPES = tuple((f"L={L}", 64, L, 16, False) for L in (272, 288, 320, 336, 337))
+LIMIT_SHAPES = tuple((f"L={L}", 64, L, 16, False) for L in (272, 273, 288, 320, 336, 337))
 
 
 def variant(name, src, subs=(), srcdir=CSRC):
@@ -121,10 +125,18 @@ def entry(lib, kind, n_ints=0):
     else:
         fwd = kind == "fwd"
         fn = lib.ccmh_attention_fwd if fwd else lib.ccmh_attention_bwd
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (4 if fwd else 5) + [
+        n_ptrs = 4 if fwd else 5 + takes_stats(lib)
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
             ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def takes_stats(lib) -> bool:
+    """Whether the backward entry of ``lib`` takes the bf16 long path's
+    row-statistics buffer after dqkv (sources that export
+    ``ccmh_attention_bwd_stats_width``; older ones do not)."""
+    return hasattr(lib, "ccmh_attention_bwd_stats_width")
 
 
 def kernel_us(fn, calls: int = 10) -> dict:
@@ -207,6 +219,7 @@ def main(argv=None) -> int:
             want_s = av.forward_stacked_reference(qkv, mask, H).float() \
                 if any(kind_of(n) == "stacked" for n, _ in vs) else None
             scale = max(1.0, want_b.abs().max().item())
+            stats = torch.empty((B, H, L, attn.STATS_WIDTH), dtype=torch.float32, device=dev)
             code = 0 if dtype == torch.float32 else 1
             stream = torch.cuda.current_stream().cuda_stream
             row = {"shape": tag, "dtype": str(dtype).split(".")[-1]}
@@ -247,8 +260,10 @@ def main(argv=None) -> int:
                 else:
                     args = [0, qkv.data_ptr(), None if qkv_b is None else qkv_b.data_ptr(),
                             mask_ptr]
-                    args += ([] if fwd else [g.data_ptr()]) + [
-                        out.data_ptr(), B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
+                    args += ([] if fwd else [g.data_ptr()]) + [out.data_ptr()]
+                    if not fwd and takes_stats(libs[name]):
+                        args.append(stats.data_ptr())
+                    args += [B, L, H, Dh, 1.0 / math.sqrt(Dh), code, stream]
                 fn = entry(libs[name], kind, 4 + len(ints))
                 err = fn(*args)
                 torch.cuda.synchronize()
