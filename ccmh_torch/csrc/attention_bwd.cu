@@ -68,6 +68,7 @@
 
 #include <type_traits>
 
+#include "attention_bwd32_plan.cuh"
 #include "attention_family.cuh"
 #include "attention_long.cuh"
 #include "mma_tiles.cuh"
@@ -1551,104 +1552,183 @@ cudaError_t launch_wgmma(const void* qkv, const void* qkv_b, const float* mask, 
 // Design: the bf16 kernels' three-kernel dataflow (stats; dk and dv
 // key-major; dq query-major; no atomics, so the gradients are the same bits
 // every run; the rows' statistics (lse2, D, m, log2 sum) in fp32 over the
-// first 16 bytes of each row's dq slot), with what .tf32 asks for (the
-// forward, attention.cu): every landed tile is split into hi and lo tiles
-// by the block's threads, the bias added in fp32 first, and a product that
-// sums over a streamed tile's rows reads a transposed copy that the same
-// split writes, in the order in which the accumulator's columns enter as
-// the register A operand: dq += dS k reads k^T (kernel 3); dv += p^T g and
-// dk += dS^T q read g^T and q^T (kernel 2).  Kernels 2 and 3 (below): the
-// resident tiles (k, v or q, g) are split once, into hi and lo tiles; one
-// landing buffer a streamed tensor, transposed while S and dP are taken,
-// then free for the next tile's copies, which go out over this tile's
-// softmax, and split into hi and lo while the previous tile's output
-// products run (so the split that S and dP wait for is hidden too).
-// Kernel 2 carries the
-// next q tile's statistics in registers (threads 0..63, a row each) and
-// stores them beside the split.  16 KB tiles: kernel 3 twelve (q, g hi and
-// lo; k, v landed, their hi and lo; k^T hi and lo), kernel 2 fourteen (k, v
-// hi and lo; q, g landed, their hi and lo and transposed) + 1 KB of
-// statistics: 193 and 226 KB, one block an SM.  Kernel 1
-// (attention_bwd_wgmma32_stats) six, two blocks an SM.  A streamed tile of
+// first 16 bytes of each row's dq slot), with what .tf32 asks for: a
+// product reads each operand as hi and lo, and one that sums over a
+// streamed tile's rows reads a transposed copy, in the order in which the
+// accumulator's columns enter as the register A operand: dq += dS k reads
+// k^T (kernel 3); dv += p^T g and dk += dS^T q read g^T and q^T (kernel 2).
+//
+// Kernels 2 and 3 (attention_bwd_wgmma32_ws) are warp-specialised, three
+// warpgroups a block, one block an SM (attention_bwd32_plan.cuh has the
+// plan and the grid, which the CPU tests check):
+//   * a producer warpgroup, its registers cut to kProducerRegs, lands each
+//     stage of 32 streamed rows by TMA (k, v | q, g and, in kernel 2, the
+//     32 queries' statistics) in place in a ring of kDqStages = 3 |
+//     kDkDvStages = 2, folds the bias into it in fp32 and writes its lo and
+//     the transposed copies with their lo (loops not unrolled: unrolled,
+//     they spilled at 40 and 56 registers), and signals the stage on an
+//     mbarrier (every producer thread arrives after its fence.proxy.async);
+//   * two consumer warpgroups, raised to kConsumerRegs, each with 64
+//     resident rows (queries | keys: a block holds 128, and the head's last
+//     block may hold 64 or fewer, its second consumer idle), run only the
+//     products and the softmax arithmetic on each stage and release it on a
+//     second barrier (lane 0 of each warp once its products are done).  So
+//     each split byte feeds both consumers, the producer's split overlaps
+//     their products, and no __syncthreads is left in the step loop;
+//   * a folded tile is its own hi operand: the tensor cores ignore the low
+//     13 mantissa bits of a raw fp32 operand (chip_smoke.py checks it before
+//     the first fp32 long launch), so only lo = x - hi is stored beside it,
+//     and p and dS are their own hi as register A operands.  hi is bit for
+//     bit split_tz's, every output element is summed in the k-step order of
+//     the 64-row kernels this replaced (32-row stages take the same 8-row
+//     k-steps in the same order), and the gradients are those kernels' bits;
+//   * the consumer's first resident tensor (q | k) is folded in place with
+//     its lo beside it in shared memory; the second (g | v) lands where that
+//     lo goes and is read into register A operands (a_rows32) first.
+// Shared memory: 1 KB slack + 64 KB resident + 3 x 48 KB | 2 x (64 KB +
+// 512 bytes of statistics) + barriers: 209 | 194 KB.  A streamed stage of
 // <= 16 rows (the class token's) takes m64n16k8 products and 16-row splits.
+// Registers a thread: 168 at launch (ptxas), 40 in the producer and 232 in
+// the consumers after setmaxnreg, no spill.  Measured slower or spilling
+// (PERF.md): kernel 3 two stages deep (the next S and dP over this
+// softmax; spills at 232), the consumers taking turns to start their
+// products, kernel 2's q and g landed in a ring of their own, kernel 1 on
+// the same three-warpgroup plan.
+constexpr int kProducerRegs = 40;    // the producer warpgroup's registers a thread
+constexpr int kConsumerRegs = 232;   // the consumers': 40 + 2 x 232 = 3 x 168
 
 template <int KIND, bool MASK>
-__global__ void __launch_bounds__(ccmh::wg::kWgThreads, 1)
-attention_bwd_wgmma32(const __grid_constant__ CUtensorMap qkv_map,
-                      const __grid_constant__ CUtensorMap g_map,
-                      const float* __restrict__ qkv_b, const float* __restrict__ mask,
-                      float* __restrict__ dqkv, int L, int H, float scale, int n_t) {
+__global__ void __launch_bounds__(ccmh::bwd32::kThreads, 1)
+attention_bwd_wgmma32_ws(const __grid_constant__ CUtensorMap qkv_map,
+                   const __grid_constant__ CUtensorMap g_map,
+                   const float* __restrict__ qkv_b, const float* __restrict__ mask,
+                   float* __restrict__ dqkv, int L, int H, float scale, int n_b) {
   using namespace ccmh::wg;
+  namespace p32 = ccmh::bwd32;
   static_assert(KIND == kDkDv || KIND == kDq, "kernel 1 is attention_bwd_wgmma32_stats");
   constexpr bool KEYS = KIND == kDkDv;   // key-major: k, v stay; q, g, statistics stream
-  constexpr int kTiles = KEYS ? 14 : 12;
+  constexpr int S = KEYS ? p32::kDkDvStages : p32::kDqStages;
+  constexpr int kStage = KEYS ? p32::kDkDvStageBytes : p32::kDqStageBytes;
+  constexpr int kHalf = p32::kHalfTile;   // [32][64] | [64][32] fp32
+  constexpr int kSR = p32::kStreamRows;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* r0h = align1024(smem_raw);   // resident: q | k, hi and lo
-  unsigned char* r0l = r0h + kTile32;
-  unsigned char* r1h = r0l + kTile32;         // resident: g | v
-  unsigned char* r1l = r1h + kTile32;
-  unsigned char* ra = r1l + kTile32;          // streamed, as landed: k | q
-  unsigned char* rb = ra + kTile32;           // v | g
-  unsigned char* sah = rb + kTile32;          // their hi and lo (the resident tiles land here)
-  unsigned char* sal = sah + kTile32;
-  unsigned char* sbh = sal + kTile32;
-  unsigned char* sbl = sbh + kTile32;
-  unsigned char* tah = sbl + kTile32;         // k | q transposed, hi and lo
-  unsigned char* tal = tah + kTile32;
-  unsigned char* tbh = tal + kTile32;         // KEYS: g transposed
-  unsigned char* tbl = tbh + kTile32;
-  float* sst = reinterpret_cast<float*>(r0h + kTiles * kTile32);   // KEYS: q's (lse2, D, m, l2)
-  uint64_t* sbar = reinterpret_cast<uint64_t*>(r0h + kTiles * kTile32 + (KEYS ? kStatsBytes : 0));
-  uint64_t* rbar = sbar + 1;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
-  const int tile = blockIdx.x % n_t, h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
+  // consumer c: resident folded tile at res + 2 c kTile32, its lo after it
+  unsigned char* res = align1024(smem_raw);
+  // stage tiles: 0 k | q, folded; 1 its lo; 2 v | g; 3 its lo; 4 (k | q)^T;
+  // 5 its lo; KEYS: 6 g^T, 7 its lo
+  unsigned char* ring = res + p32::kResidentBytes;
+  float* sst = reinterpret_cast<float*>(ring + S * kStage);   // KEYS: S x 32 x (lse2, D, m, l2)
+  uint64_t* landed = reinterpret_cast<uint64_t*>(ring + S * kStage +
+                                                 (KEYS ? S * p32::kDkDvStatsBytes : 0));
+  uint64_t* ready = landed + S;    // the stage split: the producer's 128 threads
+  uint64_t* freed = ready + S;     // the stage done: 4 warps a consumer with rows
+  uint64_t* rbar = freed + S;      // a consumer's resident tiles
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const int blk = blockIdx.x % n_b, h = (blockIdx.x / n_b) % H, b = blockIdx.x / (n_b * H);
   const int D = H * kDh, D3 = 3 * D;
-  const int t0 = tile * kRows, nt = min(kRows, L - t0);   // the block's resident rows
-  const int i0 = t0 + 16 * warp + (lane >> 2);   // the thread's rows i0, i0 + 8 (queries | keys)
+  const int t0 = blk * p32::kBlockRows;
+  const int nc = L - t0 > p32::kConsumerRows ? 2 : 1;   // consumers with rows
+  const int n_s = (L + kSR - 1) / kSR;
   const float* bq = qkv_b ? qkv_b + h * kDh : nullptr;
-  // the bias of the resident tiles (q | k, - | v) and of the streamed ones (k | q, v | -)
-  const float* b_r0 = bq ? (KEYS ? bq + D : bq) : nullptr;
-  const float* b_r1 = bq && KEYS ? bq + 2 * D : nullptr;
-  const float* b_sa = bq ? (KEYS ? bq : bq + D) : nullptr;
-  const float* b_sb = bq && !KEYS ? bq + 2 * D : nullptr;
   const CUtensorMap* mq = &qkv_map;
   const CUtensorMap* mg = &g_map;
   // the statistics of row i, over the first 16 bytes of its dq slot
   auto slot = [&](int i) { return dqkv + ((size_t)b * L + i) * D3 + h * kDh; };
 
-  // streamed tile `step` (64 rows from step * 64): k and v, or q and g
-  auto fetch = [&](int step) {
-    const int row = step * kRows;
-    bar_expect_tx(sbar, 2 * kTile32);
-    if (KEYS) {
-      tma_tile32(ra, mq, sbar, h * kDh, row, b);
-      tma_tile32(rb, mg, sbar, h * kDh, row, b);
-    } else {
-      tma_tile32(ra, mq, sbar, D + h * kDh, row, b);
-      tma_tile32(rb, mq, sbar, 2 * D + h * kDh, row, b);
-    }
-  };
   if (tid == 0) {
-    bar_init(sbar, 1);
-    bar_init(rbar, 1);
-    bar_init_fence();
-    bar_expect_tx(rbar, 2 * kTile32);
-    if (KEYS) {
-      tma_tile32(sah, mq, rbar, D + h * kDh, t0, b);
-      tma_tile32(sbh, mq, rbar, 2 * D + h * kDh, t0, b);
-    } else {
-      tma_tile32(sah, mq, rbar, h * kDh, t0, b);
-      tma_tile32(sbh, mg, rbar, h * kDh, t0, b);
+    for (int s = 0; s < S; ++s) {
+      bar_init(&landed[s], 1);
+      bar_init(&ready[s], kWgThreads);
+      bar_init(&freed[s], 4 * nc);
     }
-    fetch(0);
+    bar_init(&rbar[0], 1);
+    bar_init(&rbar[1], 1);
+    bar_init_fence();
   }
   __syncthreads();
-  bar_wait(rbar, 0);
-  split_tile<64>(r0h, r0l, sah, nt, b_r0, tid);
-  split_tile<64>(r1h, r1l, sbh, nt, b_r1, tid);
+
+  if (wgi == 0) {
+    // the producer: land, fold, split and transpose each stage
+    regs_dec<kProducerRegs>();
+    const float* b_a = bq ? (KEYS ? bq : bq + D) : nullptr;   // streamed q | k
+    const float* b_b = bq && !KEYS ? bq + 2 * D : nullptr;    // streamed g (none) | v
+    for (int s = 0; s < n_s; ++s) {
+      const int sl = s % S, s0 = s * kSR, ns = min(kSR, L - s0);
+      unsigned char* st = ring + sl * kStage;
+      if (s >= S) bar_wait(&freed[sl], ((s / S) - 1) & 1);
+      if (tid == 0) {
+        bar_expect_tx(&landed[sl], 2 * kHalf);
+        if (KEYS) {
+          tma_half32(st, mq, &landed[sl], h * kDh, s0, b);
+          tma_half32(st + 2 * kHalf, mg, &landed[sl], h * kDh, s0, b);
+        } else {
+          tma_half32(st, mq, &landed[sl], D + h * kDh, s0, b);
+          tma_half32(st + 2 * kHalf, mq, &landed[sl], 2 * D + h * kDh, s0, b);
+        }
+      }
+      if (KEYS && tid < kSR) {
+        const int i = s0 + tid;
+        *reinterpret_cast<float4*>(sst + 4 * (sl * kSR + tid)) =
+            i < L ? *reinterpret_cast<const float4*>(slot(i)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      bar_wait(&landed[sl], (s / S) & 1);
+      auto split = [&](auto nr) {
+        constexpr int NR = decltype(nr)::value;
+        fold_lo<kSR, NR>(st, st + kHalf, ns, b_a, tid);
+        fold_lo<kSR, NR>(st + 2 * kHalf, st + 3 * kHalf, ns, b_b, tid);
+        named_sync(1, kWgThreads);   // the folded tiles before their transposes
+        transpose_lo<kSR, NR>(st + 4 * kHalf, st + 5 * kHalf, st, tid);
+        if constexpr (KEYS)
+          transpose_lo<kSR, NR>(st + 6 * kHalf, st + 7 * kHalf, st + 2 * kHalf, tid);
+      };
+      if (ns <= 16)
+        split(std::integral_constant<int, 16>());
+      else
+        split(std::integral_constant<int, kSR>());
+      fence_async_smem();   // the split before the consumers' wgmma reads it
+      bar_arrive(&ready[sl]);
+    }
+    return;
+  }
+
+  // a consumer: 64 resident rows from r0
+  regs_inc<kConsumerRegs>();
+  const int c = wgi - 1, ctid = tid - kWgThreads * wgi;
+  const int warp = ctid >> 5, lane = tid & 31, t = lane & 3;
+  const int r0 = t0 + c * p32::kConsumerRows, nr = min(p32::kConsumerRows, L - r0);
+  if (nr <= 0) return;
+  unsigned char* rh = res + 2 * c * kTile32;   // q | k, folded
+  unsigned char* rl = rh + kTile32;            // its lo; g | v land here first
+  const int i0 = r0 + 16 * warp + (lane >> 2);   // the thread's rows i0, i0 + 8 (queries | keys)
+  const float* b_h = bq ? (KEYS ? bq + D : bq) : nullptr;   // resident k | q
+  const float* b_r = bq && KEYS ? bq + 2 * D : nullptr;      // resident v | g (none)
+  if (ctid == 0) {
+    // 32-row boxes below L: rows r0 (and r0 + 32), both column atoms
+    const int boxes = nr > kSR ? 2 : 1;
+    bar_expect_tx(&rbar[c], boxes * 4 * (kHalf / 2));
+    for (int x = 0; x < boxes; ++x)
+      for (int a = 0; a < 2; ++a) {
+        const int off = a * kAtomBytes + x * (kAtomBytes / 2), col = h * kDh + 32 * a;
+        const int row = r0 + kSR * x;
+        if (KEYS) {
+          tma_load(rh + off, mq, &rbar[c], D + col, row, b);
+          tma_load(rl + off, mq, &rbar[c], 2 * D + col, row, b);
+        } else {
+          tma_load(rh + off, mq, &rbar[c], col, row, b);
+          tma_load(rl + off, mg, &rbar[c], col, row, b);
+        }
+      }
+  }
+  bar_wait(&rbar[c], 0);
+  uint32_t xh[8][4], xl[8][4];   // v | g, split: the A operand of dP^T = v g^T | dP = g v^T
+  a_rows32(xh, xl, rl, nr, b_r, warp, lane);
+  named_sync(2 + c, kWgThreads);   // every warp has read v | g
+  fold_lo<kRows, kRows>(rh, rl, nr, b_h, ctid);
+  fence_async_smem();
+  named_sync(2 + c, kWgThreads);
 
   // kernel 3: the thread's rows' statistics, read before its dq overwrites them
-  RowLse rl[2] = {};
+  RowLse rls[2] = {};
   float dd[2] = {0.f, 0.f};
   if (KIND == kDq) {
 #pragma unroll
@@ -1656,156 +1736,118 @@ attention_bwd_wgmma32(const __grid_constant__ CUtensorMap qkv_map,
       const int i = i0 + 8 * r;
       if (i < L) {
         const float4 v = *reinterpret_cast<const float4*>(slot(i));
-        rl[r] = {v.x, v.z, v.w};
+        rls[r] = {v.x, v.z, v.w};
         dd[r] = v.y;
       }
     }
   }
-  // kernel 2: thread tid < 64 carries the statistics of query row 64 step + tid
-  auto stats_of = [&](int step) {
-    const int i = step * kRows + tid;
-    return tid < kRows && i < L ? *reinterpret_cast<const float4*>(slot(i))
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  float4 next_st = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (KEYS) next_st = stats_of(0);
-
-  // the hi and lo tiles of streamed tile `step` as landed: 64 rows, or 16
-  // for a last tile of <= 16 rows (the class token of L = 64 n + 1)
-  auto split_rows = [&](int step) {
-    const int ns = min(kRows, L - step * kRows);
-    bar_wait(sbar, step & 1);
-    if (ns <= 16) {
-      split_tile<16>(sah, sal, ra, ns, b_sa, tid);
-      split_tile<16>(sbh, sbl, rb, ns, b_sb, tid);
-    } else {
-      split_tile<64>(sah, sal, ra, ns, b_sa, tid);
-      split_tile<64>(sbh, sbl, rb, ns, b_sb, tid);
-    }
-  };
-  __syncthreads();   // the resident tiles' splits read sah and sbh
-  split_rows(0);
 
   float acc0[32], acc1[32];   // dq | dk, and dv
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
-  // Step s: S and dP over streamed tile s (split before: the prologue, or
-  // step s - 1's tail), its transposed tiles split while they run, then
-  // the output products, and tile s + 1's split while those run
-  for (int step = 0; step < n_t; ++step) {
-    const int s0 = step * kRows, ns = min(kRows, L - s0);
-    if constexpr (KEYS) {
-      __syncthreads();   // every warp is done with step - 1's statistics
-      if (tid < kRows) *reinterpret_cast<float4*>(sst + 4 * tid) = next_st;
-    }
-    fence_async_smem();   // the splits before the async proxy reads them
-    __syncthreads();
-    auto cols = [&](auto n) {
-      constexpr int N = decltype(n)::value;
-      // S = q k^T, dP = g v^T (query-major); S^T = k q^T, dP^T = v g^T (key-major)
-      float s[N / 2], dp[N / 2];
-      fence_regs(s);
-      fence_regs(dp);
-      wg_fence();
-      rows_times32<N>(s, r0h, r0l, sah, sal);
-      rows_times32<N>(dp, r1h, r1l, sbh, sbl);
-      wg_commit();
-      // the transposed tiles of the output products, split while these run
-      split_tile_t<N>(tah, tal, ra, ns, b_sa, tid);
-      if constexpr (KEYS) split_tile_t<N>(tbh, tbl, rb, ns, b_sb, tid);
-      if (KEYS && step + 1 < n_t) next_st = stats_of(step + 1);
-      wg_wait0();
-      fence_regs(s);
-      fence_regs(dp);
-      fence_async_smem();
-      __syncthreads();    // the transposed tiles, and the landing buffers free
-      if (tid == 0 && step + 1 < n_t) fetch(step + 1);
-      if (KIND == kDq) {
-        const Tile tile(mask, s0, L, scale);
-        logits<N>(s, tile, scale, mask, i0, s0, L, t);
-        probs<MASK, N>(s, tile, rl);
+  auto stage = [&](int s) -> const unsigned char* { return ring + (s % S) * kStage; };
+  auto wait_ready = [&](int s) { bar_wait(&ready[s % S], (s / S) & 1); };
+  // the warp's products are done with stage s
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&freed[s % S]);
+  };
+  auto settle = [&] {
+    wg_wait0();
+    fence_regs(acc0);
+    if constexpr (KEYS) fence_regs(acc1);
+  };
+  // S = q k^T, dP = g v^T (query-major); S^T = k q^T, dP^T = v g^T
+  // (key-major) over stage s's N columns, started
+  auto start = [&](auto n, auto& sv, auto& dp, int s) {
+    constexpr int N = decltype(n)::value;
+    const unsigned char* st = stage(s);
+    fence_regs(sv);
+    fence_regs(dp);
+    wg_fence();
+    rows_times32<N, kSR>(sv, rh, rl, st, st + kHalf);
+    rows_times32<N, kSR>(dp, xh, xl, st + 2 * kHalf, st + 3 * kHalf);
+    wg_commit();
+  };
+  // from stage s's S and dP (done) to its output products, started
+  auto finish = [&](auto n, auto& sv, auto& dp, int s) {
+    constexpr int N = decltype(n)::value;
+    const unsigned char* st = stage(s);
+    const int s0 = s * kSR;
+    fence_regs(sv);
+    fence_regs(dp);
+    if constexpr (!KEYS) {
+      // dS scale into registers of its own (the accumulators stay as the
+      // products left them), from the logits in the Tile form of the
+      // 64-key tile that holds this stage
+      const Tile tile(mask, s0 & ~(kRows - 1), L, scale);
+      float ds[N / 2];
 #pragma unroll
-        for (int x = 0; x < N / 2; ++x) {
-          const int r = (x >> 1) & 1;
-          s[x] = s[x] * (dp[x] - dd[r]) * scale;   // dS scale
-        }
-        uint32_t ah[N / 8][4], al[N / 8][4];
-        acc_to_a32<N>(ah, al, s);
-        fence_regs(acc0);
-        wg_fence();
-        acc_times32<N / 8>(acc0, ah, al, tah, tal);   // dq += dS k
-        wg_commit();
-        if (step + 1 < n_t) split_rows(step + 1);
-        wg_wait0();
-        fence_regs(acc0);
-        return;
+      for (int x = 0; x < N / 2; ++x) {
+        const int r = (x >> 1) & 1;
+        const float y = tile.plain ? sv[x]
+                                   : logit(sv[x], scale, mask, i0 + 8 * r,
+                                           s0 + 8 * (x >> 2) + 2 * t + (x & 1), L);
+        ds[x] = prob<MASK>(y, tile, rls[r]) * (dp[x] - dd[r]) * scale;
       }
+      uint32_t al[N / 8][4];
+      lo_a32<N>(al, ds);
+      fence_regs(acc0);
+      wg_fence();
+      acc_times32_raw<N / 8>(acc0, ds, al, st + 4 * kHalf, st + 5 * kHalf);   // dq += dS k
+      wg_commit();
+    } else {
       // key-major: rows are keys i0 + 8 r, columns the queries s0 + c; a
       // query past L (its q, g and statistics rows zeros) gets p = 0
-      const Tile tile(mask, t0, L, scale);   // the block's keys all below L, no mask
-      // p and dS scale of element x (column c), from the query's (lse2, D, m, l2)
-      auto p_ds = [&](int x, int c) {
-        const float4 q = *reinterpret_cast<const float4*>(sst + 4 * c);
-        const float p = s0 + c < L ? prob<MASK>(s[x], tile, {q.x, q.z, q.w}) : 0.f;
-        s[x] = p;
+      const Tile tile(mask, r0, L, scale);
+      const float* sq = sst + 4 * (s % S) * kSR;
+      // p and dS scale of element x (column cc), from the query's (lse2, D, m, l2)
+      auto p_ds = [&](int x, int cc) {
+        const float4 q = *reinterpret_cast<const float4*>(sq + 4 * cc);
+        const float p = s0 + cc < L ? prob<MASK>(sv[x], tile, {q.x, q.z, q.w}) : 0.f;
+        sv[x] = p;
         dp[x] = p * (dp[x] - q.y) * scale;
       };
-      if constexpr (MASK) {
-        // a column block at a time: its mask and statistics loads hoisted
-        // all at once (four floats a query here) spill
-#pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int x = 4 * j + e, c = 8 * j + 2 * t + (e & 1);
-            s[x] = logit(s[x], scale, mask, s0 + c, i0 + 8 * (e >> 1), L);
-            p_ds(x, c);
-          }
-          asm volatile("" ::: "memory");
-        }
-      } else {
-        if (!tile.plain) {
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = s0 + 8 * j + 2 * t + (e & 1);
-              s[4 * j + e] = logit(s[4 * j + e], scale, mask, i, i0 + 8 * (e >> 1), L);
-            }
-        }
+      if (MASK || !tile.plain) {
 #pragma unroll
         for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) p_ds(4 * j + e, 8 * j + 2 * t + (e & 1));
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            sv[x] = logit(sv[x], scale, mask, s0 + 8 * j + 2 * t + (e & 1), i0 + 8 * (e >> 1), L);
+          }
       }
-      if constexpr (MASK) {
-        // the A fragments four k-steps at a time: the instance with a
-        // mask spilled with all eight's beside the accumulators
-        acc_times32_halves<N>(acc1, s, tbh, tbl);   // dv += p^T g
-        acc_times32_halves<N>(acc0, dp, tah, tal);  // dk += dS^T q
-        if (step + 1 < n_t) split_rows(step + 1);
-        return;
-      }
-      {
-        uint32_t ah[N / 8][4], al[N / 8][4];
-        acc_to_a32<N>(ah, al, s);
-        run(acc1, [&] { acc_times32<N / 8>(acc1, ah, al, tbh, tbl); });   // dv += p^T g
-      }
-      uint32_t ah[N / 8][4], al[N / 8][4];
-      acc_to_a32<N>(ah, al, dp);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p_ds(4 * j + e, 8 * j + 2 * t + (e & 1));
+      uint32_t alp[N / 8][4], als[N / 8][4];
+      lo_a32<N>(alp, sv);
+      lo_a32<N>(als, dp);
       fence_regs(acc0);
+      fence_regs(acc1);
       wg_fence();
-      acc_times32<N / 8>(acc0, ah, al, tah, tal);     // dk += dS^T q
+      acc_times32_raw<N / 8>(acc1, sv, alp, st + 6 * kHalf, st + 7 * kHalf);   // dv += p^T g
+      acc_times32_raw<N / 8>(acc0, dp, als, st + 4 * kHalf, st + 5 * kHalf);   // dk += dS^T q
       wg_commit();
-      if (step + 1 < n_t) split_rows(step + 1);       // the next tile's, while they run
-      wg_wait0();
-      fence_regs(acc0);
-    };
-    if (ns <= 16)
-      cols(std::integral_constant<int, 16>());
-    else
-      cols(std::integral_constant<int, 64>());
-  }
+    }
+  };
+  // one stage at a time: its products, then its softmax, then its output
+  // products
+  auto one = [&](auto n, int s) {
+    constexpr int N = decltype(n)::value;
+    float sv[N / 2], dp[N / 2];
+    wait_ready(s);
+    start(n, sv, dp, s);
+    wg_wait0();
+    finish(n, sv, dp, s);
+    settle();
+    release(s);
+  };
+  // the full stages; a last one of <= 16 rows takes m64n16k8 products
+  const int tail = L - (n_s - 1) * kSR <= 16 ? 1 : 0, nf = n_s - tail;
+  for (int s = 0; s < nf; ++s) one(std::integral_constant<int, kSR>(), s);
+  if (tail) one(std::integral_constant<int, 16>(), nf);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1923,19 +1965,12 @@ attention_bwd_wgmma32_stats(const __grid_constant__ CUtensorMap qkv_map,
   }
 }
 
-template <int KIND>
-cudaError_t launch_bwd_wgmma32_kernel(const CUtensorMap& mq, const CUtensorMap& mg,
-                                      const void* qkv_b, const float* mask, void* dqkv, int B,
-                                      int L, int H, float scale, cudaStream_t stream) {
+cudaError_t launch_bwd_wgmma32_stats(const CUtensorMap& mq, const CUtensorMap& mg,
+                                     const void* qkv_b, const float* mask, void* dqkv, int B,
+                                     int L, int H, float scale, cudaStream_t stream) {
   using namespace ccmh::wg;
-  constexpr int tiles = KIND == kStatsPass ? 6 : KIND == kDq ? 12 : 14;
-  const size_t smem = 1024 + (size_t)tiles * kTile32 + (KIND == kDkDv ? kStatsBytes : 0) + 16;
-  auto kernel = [mask] {
-    if constexpr (KIND == kStatsPass)
-      return mask ? attention_bwd_wgmma32_stats<true> : attention_bwd_wgmma32_stats<false>;
-    else
-      return mask ? attention_bwd_wgmma32<KIND, true> : attention_bwd_wgmma32<KIND, false>;
-  }();
+  const size_t smem = 1024 + (size_t)6 * kTile32 + 16;
+  auto kernel = mask ? attention_bwd_wgmma32_stats<true> : attention_bwd_wgmma32_stats<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1947,19 +1982,43 @@ cudaError_t launch_bwd_wgmma32_kernel(const CUtensorMap& mq, const CUtensorMap& 
   return cudaGetLastError();
 }
 
+template <int KIND>
+cudaError_t launch_bwd_ws32(const CUtensorMap& mq, const CUtensorMap& mg, const void* qkv_b,
+                            const float* mask, void* dqkv, int B, int L, int H, float scale,
+                            cudaStream_t stream) {
+  namespace p32 = ccmh::bwd32;
+  const int smem = KIND == kDkDv ? p32::kDkDvSmem : p32::kDqSmem;
+  auto kernel =
+      mask ? attention_bwd_wgmma32_ws<KIND, true> : attention_bwd_wgmma32_ws<KIND, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_b = p32::blocks_a_head(L);
+  const long long blocks = (long long)B * H * n_b;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, p32::kThreads, smem, stream>>>(
+      mq, mg, static_cast<const float*>(qkv_b), mask, static_cast<float*>(dqkv), L, H, scale, n_b);
+  return cudaGetLastError();
+}
+
+// kernel 1 on 64-row boxes; kernels 2 and 3 on 32-row boxes (their stages;
+// a resident tile lands as two)
 cudaError_t launch_wgmma32(const void* qkv, const void* qkv_b, const float* mask, const void* g,
                            void* dqkv, int B, int L, int H, float scale, cudaStream_t stream) {
   using namespace ccmh::wg;
   const uint64_t D = (uint64_t)H * kDh;
-  CUtensorMap mq, mg;
+  const uint32_t half = ccmh::bwd32::kStreamRows;
+  CUtensorMap mq, mg, mq32, mg32;
   cudaError_t err = make_map(&mq, qkv, kMapF32, 3 * D, L, B, 3 * D, 32);
   if (err == cudaSuccess) err = make_map(&mg, g, kMapF32, D, L, B, D, 32);
+  if (err == cudaSuccess) err = make_map(&mq32, qkv, kMapF32, 3 * D, L, B, 3 * D, 32, half);
+  if (err == cudaSuccess) err = make_map(&mg32, g, kMapF32, D, L, B, D, 32, half);
   if (err == cudaSuccess)
-    err = launch_bwd_wgmma32_kernel<kStatsPass>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
+    err = launch_bwd_wgmma32_stats(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
   if (err == cudaSuccess)
-    err = launch_bwd_wgmma32_kernel<kDkDv>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
+    err = launch_bwd_ws32<kDkDv>(mq32, mg32, qkv_b, mask, dqkv, B, L, H, scale, stream);
   if (err == cudaSuccess)
-    err = launch_bwd_wgmma32_kernel<kDq>(mq, mg, qkv_b, mask, dqkv, B, L, H, scale, stream);
+    err = launch_bwd_ws32<kDq>(mq32, mg32, qkv_b, mask, dqkv, B, L, H, scale, stream);
   return err;
 }
 

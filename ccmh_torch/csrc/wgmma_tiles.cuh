@@ -88,6 +88,27 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// one arrival on a barrier (release: the arriving thread's accesses before it)
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+
+// a barrier of `threads` threads, whole warps, named `id` (0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a warpgroup's registers a thread, lowered for a producer or raised for a
+// consumer of a warp-specialised block (setmaxnreg, sm_90a)
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // ---- TMA: one box of a 3-D tensor map into shared memory, its bytes
 // counted on `bar`; the map is a __grid_constant__ kernel parameter
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -148,6 +169,12 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
 #define CCMH_WG_D32                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define CCMH_WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define CCMH_WG_OUT16(d)                                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
 #define CCMH_WG_OUT32(d)                                                                    \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
@@ -194,17 +221,25 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
 // The same over 8 columns in tf32 (the fp32 kernels, 3xTF32 below): A
 // [64][8] K-major from shared memory or from registers (a[q]: rows g + 8 (q
 // & 1), column t + 4 (q >> 1) of the warp's 16, wgmma's tf32 A layout), B
-// [N][8] K-major from shared memory.  tf32 has no transpose bit.
+// [N][8] K-major from shared memory, N = 64, 32 (the fp32 backward's
+// 32-row stages) or 16.  tf32 has no transpose bit.
 template <int N>
 __device__ __forceinline__ void mma32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 16, "m64n64k8 or m64n16k8");
+  static_assert(N == 64 || N == 32 || N == 16, "m64n64k8, m64n32k8 or m64n16k8");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " CCMH_WG_D32
         ", %32, %33, p, 1, 1;\n}\n"
         : CCMH_WG_OUT32(d)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " CCMH_WG_D16
+        ", %16, %17, p, 1, 1;\n}\n"
+        : CCMH_WG_OUT16(d)
         : "l"(da), "l"(db), "r"(accumulate));
   } else {
     asm volatile(
@@ -220,13 +255,20 @@ __device__ __forceinline__ void mma32_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N>
 __device__ __forceinline__ void mma32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 16, "m64n64k8 or m64n16k8");
+  static_assert(N == 64 || N == 32 || N == 16, "m64n64k8, m64n32k8 or m64n16k8");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " CCMH_WG_D32
         ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
         : CCMH_WG_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " CCMH_WG_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : CCMH_WG_OUT16(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   } else {
     asm volatile(
@@ -241,6 +283,8 @@ __device__ __forceinline__ void mma32_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 #undef CCMH_WG_D32
 #undef CCMH_WG_OUT32
+#undef CCMH_WG_D16
+#undef CCMH_WG_OUT16
 
 // d = X Y^T over the head dim: X (the warpgroup's 64 rows) and the first
 // N rows of Y
@@ -500,10 +544,19 @@ __device__ __forceinline__ int off32(int r, int c) {
   return (c >> 5) * kAtomBytes + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
 }
 
-// an fp32 tile as a K-major tf32 operand, k-step kk of 8 columns
+// an fp32 tile as a K-major tf32 operand, k-step kk of 8 columns; R: the
+// tile's rows (64, or 32 for the fp32 backward's streamed stages, whose
+// atoms are [32 rows][32 fp32] = 4 KB)
+template <int R = kRows>
 __device__ __forceinline__ uint64_t desc_k32(const void* tile, int kk) {
-  return desc(static_cast<const unsigned char*>(tile) + (kk >> 2) * kAtomBytes + 32 * (kk & 3), 16,
+  return desc(static_cast<const unsigned char*>(tile) + (kk >> 2) * (R * 128) + 32 * (kk & 3), 16,
               1024);
+}
+
+// byte offset of element (r, c) of an fp32 tile of R rows
+template <int R>
+__device__ __forceinline__ int off32r(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
 }
 
 __device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
@@ -516,6 +569,69 @@ __device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) 
   hi.z = __uint_as_float(h), lo.z = __uint_as_float(l);
   ccmh::mma::split_tz(x.w, h, l);
   hi.w = __uint_as_float(h), lo.w = __uint_as_float(l);
+}
+
+// lo = x - hi of the split toward zero, itself cut to tf32 (split_tz's lo)
+__device__ __forceinline__ float lo_tz(float x) {
+  const float hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float(__float_as_uint(x - hi) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 lo4(const float4& x) {
+  return make_float4(lo_tz(x.x), lo_tz(x.y), lo_tz(x.z), lo_tz(x.w));
+}
+
+// The fp32 backward past 128 tokens keeps each operand as the fp32 value
+// itself and its lo: the tensor cores ignore the low 13 mantissa bits of a
+// raw fp32 operand (chip_smoke.py checks it before the first fp32 long
+// launch), so x is its own hi, bit for bit split_tz's in the product.
+// These run in a producer warpgroup of few registers: their loops are not
+// unrolled, which unrolled spilled.
+// fold_lo: rows 0..NR-1 of a landed tile of TR rows, bias[c] (device
+// memory, or null) added in place to the rows below nb (rows past the
+// sequence landed as zeros and stay so), and lo written beside; by one
+// warpgroup, 16-byte chunks in their swizzled places.
+template <int TR, int NR>
+__device__ __forceinline__ void fold_lo(unsigned char* x, unsigned char* lo, int nb,
+                                        const float* __restrict__ bias, int tid) {
+#pragma unroll 1
+  for (int i = 0; i < 2 * NR * 8 / kWgThreads; ++i) {
+    const int q = tid + i * kWgThreads;
+    const int a = q / (NR * 8), r = (q >> 3) % NR, c = q & 7;
+    const int off = a * (TR * 128) + r * 128 + c * 16;
+    float4 v = *reinterpret_cast<const float4*>(x + off);
+    if (bias != nullptr && r < nb) {
+      const float4 b = __ldg(reinterpret_cast<const float4*>(bias + 32 * a + 4 * (c ^ (r & 7))));
+      v.x += b.x;
+      v.y += b.y;
+      v.z += b.z;
+      v.w += b.w;
+      *reinterpret_cast<float4*>(x + off) = v;
+    }
+    *reinterpret_cast<float4*>(lo + off) = lo4(v);
+  }
+}
+
+// The transpose of rows 0..NX-1 of a folded tile of TR rows into a [64][32]
+// tile and its lo, in split_tile_t's order (row n holds column n; source
+// row 8 j + 2 i + h at column 8 j + 4 h + i, acc_to_a32's k order), by one
+// warpgroup: thread tid writes row tid % 64, a 16-byte chunk at a time.
+template <int TR, int NX>
+__device__ __forceinline__ void transpose_lo(unsigned char* xt, unsigned char* lo,
+                                             const unsigned char* x, int tid) {
+  const int n = tid & 63;
+#pragma unroll 1
+  for (int it = 0; it < NX / 8; ++it) {
+    const int cc = 2 * it + (tid >> 6);
+    const int x0 = 8 * (cc >> 1) + (cc & 1);
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = *reinterpret_cast<const float*>(x + off32r<TR>(x0 + 2 * i, n));
+    const float4 f = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(xt + off32(n, 4 * cc)) = f;
+    *reinterpret_cast<float4*>(lo + off32(n, 4 * cc)) = lo4(f);
+  }
 }
 
 // The hi and lo tiles of rows 0..NR-1 of a landed fp32 tile (NR = 64, or
@@ -619,28 +735,28 @@ __device__ __forceinline__ void acc_to_a32(uint32_t (&hi)[N / 8][4], uint32_t (&
 }
 
 // d = X Y^T over the 64 columns, 3xTF32: X's 64 rows (hi, lo tiles) and
-// the first N rows of Y's (hi, lo tiles)
-template <int N>
+// the first N rows of Y's (hi, lo tiles of YR rows)
+template <int N, int YR = kRows>
 __device__ __forceinline__ void rows_times32(float (&d)[N / 2], const void* xh, const void* xl,
                                              const void* yh, const void* yl) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    mma32_ss<N>(d, desc_k32(xl, kk), desc_k32(yh, kk), kk > 0);
-    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32(yl, kk), 1);
-    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32(yh, kk), 1);
+    mma32_ss<N>(d, desc_k32(xl, kk), desc_k32<YR>(yh, kk), kk > 0);
+    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32<YR>(yl, kk), 1);
+    mma32_ss<N>(d, desc_k32(xh, kk), desc_k32<YR>(yh, kk), 1);
   }
 }
 
 // the same with X's A fragments in registers (a_rows32)
-template <int N>
+template <int N, int YR = kRows>
 __device__ __forceinline__ void rows_times32(float (&d)[N / 2], const uint32_t (&xh)[8][4],
                                              const uint32_t (&xl)[8][4], const void* yh,
                                              const void* yl) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    mma32_rs<N>(d, xl[kk], desc_k32(yh, kk), kk > 0);
-    mma32_rs<N>(d, xh[kk], desc_k32(yl, kk), 1);
-    mma32_rs<N>(d, xh[kk], desc_k32(yh, kk), 1);
+    mma32_rs<N>(d, xl[kk], desc_k32<YR>(yh, kk), kk > 0);
+    mma32_rs<N>(d, xh[kk], desc_k32<YR>(yl, kk), 1);
+    mma32_rs<N>(d, xh[kk], desc_k32<YR>(yh, kk), 1);
   }
 }
 
@@ -659,20 +775,33 @@ __device__ __forceinline__ void acc_times32(float (&d)[32], const uint32_t (&ah)
   }
 }
 
-// d += A Y over the first N rows of Y with A = the accumulator p, its A
-// fragments made and taken four k-steps at a time (32 registers, not 64)
+// The lo halves of an accumulator p's A fragments (acc_to_a32's order):
+// p itself is their hi (fold_lo)
 template <int N>
-__device__ __forceinline__ void acc_times32_halves(float (&d)[32], const float (&p)[N / 2],
-                                                   const void* th, const void* tl) {
-  constexpr int KK = N / 8 < 4 ? N / 8 : 4;
-  auto part = [&](auto j0) {
-    constexpr int J0 = decltype(j0)::value;
-    uint32_t ah[KK][4], al[KK][4];
-    acc_to_a32_part<J0, KK>(ah, al, p);
-    run(d, [&] { acc_times32<KK, J0>(d, ah, al, th, tl); });
-  };
-  part(std::integral_constant<int, 0>());
-  if constexpr (N / 8 > 4) part(std::integral_constant<int, 4>());
+__device__ __forceinline__ void lo_a32(uint32_t (&lo)[N / 8][4], const float (&p)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    lo[j][0] = __float_as_uint(lo_tz(p[4 * j + 0]));
+    lo[j][1] = __float_as_uint(lo_tz(p[4 * j + 2]));
+    lo[j][2] = __float_as_uint(lo_tz(p[4 * j + 1]));
+    lo[j][3] = __float_as_uint(lo_tz(p[4 * j + 3]));
+  }
+}
+
+// d += A Y over the first 8 KK rows of Y: A = an accumulator p (its own
+// hi) and lo_a32(p), Y transposed in xt and its lo (transpose_lo), 3xTF32
+template <int KK, int M>
+__device__ __forceinline__ void acc_times32_raw(float (&d)[32], const float (&p)[M],
+                                                const uint32_t (&al)[KK][4], const void* xt,
+                                                const void* lo) {
+#pragma unroll
+  for (int j = 0; j < KK; ++j) {
+    const uint32_t ah[4] = {__float_as_uint(p[4 * j + 0]), __float_as_uint(p[4 * j + 2]),
+                            __float_as_uint(p[4 * j + 1]), __float_as_uint(p[4 * j + 3])};
+    mma32_rs<64>(d, al[j], desc_k32(xt, j), 1);
+    mma32_rs<64>(d, ah, desc_k32(lo, j), 1);
+    mma32_rs<64>(d, ah, desc_k32(xt, j), 1);
+  }
 }
 
 // the two TMA boxes of an fp32 tile (64 rows from row c1, columns c0 ..
@@ -681,6 +810,14 @@ __device__ __forceinline__ void tma_tile32(void* dst, const CUtensorMap* map, ui
                                            int c1, int c2) {
   tma_load(dst, map, bar, c0, c1, c2);
   tma_load(static_cast<unsigned char*>(dst) + kAtomBytes, map, bar, c0 + 32, c1, c2);
+}
+
+// the two TMA boxes of a streamed [32 rows][64 fp32] tile (a map of
+// 32-row boxes), counted on bar
+__device__ __forceinline__ void tma_half32(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                           int c1, int c2) {
+  tma_load(dst, map, bar, c0, c1, c2);
+  tma_load(static_cast<unsigned char*>(dst) + kAtomBytes / 2, map, bar, c0 + 32, c1, c2);
 }
 
 // ---- host: tensor maps through cuTensorMapEncodeTiled, its entry point
@@ -713,15 +850,16 @@ inline EncodeTiled encode_tiled() {
 enum MapKind { kMapBf16 = 0, kMapF32 = 1, kMapF32Plain = 2 };
 
 // A [batch][rows][width] tensor whose rows are `ld` elements apart, in boxes
-// of [1][64][box] elements from column c0 (the kernel's coordinate).
+// of [1][box_rows][box] elements from column c0 (the kernel's coordinate).
 inline cudaError_t make_map(CUtensorMap* map, const void* base, MapKind kind, uint64_t width,
-                            uint64_t rows, uint64_t batch, uint64_t ld, uint32_t box) {
+                            uint64_t rows, uint64_t batch, uint64_t ld, uint32_t box,
+                            uint32_t box_rows = kRows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const uint64_t item = kind == kMapBf16 ? 2 : 4;
   const cuuint64_t dims[3] = {width, rows, batch};
   const cuuint64_t strides[2] = {ld * item, rows * ld * item};
-  const cuuint32_t boxes[3] = {box, static_cast<cuuint32_t>(kRows), 1};
+  const cuuint32_t boxes[3] = {box, box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, kind == kMapBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                         3, const_cast<void*>(base), dims, strides, boxes, unit,

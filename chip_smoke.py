@@ -3077,8 +3077,12 @@ LONG_SHAPES = (("ViT-B/16", 256, 197, 12), ("ViT-L/14", 64, 257, 16),
 # (ccmh_torch.ops.attention.ONEPASS_MAX_L), 337 the first L past it, 768
 # the resident two-pass forward's (RESIDENT_MAX_L), 769 past it; 272 the
 # bf16 one-pass backward's (BWD_ONEPASS_MAX_L), 273 past it; 129 a 1-key
-# and 144, 208 a 16-key last key tile
-LONG_EDGES = (1, 129, 143, 144, 192, 208, 256, 272, 273, 336, 337, 577, 768, 769)
+# and 144, 208 a 16-key last key tile; 193, 320 and 321 the fp32 backward's
+# block edges (csrc/attention_bwd32_plan.cuh: 128 resident rows a block, two
+# consumers of 64; 193 ends on one consumer of one row, 320 on one of 64
+# beside an idle one, 321 on one row past that)
+LONG_EDGES = (1, 129, 143, 144, 192, 193, 208, 256, 272, 273, 320, 321, 336, 337, 577, 768,
+              769)
 # rows 0, 1 and L - 1 masked entirely by these finite values (the plain
 # softmax, and ccmh's, give each a uniform row)
 MASKED_ROWS = (-1e9, -1e30, float(np.finfo(np.float32).min) / 2)
@@ -3163,6 +3167,13 @@ def wgmma_report(name):
             what="registers a thread of each instance of #2's bf16 one-pass query side "
                  "(NT key tiles of 64, a tail of 16, a mask), as ptxas allots them: two "
                  "blocks of one warpgroup an SM")
+        ws = {k: v for k, v in kernels.items() if "wgmma32_ws" in k}
+        check(len(ws) == 4, f"attention_bwd: the fp32 warp-specialised kernels 2 and 3 (with and "
+                            f"without a mask) are not all in the ptxas report: {sorted(ws)}")
+        say("build", library=name, fp32_ws_ptxas=ws,
+            what="#2's fp32 kernels 2 (dk dv) and 3 (dq) past 128 tokens: one producer "
+                 "warpgroup (setmaxnreg 40) and two consumers (232) a block, one block an SM; "
+                 "ptxas reports the registers at launch")
 
 
 def _long_family(L, Dh=64, aligned=True, kind="bwd", bf16=False):
@@ -3336,7 +3347,10 @@ def tf32_selftest():
     each (3xTF32: shared-memory and register operands, the transposed
     split; check_attention_long's selftest, with the bf16 ones), and whether
     the tensor cores ignore the low 13 mantissa bits of a raw fp32 operand,
-    printed on a line of its own."""
+    on a line of its own.  #2's fp32 backward past 128 tokens relies on
+    that (a folded fp32 tile is its own TF32 hi operand), so this runs
+    before the first fp32 long launch and fails the run if the bits are
+    used."""
     import torch
 
     from ccmh_torch.tools import check_attention_long as cal
@@ -3345,6 +3359,10 @@ def tf32_selftest():
         if "tf32_low_13_bits" in row:
             say("tf32_low_13_bits", answer=row["tf32_low_13_bits"],
                 raw_vs_hi_max_abs_diff=row["raw_vs_hi_max_abs_diff"], what=row["what"])
+            check(row["tf32_low_13_bits"] == "ignored",
+                  f"the tensor cores use the low 13 mantissa bits of a raw fp32 operand "
+                  f"({row}): #2's fp32 backward past 128 tokens feeds folded fp32 tiles as "
+                  f"their own TF32 hi operands and needs them ignored")
             continue
         check(row["ok"], f"wgmma selftest {row['selftest']}: {row}")
         say("selftest", **row)
@@ -5167,6 +5185,9 @@ def main() -> int:
     say("card", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
     phase_build()
+    # the fp32 wgmma building blocks and the truncation #2's fp32 long
+    # backward relies on, before any fp32 long launch
+    tf32_selftest()
 
     # the towers' shapes at batch 256, and MITH's concept transformers
     # (L = K bits, no mask) at its batch of 128
@@ -5305,7 +5326,6 @@ def main() -> int:
           and edge_families["fused_attention_fwd"]["long_resident"] > 0,
           f"phase 14's edges never launched one of #1's bf16 kernels past 128 tokens "
           f"(one-pass, resident): {edge_families['fused_attention_fwd']}")
-    tf32_selftest()
     hamming_sass_report()
     wide_cases = wide_hamming_cases()
     torch.cuda.empty_cache()

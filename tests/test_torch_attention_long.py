@@ -25,7 +25,13 @@ interpret mode on the CPU, as ccmh's own tests run them.
 * The fp32 ``wgmma`` kernels' products emulated as they take them: 3xTF32
   in k-steps of 8 columns (lo.hi + hi.lo + hi.hi, split toward zero), a
   sum over the sequence in the order in which an accumulator's columns
-  enter as the register A operand; against ``ccmh`` under the fp32 gate.
+  enter as the register A operand; against ``ccmh`` under the fp32 gate,
+  also at the fp32 backward's block edges (L = 193, 320, 321), where its
+  32-row stages take the same k-steps in the same order.
+* The fp32 backward's shared-memory plan and grid
+  (``csrc/attention_bwd32_plan.cuh``), compiled here with the host
+  compiler: each warp-specialised kernel's bytes fit a block, and the
+  blocks' consumers hold every row of L once.
 * The ``wgmma`` kernels' softmax on rows that a large finite mask covers
   entirely (-1e9, -1e30, finfo.min / 2): before the repair the exponent
   was 2^(x log2 e - lse2) in one multiply-add, lse2 = round(m log2 e) +
@@ -296,8 +302,16 @@ def test_long_schedule_matches_ccmh(B, L, H, Dh, kind, dtype, direction, chunk):
     assert math.isfinite(err) and err <= gate, (err, gate)
 
 
+# the fp32 backward's block edges (csrc/attention_bwd32_plan.cuh): a block
+# holds 128 resident rows, two consumers of 64, and streams 32-row stages;
+# L = 193 leaves its last block one consumer of one row, 320 two consumers
+# (64 + 0 rows: the second idle), 321 one row past that
+BWD32_EDGES = [pytest.param(1, L, 1, 64, kind, id=f"L{L}-{kind}")
+               for L in (193, 320, 321) for kind in ("none", "causal")]
+
+
 @pytest.mark.parametrize("direction", ["forward", "backward"])
-@pytest.mark.parametrize("B,L,H,Dh,kind", CASES)
+@pytest.mark.parametrize("B,L,H,Dh,kind", CASES + BWD32_EDGES)
 def test_tf32_wgmma_schedule_matches_ccmh(B, L, H, Dh, kind, direction):
     """The fp32 wgmma kernels' products: k-steps of 8, three TF32 products
     each, the sums over the sequence in the accumulator's column order."""
@@ -792,6 +806,70 @@ def test_wrapper_counts_a_launch_by_the_family_its_entry_reports(monkeypatch):
     assert attn.FAMILIES == ("short", "long_mma", "long_wgmma", "long_onepass", "long_resident")
     assert set(attn.launches_by_family) == set(attn.backward_launches_by_family) == set(
         attn.FAMILIES)
+
+
+# ---- the fp32 long backward's shared-memory plan and grid
+
+# chip_smoke.py's LONG_EDGES (with the fp32 backward's block edges 193, 320
+# and 321), the towers' 197 and the C entries' longest L
+PLAN_EDGES = (1, 129, 143, 144, 192, 193, 197, 208, 256, 257, 272, 273, 320, 321, 336, 337,
+              577, 768, 769, 4096)
+SMEM_LIMIT = 232448       # bytes a block may take on an H100
+
+
+@pytest.fixture(scope="module")
+def plan_library(tmp_path_factory):
+    """csrc/attention_bwd32_plan.cuh built with the host compiler: kernel 2's
+    (keys = 1) and kernel 3's shared memory, the blocks a head, each
+    consumer's first row and rows, the stages and each stage's rows."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("plan")
+    src = d / "plan.cc"
+    src.write_text('#include "attention_bwd32_plan.cuh"\n'
+                   'namespace p = ccmh::bwd32;\n'
+                   'extern "C" int smem(int keys) { return keys ? p::kDkDvSmem : p::kDqSmem; }\n'
+                   'extern "C" int consumers() { return p::kConsumers; }\n'
+                   'extern "C" int blocks(int L) { return p::blocks_a_head(L); }\n'
+                   'extern "C" int row0(int blk, int c) { return p::consumer_row0(blk, c); }\n'
+                   'extern "C" int rows(int L, int blk, int c) {'
+                   ' return p::consumer_rows(L, blk, c); }\n'
+                   'extern "C" int steps(int L) { return p::stream_steps(L); }\n'
+                   'extern "C" int stage_rows(int L, int s) { return p::stream_rows(L, s); }\n')
+    lib = d / "plan.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-I",
+                    os.path.abspath(_CSRC), "-o", str(lib), str(src)], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.mark.parametrize("keys,tiles_16k,stages,stage_8k,stats", [
+    pytest.param(1, 4, 2, 8, 32 * 16, id="dk_dv"),    # k, k lo (2 consumers); q, g, T, lo
+    pytest.param(0, 4, 3, 6, 0, id="dq"),             # q, q lo; k, v, k^T, lo
+])
+def test_fp32_backward_kernels_fit_a_block(plan_library, keys, tiles_16k, stages, stage_8k,
+                                           stats):
+    """Each kernel's shared memory, counted tile by tile (1 KB slack for the
+    swizzle's 1024-byte alignment, 128 bytes of mbarriers), fits a block."""
+    want = 1024 + tiles_16k * 16384 + stages * (stage_8k * 8192 + stats) + 128
+    assert plan_library.smem(keys) == want <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("L", PLAN_EDGES)
+def test_fp32_backward_blocks_cover_each_row_once(plan_library, L):
+    """The blocks' consumers hold every row of L once as a resident row,
+    each at most 64, the first consumer of every block some; the stages
+    stream every row once, 32 at a time."""
+    seen = np.zeros(L, np.int64)
+    for blk in range(plan_library.blocks(L)):
+        assert plan_library.rows(L, blk, 0) > 0
+        for c in range(plan_library.consumers()):
+            n, r0 = plan_library.rows(L, blk, c), plan_library.row0(blk, c)
+            assert 0 <= n <= 64
+            seen[r0:r0 + n] += 1
+    assert (seen == 1).all()
+    stream = [plan_library.stage_rows(L, s) for s in range(plan_library.steps(L))]
+    assert sum(stream) == L and all(0 < n <= 32 for n in stream)
 
 
 # ---- the two faults: the kernels' checks refused what ccmh runs

@@ -525,7 +525,49 @@ def test_fp32_tile_layout_is_a_bijection():
     assert all(off32(r, 4 * c + 3) - off32(r, 4 * c) == 12 for r in range(64) for c in range(16))
 
 
-@pytest.mark.parametrize("NX", [64, 16])
+def off32r(r, c, R):
+    """Byte offset of element (r, c) of an fp32 tile of R rows (wgmma_tiles.cuh
+    off32r: the fp32 backward's streamed 32-row stages have 4 KB atoms)."""
+    return (c >> 5) * R * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2)
+
+
+@pytest.mark.parametrize("R", [64, 32])
+def test_fp32_tile_of_r_rows_is_a_bijection(R):
+    assert sorted(off32r(r, c, R) for r in range(R) for c in range(64)) == list(
+        range(0, R * 256, 4))
+    assert all(off32r(r, c, 64) == off32(r, c) for r in range(64) for c in range(64))
+
+
+def test_resident_tile_lands_as_two_32_row_boxes():
+    """Kernels 2 and 3 land a consumer's [64][64] resident tile as 32-row
+    boxes (rows x * 32.., atom a at a * 8 KB + x * 4 KB): the 128-byte
+    swizzle of a box's row r is that of tile row 32 x + r."""
+    for x in range(2):
+        for a in range(2):
+            for r in range(32):
+                for c in range(32):
+                    box = a * 8192 + x * 4096 + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4
+                    assert box == off32(32 * x + r, 32 * a + c)
+
+
+@pytest.mark.parametrize("TR,NR", [(64, 64), (32, 32), (32, 16)])
+def test_fold_lo_visits_each_chunk_once_with_its_columns_bias(TR, NR):
+    """fold_lo's 128 threads: each 16-byte chunk of rows 0..NR-1 of a tile of
+    TR rows once, and the bias chunk a thread adds is that of the columns the
+    chunk holds."""
+    seen = []
+    for tid in range(128):
+        for i in range(2 * NR * 8 // 128):
+            q = tid + i * 128
+            a, r, c = q // (NR * 8), (q >> 3) % NR, q & 7
+            off = a * TR * 128 + r * 128 + c * 16
+            col = 32 * a + 4 * (c ^ (r & 7))
+            assert off32r(r, col, TR) == off
+            seen.append(off)
+    assert sorted(seen) == sorted(off32r(r, 4 * k, TR) for r in range(NR) for k in range(16))
+
+
+@pytest.mark.parametrize("NX", [64, 32, 16])
 def test_transposed_split_writes_every_element_once_in_the_accumulator_order(NX):
     places = split_tile_t_places(NX)
     assert sorted(places) == [(x, n) for x in range(NX) for n in range(64)]
@@ -535,7 +577,7 @@ def test_transposed_split_writes_every_element_once_in_the_accumulator_order(NX)
         assert row == n and col == 8 * j + K_ORDER.index(e)
 
 
-@pytest.mark.parametrize("N", [64, 16])
+@pytest.mark.parametrize("N", [64, 32, 16])
 def test_register_operand_products_see_the_keys_in_their_order(N):
     """acc_to_a32 with split_tile_t computes P V exactly (integers in
     float64): the key order of the A fragments and of the transposed B

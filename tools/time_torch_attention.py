@@ -31,8 +31,12 @@ the same at L=256 (no class token: beside L=257 it prices the last
 query tile, which holds one row), and ViT-L/14@336 B=64 L=577 H=16, no
 mask, with the kernel family each call took (``short``, ``long_mma``,
 ``long_wgmma``, and in bf16 ``long_onepass`` and ``long_resident``) where
-the checkout counts it; their wrapper times are
-not taken (the wrapper adds the same microseconds to a millisecond).  A
+the checkout counts it, and ``bwd_kernels_us``: the device µs a call of
+each kernel the backward launches, by name (``torch.profiler`` over 5
+calls; fp32: ``attention_bwd_wgmma32_stats``, then the warp-specialised
+kernels 2 and 3, ``attention_bwd_wgmma32_ws<1|2, mask>``, where an older
+checkout has ``attention_bwd_wgmma32<1|2, mask>``); their wrapper times are not
+taken (the wrapper adds the same microseconds to a millisecond).  A
 checkout whose backward entry takes the bf16 long path's row-statistics
 buffer is passed one; an older checkout is called without it.
 
@@ -100,6 +104,22 @@ def steady_ms(fn) -> float:
         t = ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])
         best = min(best, t / (LOOPS[1] - LOOPS[0]))
     return best
+
+
+def kernel_us(fn, calls: int = 5) -> dict:
+    """Device µs a call of each kernel ``fn`` launches, by kernel name
+    (``torch.profiler`` over ``calls`` calls after one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:90]: us / calls for ev in prof.key_averages()
+            if (us := getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0))}
 
 
 def digest(t) -> str:
@@ -387,7 +407,9 @@ def main(argv=None) -> int:
                 families = [None if c is None else [f for f in c if c[f] > was[f]]
                             for c, was in zip(by_family, before)]
                 fwd_ms = steady_ms(entry_call(attn, "fwd", qkv, mask, qkv_b, H))
-                bwd_ms = steady_ms(entry_call(attn, "bwd", qkv, mask, qkv_b, H, g))
+                bwd_call = entry_call(attn, "bwd", qkv, mask, qkv_b, H, g)
+                bwd_ms = steady_ms(bwd_call)
+                bwd_kernels = kernel_us(bwd_call) if kind == "long" else None
                 fwd_wrapper_ms = bwd_wrapper_ms = None
                 if kind == "short":
                     fwd_wrapper_ms = steady_ms(
@@ -410,6 +432,7 @@ def main(argv=None) -> int:
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_both - sdpa_fwd,
                 "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
                 "bwd_output_scale": want.abs().max().item(), **digests,
+                **({"bwd_kernels_us": bwd_kernels} if bwd_kernels else {}),
                 **({"families": families} if families[0] is not None else {})}), flush=True)
             del qkv, g, want, x
             torch.cuda.empty_cache()

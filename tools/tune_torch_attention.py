@@ -44,7 +44,9 @@ projection bias (nothing to fold into the tiles); ``--profile`` adds, for
 each #1 and #2 variant, the device µs a call of each kernel it launches
 (``torch.profiler`` over 10 calls: the backward's kernels one by one, in
 bf16 up to 272 keys the one-pass query side ``attention_bwd_onepass_q``
-beside kernel 2).  A backward variant whose sources take the bf16 long
+beside kernel 2; in fp32 past 128 keys kernel 1,
+``attention_bwd_wgmma32_stats``, and the warp-specialised kernels 2 and 3,
+``attention_bwd_wgmma32_ws<1|2, mask>``).  A backward variant whose sources take the bf16 long
 path's row-statistics buffer (``ccmh_attention_bwd_stats_width``) is
 passed one; an older one (``*_parent``) is called without it.
 """
